@@ -1,0 +1,84 @@
+"""Quaternion <-> rotation-matrix conversions; quaternions are (w, x, y, z).
+
+`rot_to_quat` has two methods:
+  * "eigh"   — top eigenvector of the 4x4 Davenport K-matrix, the
+               reference algorithm. The eigenvector sign is up to the
+               solver, so results may differ by a sign per matrix.
+  * "closed" — branchless Shepperd extraction with a canonical sign
+               (largest-|component| positive), purely elementwise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# cuSOLVER's batched symmetric eigensolver refuses a batch of 32768 4x4
+# matrices and takes 16384 (H100, CUDA 12.8), so "eigh" goes in chunks.
+_EIGH_BATCH = 16384
+
+
+def quat_to_rot(quat: torch.Tensor) -> torch.Tensor:
+    """[*, 4] (w,x,y,z) -> [*, 3, 3]; exact for unit quaternions."""
+    a, b, c, d = quat.unbind(-1)
+    aa, bb, cc, dd = a * a, b * b, c * c, d * d
+    ab, ac, ad = a * b, a * c, a * d
+    bc, bd, cd = b * c, b * d, c * d
+    row0 = torch.stack([aa + bb - cc - dd, 2 * bc - 2 * ad, 2 * bd + 2 * ac], dim=-1)
+    row1 = torch.stack([2 * bc + 2 * ad, aa - bb + cc - dd, 2 * cd - 2 * ab], dim=-1)
+    row2 = torch.stack([2 * bd - 2 * ac, 2 * cd + 2 * ab, aa - bb - cc + dd], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def _k_matrix(rot: torch.Tensor) -> torch.Tensor:
+    xx, xy, xz = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    yx, yy, yz = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    zx, zy, zz = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    k = torch.stack(
+        [
+            torch.stack([xx + yy + zz, zy - yz, xz - zx, yx - xy], dim=-1),
+            torch.stack([zy - yz, xx - yy - zz, xy + yx, xz + zx], dim=-1),
+            torch.stack([xz - zx, xy + yx, yy - xx - zz, yz + zy], dim=-1),
+            torch.stack([yx - xy, xz + zx, yz + zy, zz - xx - yy], dim=-1),
+        ],
+        dim=-2,
+    )
+    return k / 3.0
+
+
+def _first_max_onehot(x: torch.Tensor) -> torch.Tensor:
+    """One-hot of the first maximum along the last axis."""
+    is_best = x >= x.amax(dim=-1, keepdim=True)
+    return is_best & (torch.cumsum(is_best.to(torch.int32), dim=-1) == 1)
+
+
+def rot_to_quat(rot: torch.Tensor, method: str = "closed") -> torch.Tensor:
+    """[*, 3, 3] -> [*, 4] unit quaternion (w,x,y,z)."""
+    if method == "eigh":
+        # The solvers take fp32/fp64 only; a bf16 policy rounds afterwards.
+        k = _k_matrix(rot.float()).reshape(-1, 4, 4)
+        top = torch.cat([torch.linalg.eigh(chunk)[1][..., -1] for chunk in k.split(_EIGH_BATCH)])
+        return top.reshape(*rot.shape[:-2], 4).to(rot.dtype)
+    if method != "closed":
+        raise ValueError(f"unknown rot_to_quat method: {method}")
+
+    xx, xy, xz = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    yx, yy, yz = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    zx, zy, zz = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+
+    # Four candidate extractions, each stable in a different region;
+    # candidate i carries 4*q_i^2 on its diagonal entry.
+    tr = xx + yy + zz
+    qw = torch.stack([1.0 + tr, zy - yz, xz - zx, yx - xy], dim=-1)
+    qx = torch.stack([zy - yz, 1.0 + xx - yy - zz, xy + yx, xz + zx], dim=-1)
+    qy = torch.stack([xz - zx, xy + yx, 1.0 + yy - xx - zz, yz + zy], dim=-1)
+    qz = torch.stack([yx - xy, xz + zx, yz + zy, 1.0 + zz - xx - yy], dim=-1)
+
+    diags = torch.stack([qw[..., 0], qx[..., 1], qy[..., 2], qz[..., 3]], dim=-1)
+    w = _first_max_onehot(diags).to(qw.dtype)
+    q = w[..., 0:1] * qw + w[..., 1:2] * qx + w[..., 2:3] * qy + w[..., 3:4] * qz
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+    # Canonical sign: the largest-magnitude component is positive.
+    sel = _first_max_onehot(q.abs())
+    lead = torch.where(sel, q, torch.zeros_like(q)).sum(-1, keepdim=True)
+    return q * torch.sign(lead)

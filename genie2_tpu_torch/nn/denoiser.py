@@ -1,0 +1,78 @@
+"""The SE(3)-equivariant denoiser: rescale frames -> single features -> pair
+features -> pair transform stack -> IPA structure net -> descale -> noise
+prediction z = trans_in - trans_out.
+
+Submodules carry the reference's state_dict names
+(`pair_transform_net.net.{i}.tri_mul_out.linear_a_p.weight`, ...), so a
+released Lightning checkpoint loads with plain `load_state_dict`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from genie2_tpu_torch.geometry import Rigid
+from genie2_tpu_torch.nn.feature_nets import PairFeatureNet, SingleFeatureNet
+from genie2_tpu_torch.nn.pair_stack import PairTransformNet
+from genie2_tpu_torch.nn.structure import StructureNet
+
+
+class Denoiser(nn.Module):
+    """Given noisy frames at timestep t, predict the added noise. Dropout
+    rates are accepted for the configuration's sake; inference has none."""
+
+    def __init__(
+        self, c_s, c_p, n_timestep, rescale, c_pos_emb, c_chain_emb, c_timestep_emb, max_n_res,
+        max_n_chain, relpos_k, template_dist_min, template_dist_step, template_dist_n_bin,
+        n_pair_transform_layer, include_mul_update, include_tri_att, c_hidden_mul, c_hidden_tri_att,
+        n_head_tri, tri_dropout, pair_transition_n, n_structure_layer, n_structure_block,
+        c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, ipa_dropout, n_structure_transition_layer,
+        structure_transition_dropout, quat_method: str = "closed",
+    ):
+        super().__init__()
+        self.rescale = rescale
+        self.single_feature_net = SingleFeatureNet(
+            c_s, n_timestep, c_pos_emb, c_chain_emb, c_timestep_emb, max_n_res, max_n_chain
+        )
+        self.pair_feature_net = PairFeatureNet(
+            c_s, c_p, relpos_k, template_dist_min, template_dist_step, template_dist_n_bin, quat_method
+        )
+        self.pair_transform_net = (
+            PairTransformNet(c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
+                             c_hidden_mul, pair_transition_n)
+            if n_pair_transform_layer > 0 else None
+        )
+        self.structure_net = StructureNet(
+            c_s, c_p, n_structure_layer, n_structure_block, c_hidden_ipa, n_head_ipa, n_qk_point,
+            n_v_point, n_structure_transition_layer,
+        )
+
+    @classmethod
+    def from_config(cls, config) -> "Denoiser":
+        return cls(
+            **config.model,
+            n_timestep=config.diffusion["n_timestep"],
+            max_n_res=config.io["max_n_res"],
+            max_n_chain=config.io["max_n_chain"],
+            quat_method=config.tpu.get("rot_to_quat_method", "closed"),
+        )
+
+    def forward(
+        self, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
+        static_pair_bias: torch.Tensor = None,
+    ) -> Dict[str, Any]:
+        trans_in = ts.trans
+        # The frames' dtype selects the compute precision; the encodings
+        # are built in float32 and the activations cast to it.
+        compute_dtype = ts.trans.dtype
+        ts = ts.scale_translation(self.rescale)
+        s = self.single_feature_net(ts, timesteps, features).to(compute_dtype)
+        p = self.pair_feature_net(s, ts, features, static_bias=static_pair_bias).to(compute_dtype)
+        if self.pair_transform_net is not None:
+            p = self.pair_transform_net(p, features)
+        states, ts = self.structure_net(s, p, ts, features)
+        ts = ts.scale_translation(1.0 / self.rescale)
+        return {"z": trans_in - ts.trans, "s": s, "p": p, "states": states, "ts": ts}

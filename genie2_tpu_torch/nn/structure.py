@@ -1,0 +1,160 @@
+"""IPA-based structure module: invariant point attention with the pair head,
+the structure transition, the backbone update and the stack of layers that
+is reapplied per block (parameters shared across blocks)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from genie2_tpu_torch.geometry import Rigid, quat_to_rot
+from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, layer_norm
+
+
+def _to_points(x: torch.Tensor) -> torch.Tensor:
+    """[.., 3P] laid out as thirds (x-coords, y, z) -> [.., P, 3]."""
+    return torch.stack(torch.chunk(x, 3, dim=-1), dim=-1)
+
+
+class InvariantPointAttention(nn.Module):
+    """AF2 Algorithm 22 with the reference's output head, which concatenates
+    the pair-attended features (width H * (c_z + c_hidden + 4 * P_v))."""
+
+    def __init__(self, c_s, c_z, c_hidden, no_heads, no_qk_points, no_v_points, inf=1e5, eps=1e-8):
+        super().__init__()
+        self.c_z, self.c_hidden, self.no_heads = c_z, c_hidden, no_heads
+        self.no_qk_points, self.no_v_points = no_qk_points, no_v_points
+        self.inf, self.eps = inf, eps
+        hc = no_heads * c_hidden
+        self.linear_q = Linear(c_s, hc)
+        self.linear_kv = Linear(c_s, 2 * hc)
+        self.linear_q_points = Linear(c_s, no_heads * no_qk_points * 3)
+        self.linear_kv_points = Linear(c_s, no_heads * (no_qk_points + no_v_points) * 3)
+        self.linear_b = Linear(c_z, no_heads)
+        self.head_weights = nn.Parameter(torch.full((no_heads,), SOFTPLUS_INVERSE_1))
+        self.linear_out = Linear(no_heads * (c_z + c_hidden + no_v_points * 4), c_s, init="final")
+
+    def forward(self, s, z, t: Rigid, mask):
+        h, c = self.no_heads, self.c_hidden
+        pq, pv = self.no_qk_points, self.no_v_points
+        B, N = s.shape[:2]
+
+        q = self.linear_q(s).view(B, N, h, c)
+        kv = self.linear_kv(s).view(B, N, h, 2 * c)
+        k, v = kv[..., :c], kv[..., c:]
+
+        frames = t.unsqueeze(-1)
+        q_pts = frames.apply(_to_points(self.linear_q_points(s))).view(B, N, h, pq, 3)
+        kv_pts = frames.apply(_to_points(self.linear_kv_points(s))).view(B, N, h, pq + pv, 3)
+        k_pts, v_pts = kv_pts[..., :pq, :], kv_pts[..., pq:, :]
+
+        b = self.linear_b(z)  # [B, N, N, H]
+        a = torch.einsum("bihc,bjhc->bhij", q, k) * math.sqrt(1.0 / (3 * c))
+        a = a + math.sqrt(1.0 / 3) * b.permute(0, 3, 1, 2)
+
+        diff = q_pts[:, :, None] - k_pts[:, None, :]  # [B, N, N, H, Pq, 3]
+        pt_att = (diff * diff).sum(-1)
+        head_weights = F.softplus(self.head_weights) * math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
+        pt_att = (pt_att * head_weights[:, None]).sum(-1) * (-0.5)  # [B, N, N, H]
+
+        mask = mask.to(s.dtype)
+        square_mask = self.inf * (mask[:, :, None] * mask[:, None, :] - 1)
+        a = a + pt_att.permute(0, 3, 1, 2) + square_mask[:, None]
+        a = torch.softmax(a, dim=-1)
+
+        o = torch.einsum("bhij,bjhc->bihc", a, v).reshape(B, N, h * c)
+        o_pt = torch.einsum("bhij,bjhpd->bihpd", a, v_pts)
+        o_pt = frames.unsqueeze(-1).invert_apply(o_pt)
+        o_pt_norm = torch.sqrt((o_pt * o_pt).sum(-1) + self.eps).reshape(B, N, h * pv)
+        o_pt_flat = o_pt.reshape(B, N, h * pv, 3)
+        o_pair = torch.einsum("bhij,bijc->bihc", a, z).reshape(B, N, h * self.c_z)
+
+        out = torch.cat(
+            [o, o_pt_flat[..., 0], o_pt_flat[..., 1], o_pt_flat[..., 2], o_pt_norm, o_pair], dim=-1
+        )
+        return self.linear_out(out)
+
+
+class _TransitionBlock(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.linear_1 = Linear(c, c, init="relu")
+        self.linear_2 = Linear(c, c, init="relu")
+        self.linear_3 = Linear(c, c, init="final")
+
+    def forward(self, s):
+        return self.linear_3(torch.relu(self.linear_2(torch.relu(self.linear_1(s))))) + s
+
+
+class StructureTransition(nn.Module):
+    """Residual 3-linear ReLU blocks, then LayerNorm (dropout is identity
+    at inference)."""
+
+    def __init__(self, c, num_layers):
+        super().__init__()
+        self.layers = nn.ModuleList(_TransitionBlock(c) for _ in range(num_layers))
+        self.layer_norm = layer_norm(c)
+
+    def forward(self, s):
+        for layer in self.layers:
+            s = layer(s)
+        return self.layer_norm(s)
+
+
+class BackboneUpdate(nn.Module):
+    """AF2 Algorithm 23; the linear is not zero-initialised, as in the
+    reference fork."""
+
+    def __init__(self, c_s):
+        super().__init__()
+        self.linear = Linear(c_s, 6)
+
+    def forward(self, s) -> Rigid:
+        params = self.linear(s)
+        quats, trans = params[..., :3], params[..., 3:]
+        norm = torch.sqrt((quats * quats).sum(-1, keepdim=True) + 1.0)
+        quats = torch.cat([torch.ones_like(quats[..., :1]), quats], dim=-1) / norm
+        return Rigid(quat_to_rot(quats), trans)
+
+
+class StructureLayer(nn.Module):
+    """s += IPA; LN; transition; frame compose."""
+
+    def __init__(self, c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, n_structure_transition_layer):
+        super().__init__()
+        self.ipa = InvariantPointAttention(c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point)
+        self.ipa_layer_norm = layer_norm(c_s)
+        self.transition = StructureTransition(c_s, n_structure_transition_layer)
+        self.bb_update = BackboneUpdate(c_s)
+
+    def forward(self, s, p, t: Rigid, mask):
+        s = self.ipa_layer_norm(s + self.ipa(s, p, t, mask))
+        s = self.transition(s)
+        return s, t.compose(self.bb_update(s))
+
+
+class StructureNet(nn.Module):
+    """n_structure_block passes over n_structure_layer layers; returns the
+    stacked single representations and the final frames."""
+
+    def __init__(self, c_s, c_p, n_structure_layer, n_structure_block, c_hidden_ipa, n_head_ipa,
+                 n_qk_point, n_v_point, n_structure_transition_layer):
+        super().__init__()
+        self.n_structure_block = n_structure_block
+        self.net = nn.ModuleList(
+            StructureLayer(c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point,
+                           n_structure_transition_layer)
+            for _ in range(n_structure_layer)
+        )
+
+    def forward(self, s, p, ts: Rigid, features):
+        mask = features["residue_mask"]
+        states = [s]
+        for _ in range(self.n_structure_block):
+            for layer in self.net:
+                s, ts = layer(s, p, ts, mask)
+                states.append(s)
+        return torch.stack(states, dim=0), ts

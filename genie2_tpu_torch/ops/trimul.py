@@ -1,0 +1,258 @@
+"""The triangle multiplicative update as three kernels, and their plain versions.
+
+The op (AF2 Algorithms 11/12) is LN_in -> four gated projections -> a masked
+per-channel contraction over the third node -> LN_out -> linear_z, times a
+sigmoid gate of LN_in(z). It runs as three stages that keep the hidden
+activations channel-major, [B, H, N, N], between them:
+
+  project   z [B,N,N,C] -> a, b [B,H,N,N]  (csrc/trimul_project.cu)
+  contract  a, b -> x [B,H,N,N]            (csrc/trimul_contract.cu)
+              outgoing: x[b,h,i,j] = sum_k a[b,h,i,k] b[b,h,j,k]
+              incoming: x[b,h,i,j] = sum_k a[b,h,k,i] b[b,h,k,j]
+  epilogue  x, z -> out [B,N,N,C]          (csrc/trimul_epilogue.cu)
+              LN_out folded into linear_z: r*(x.ws) - r*mu*u + vb,
+              times sigmoid(LN_in(z).W_g + b_g) with LN_in recomputed.
+
+Each wrapper takes its plain version for a tensor on the CPU and launches
+its kernel for a tensor on the card; anything else raises. The plain
+versions keep the JAX functions' argument layouts (ops/trimul_fused.py in
+genie2_tpu) and their rounding points: normalised activations are rounded
+to the activation dtype before each product, and products accumulate in
+float32.
+
+Weights use torch's Linear layout: w_ap, w_ag, w_bp, w_bg [H, C]; w_z
+[C_out, H]; w_g [C_out, C]; LayerNorm scales and biases are vectors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from genie2_tpu_torch.ops import build
+
+LN_EPS = 1e-6
+
+Weights = Dict[str, torch.Tensor]
+
+# Kernel launches on the card, counted by the wrappers below.
+LAUNCHES = {
+    "trimul_project": 0,
+    "trimul_contract_out": 0,
+    "trimul_contract_in": 0,
+    "trimul_epilogue": 0,
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------- #
+# Plain versions
+# --------------------------------------------------------------------- #
+
+
+def _ln_lane(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis with float32 statistics."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
+
+
+def project_gated_cm_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
+    """z [B,N,N,C], res_mask [B,N] -> (a, b) each [B,H,N,N] in z's dtype."""
+    dt = z.dtype
+    zn = _ln_lane(z, w["ln_in_scale"], w["ln_in_bias"]).to(dt).float()
+    mask = (res_mask[:, :, None] * res_mask[:, None, :]).to(dt).float()[:, None]
+
+    def proj(wk, bk):
+        out = torch.matmul(zn, w[wk].to(dt).float().t()) + w[bk].float()
+        return out.permute(0, 3, 1, 2)
+
+    def gated(p, g):
+        gate = torch.sigmoid(proj(f"w_{g}", f"b_{g}"))
+        return (proj(f"w_{p}", f"b_{p}") * gate * mask).to(dt).contiguous()
+
+    return gated("ap", "ag"), gated("bp", "bg")
+
+
+def contract_cm_plain(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
+    """[B,H,N,N] x [B,H,N,N] -> [B,H,N,N], float32 accumulation."""
+    af, bf = a.float(), b.float()
+    x = torch.matmul(af, bf.transpose(-1, -2)) if outgoing else torch.matmul(af.transpose(-1, -2), bf)
+    return x.to(a.dtype)
+
+
+def fold_ln_out(w: Weights, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """LN_out folded into linear_z: ws = w_z * scale rounded to the
+    activation dtype ([C_out, H], as float32), u = sum_h ws and
+    vb = w_z . bias + b_z."""
+    w_z = w["w_z"].float()
+    ws = (w_z * w["ln_out_scale"].float()[None, :]).to(dtype).float()
+    u = ws.sum(1)
+    vb = torch.mv(w_z, w["ln_out_bias"].float()) + w["b_z"].float()
+    return ws, u, vb
+
+
+def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
+    """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] (row-major)."""
+    dt = z.dtype
+    xf = x.float()
+    mu = xf.mean(1)
+    var = xf.square().mean(1) - mu.square()
+    r = torch.rsqrt(var + LN_EPS)
+    ws, u, vb = fold_ln_out(w, x.dtype)
+    main = torch.matmul(xf.permute(0, 2, 3, 1), ws.t())
+    lin = r[..., None] * main - (r * mu)[..., None] * u + vb
+    zn = _ln_lane(z, w["ln_in_scale"], w["ln_in_bias"]).to(dt).float()
+    g = torch.matmul(zn, w["w_g"].to(dt).float().t()) + w["b_g"].float()
+    return (lin * torch.sigmoid(g)).to(dt)
+
+
+# --------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------- #
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"trimul kernels run on cuda or cpu tensors, not {t.device}")
+    return False
+
+
+def _check_activation(name: str, t: torch.Tensor, ndim: int):
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 or bfloat16)")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
+
+
+def _f32(t: torch.Tensor, device) -> torch.Tensor:
+    """A weight as a contiguous float32 tensor on `device` (a no-op for
+    float32 parameters)."""
+    if t.device != device:
+        raise ValueError(f"weight on {t.device}, activations on {device}")
+    return t.float().contiguous()
+
+
+def _wt(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """A product weight rounded to the activation dtype, as float32, the
+    way the plain versions round it."""
+    return _f32(t.to(dtype), device)
+
+
+_ARGTYPES = {
+    "trimul_project": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "trimul_epilogue": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+
+
+def _kernel(name: str):
+    """The C entry point `name` of csrc/<name>.cu, built and typed."""
+    fn = getattr(build.load(name), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, device, *args):
+    """Call csrc/<name>.cu's entry point for `device`, on its current
+    stream, and raise on a launch error. Tensors go in as pointers; `args`
+    keeps every tensor (temporaries included) referenced until the launch
+    is enqueued, after which the caching allocator only hands their memory
+    to later work on the same stream."""
+    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        code = _kernel(name)(*c_args, stream)
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {code}")
+
+
+_MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
+
+
+def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
+    """z [B,N,N,C], res_mask [B,N] -> (a, b) each [B,H,N,N] channel-major."""
+    if _on_cpu(z):
+        return project_gated_cm_plain(z, res_mask, w)
+    _check_activation("project z", z, 4)
+    B, N, N2, C = z.shape
+    H = w["w_ap"].shape[0]
+    if N2 != N or tuple(res_mask.shape) != (B, N) or C > _MAX_CHANNELS or H < 1:
+        raise ValueError(f"project: z {tuple(z.shape)}, res_mask {tuple(res_mask.shape)}, H={H}")
+    dev = z.device
+    # Pack the four projections k-major, [C, 4, H], so each block streams
+    # one contiguous slab per hidden chunk.
+    w_cat = torch.stack([_wt(w[k], z.dtype, dev) for k in ("w_ap", "w_ag", "w_bp", "w_bg")], 0)
+    w_cat = w_cat.permute(2, 0, 1).contiguous()
+    b_cat = torch.stack([_f32(w[k], dev) for k in ("b_ap", "b_ag", "b_bp", "b_bg")], 0)
+    mask = _f32(res_mask, dev)
+    a = torch.empty((B, H, N, N), dtype=z.dtype, device=dev)
+    b = torch.empty_like(a)
+    _launch(
+        "trimul_project", dev, z, mask, _f32(w["ln_in_scale"], dev), _f32(w["ln_in_bias"], dev),
+        w_cat, b_cat, a, b, B, N, C, H, _DTYPE_CODES[z.dtype],
+    )
+    LAUNCHES["trimul_project"] += 1
+    return a, b
+
+
+def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
+    """[B,H,N,N] x [B,H,N,N] -> [B,H,N,N]; `outgoing` selects which index is k."""
+    if _on_cpu(a):
+        return contract_cm_plain(a, b, outgoing)
+    _check_activation("contract a", a, 4)
+    _check_activation("contract b", b, 4)
+    B, H, N, N2 = a.shape
+    if N2 != N or b.shape != a.shape or b.dtype != a.dtype or b.device != a.device:
+        raise ValueError(f"contract: a {tuple(a.shape)} {a.dtype}, b {tuple(b.shape)} {b.dtype}")
+    out = torch.empty_like(a)
+    _launch("trimul_contract", a.device, a, b, out, B * H, N, int(outgoing), _DTYPE_CODES[a.dtype])
+    LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] += 1
+    return out
+
+
+def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
+    """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] row-major."""
+    if _on_cpu(x):
+        return epilogue_cm_plain(x, z, w)
+    _check_activation("epilogue x", x, 4)
+    _check_activation("epilogue z", z, 4)
+    B, H, N, _ = x.shape
+    C = z.shape[-1]
+    D = w["w_z"].shape[0]
+    if (
+        tuple(z.shape) != (B, N, N, C) or z.dtype != x.dtype or z.device != x.device
+        or tuple(w["w_g"].shape) != (D, C) or H > _MAX_CHANNELS or C > _MAX_CHANNELS
+    ):
+        raise ValueError(f"epilogue: x {tuple(x.shape)}, z {tuple(z.shape)}, C_out={D}")
+    dev = x.device
+    ws, u, vb = fold_ln_out({k: _f32(w[k], dev) for k in ("w_z", "ln_out_scale", "ln_out_bias", "b_z")}, x.dtype)
+    ws_t = ws.t().contiguous()  # [H, C_out], k-major
+    wg_t = _wt(w["w_g"], z.dtype, dev).t().contiguous()  # [C, C_out]
+    out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
+    _launch(
+        "trimul_epilogue", dev, x, z, _f32(w["ln_in_scale"], dev), _f32(w["ln_in_bias"], dev),
+        ws_t, u, vb, wg_t, _f32(w["b_g"], dev), out, B, N, C, H, D, _DTYPE_CODES[x.dtype],
+    )
+    LAUNCHES["trimul_epilogue"] += 1
+    return out
+
+
+def trimul(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, outgoing: bool = True) -> torch.Tensor:
+    """The whole update before the residual: z [B,N,N,C] -> [B,N,N,C]."""
+    a, b = project_gated_cm(z, res_mask, w)
+    x = contract_cm(a, b, outgoing)
+    return epilogue_cm(x, z, w)

@@ -1,0 +1,50 @@
+"""The PyTorch port imports no JAX and nothing of genie2_tpu.
+
+An AST scan of every module of genie2_tpu_torch and of chip_smoke.py (a
+sys.modules check cannot work: the test process has JAX loaded already).
+"""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "genie2_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "genie2_tpu_torch")):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_has_modules():
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for expected in ("genie2_tpu_torch/ops/trimul.py", "genie2_tpu_torch/nn/denoiser.py",
+                     "genie2_tpu_torch/cli/sample_unconditional.py", "chip_smoke.py"):
+        assert expected in rel
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN_ROOTS]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_scan_catches_forbidden_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import torch\nfrom genie2_tpu.config import Config\nimport jax.numpy as jnp\n")
+    found = [m for m in _imported_modules(str(p)) if m.split(".")[0] in FORBIDDEN_ROOTS]
+    assert found == ["genie2_tpu.config", "jax.numpy"]

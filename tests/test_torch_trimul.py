@@ -1,0 +1,116 @@
+"""The TriMul plain versions and module of genie2_tpu_torch against genie2_tpu.
+
+The JAX side runs the Pallas kernels of ops/trimul_fused.py through the
+interpreter on the CPU, and the flax TriangleMultiplicativeUpdate on its
+jnp path. Weights are randomised and non-zero (linear_z starts at zero, so
+the default init would make every output vacuous). fp32 throughout.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import genie2_tpu.ops.trimul_fused as jfused
+from genie2_tpu.nn.pair_stack import TriangleMultiplicativeUpdate as FlaxTriMul
+from genie2_tpu_torch.nn.pair_stack import TriangleMultiplicativeUpdate
+from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.utils.weights import params_from_flax
+
+B, N, C = 2, 128, 32
+ATOL = 5e-6
+
+
+def _randomized_params(module, z, mask):
+    params = module.init(jax.random.PRNGKey(1), z, mask)
+    leaves, treedef = jax.tree_util.tree_flatten(params)
+    keys = jax.random.split(jax.random.PRNGKey(42), len(leaves))
+    leaves = [0.3 * jax.random.normal(k, l.shape, l.dtype) for k, l in zip(keys, leaves)]
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def _inputs(n, seed=0):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(B, n, n, C)).astype(np.float32)
+    res_mask = (rng.uniform(size=(B, n)) > 0.2).astype(np.float32)
+    return z, res_mask
+
+
+@pytest.fixture(scope="module")
+def setup():
+    z, res_mask = _inputs(N)
+    mask = res_mask[:, :, None] * res_mask[:, None, :]
+    params = _randomized_params(FlaxTriMul(c_z=C, c_hidden=C), jnp.asarray(z), jnp.asarray(mask))
+    jw = FlaxTriMul(c_z=C, c_hidden=C).apply(params, method=FlaxTriMul._fused_weights)
+    jw = {k: np.asarray(v) for k, v in jw.items()}
+    # JAX kernels are [in, out]; the port takes torch's [out, in].
+    tw = {k: torch.tensor(v.T if k.startswith("w_") else v) for k, v in jw.items()}
+    return z, res_mask, jw, tw, params
+
+
+def test_project_plain_matches_pallas(setup):
+    z, res_mask, jw, tw, _ = setup
+    ja, jb = jfused.project_gated_cm(jnp.asarray(z), jnp.asarray(res_mask), jw, interpret=True)
+    ta, tb = trimul.project_gated_cm_plain(torch.tensor(z), torch.tensor(res_mask), tw)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=ATOL)
+
+
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_contract_plain_matches_pallas(setup, outgoing):
+    rng = np.random.default_rng(7)
+    a = rng.normal(size=(B, C, N, N)).astype(np.float32) * 0.2
+    b = rng.normal(size=(B, C, N, N)).astype(np.float32) * 0.2
+    want = np.asarray(jfused.contract_cm_fullk(jnp.asarray(a), jnp.asarray(b), outgoing=outgoing, interpret=True))
+    got = trimul.contract_cm_plain(torch.tensor(a), torch.tensor(b), outgoing).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_epilogue_plain_matches_pallas(setup):
+    z, _, jw, tw, _ = setup
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(B, C, N, N)).astype(np.float32)
+    want = np.asarray(jfused.epilogue_cm(jnp.asarray(x), jnp.asarray(z), jw, interpret=True))
+    got = trimul.epilogue_cm_plain(torch.tensor(x), torch.tensor(z), tw).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_pipeline_matches_trimul_fused(setup, outgoing):
+    z, res_mask, jw, tw, _ = setup
+    want = np.asarray(jfused.trimul_fused(jnp.asarray(z), jnp.asarray(res_mask), jw, outgoing=outgoing, interpret=True))
+    got = trimul.trimul(torch.tensor(z), torch.tensor(res_mask), tw, outgoing).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [96, 128])
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_module_matches_flax(n, outgoing):
+    """The port's module (plain path on the CPU) against the flax module's
+    jnp path, at a length the JAX kernels' N % 128 gate would refuse too."""
+    z, res_mask = _inputs(n, seed=n)
+    mask = res_mask[:, :, None] * res_mask[:, None, :]
+    flax_mod = FlaxTriMul(c_z=C, c_hidden=C, outgoing=outgoing)
+    params = _randomized_params(flax_mod, jnp.asarray(z), jnp.asarray(mask))
+    want = np.asarray(flax_mod.apply(params, jnp.asarray(z), jnp.asarray(mask)))
+
+    mod = TriangleMultiplicativeUpdate(C, C, outgoing=outgoing)
+    mod.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        got = mod(torch.tensor(z), torch.tensor(res_mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_wrappers_count_nothing_on_cpu(setup):
+    z, res_mask, _, tw, _ = setup
+    trimul.reset_launch_counts()
+    trimul.trimul(torch.tensor(z[:, :32, :32]), torch.tensor(res_mask[:, :32]), tw, True)
+    assert all(v == 0 for v in trimul.LAUNCHES.values())
+
+
+def test_wrappers_refuse_other_devices(setup):
+    _, _, _, tw, _ = setup
+    z = torch.zeros(1, 4, 4, C, device="meta")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        trimul.project_gated_cm(z, torch.zeros(1, 4, device="meta"), tw)
