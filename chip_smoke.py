@@ -6,14 +6,22 @@ Run from the root of the repository:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero:
   1. device    print the card's name and power limit, require CUDA, build
                the kernels from genie2_tpu_torch/csrc with nvcc;
-  2. kernels   each TriMul kernel against its plain PyTorch version on the
-               card, float32 and bfloat16, at N=256 and the ragged N=224;
-               times of the kernel, the plain version and a library call;
+  2. kernels   each kernel (three TriMul stages, the IPA attention core,
+               the three standalone triangle contractions) against its
+               plain PyTorch version on the card, float32 and bfloat16, at
+               N=256 and the ragged N=224; times of the kernel, the plain
+               version and a library call;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
                with the plain versions swapped in, compared on z;
   4. main      the unconditional sampling CLI from a seeded Lightning-style
                checkpoint: 1000 steps at L=256 and L=200, PDBs checked,
                kernel launches counted;
+  5. scaffold  the motif scaffolding CLI on a motif problem written here
+               (two motif segments, total length 100-128): the 1000-step
+               ancestral sampler, DDIM-50 with classifier-free guidance and
+               DPM-Solver++-25; then the unconditional CLI with --pack and
+               with --dump_trajectory_every at L=64; files, coordinates and
+               kernel launches checked;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -48,6 +56,8 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 DENOISER_TOL = 1e-3
 C_P = 128  # configs/example.configuration pairFeatureDimension
 H_MUL = 128  # triangularMultiplicativeHiddenDimension (default)
+# IPA widths of configs/example.configuration: heads, hidden, qk and v points.
+IPA = {"H": 12, "C": 16, "PQ": 4, "PV": 8}
 
 KERNELS = [
     {
@@ -65,7 +75,30 @@ KERNELS = [
         "source": "genie2_tpu_torch/csrc/trimul_epilogue.cu",
         "replaces": "genie2_tpu/ops/trimul_fused.py:279",
     },
+    {
+        "name": "ipa_attention",
+        "source": "genie2_tpu_torch/csrc/ipa_attention.cu",
+        "replaces": "genie2_tpu/ops/ipa_fused.py:232",
+    },
+    # The three standalone contractions: no module calls them (as in
+    # genie2_tpu), so their launches are those of the kernels phase.
+    {
+        "name": "triangle_multiply_cm",
+        "source": "genie2_tpu_torch/csrc/triangle_contract.cu",
+        "replaces": "genie2_tpu/ops/triangle.py:75",
+    },
+    {
+        "name": "triangle_multiply_nlayout",
+        "source": "genie2_tpu_torch/csrc/triangle_contract.cu",
+        "replaces": "genie2_tpu/ops/triangle.py:144",
+    },
+    {
+        "name": "contract_cm_km",
+        "source": "genie2_tpu_torch/csrc/triangle_contract.cu",
+        "replaces": "genie2_tpu/ops/trimul_fused.py:213",
+    },
 ]
+OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
 
 
 class PhaseFailed(Exception):
@@ -149,6 +182,21 @@ def random_trimul_weights(C: int, H: int, gen, device):
     }
 
 
+def random_ipa_inputs(B, N, z, res_mask, gen):
+    """The IPA core's arguments at full width (ops/ipa.py), in z's dtype."""
+    import torch
+
+    h, c, pq, pv = IPA["H"], IPA["C"], IPA["PQ"], IPA["PV"]
+    dev, dt = z.device, z.dtype
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(dt)
+
+    head_weights = torch.randn(h, generator=gen, device=dev).abs() + 0.5
+    return (r(B, N, h, c), r(B, N, h, c), r(B, N, h, c), r(B, N, h, pq, 3, scale=3.0), r(B, N, h, pq, 3, scale=3.0),
+            r(B, N, h, pv, 3, scale=3.0), r(B, N, N, h), z, head_weights, res_mask)
+
+
 def kernel_bytes_ops(name, B, N, C, H, esize):
     """Bytes each kernel must move (inputs read once, outputs written once)
     and the multiply-adds it does, counted as 2 operations each."""
@@ -158,6 +206,15 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
         return pair * C * esize + B * N * 4 + w + 2 * pair * H * esize, 2 * pair * C * 4 * H
     if name == "trimul_contract":
         return 3 * B * H * N * N * esize, 2 * B * H * N ** 3
+    if name in OFF_PATH:  # a, b read, out written: [B, C, N, N] each
+        return 3 * B * C * N * N * esize, 2 * B * C * N ** 3
+    if name == "ipa_attention":
+        h, c, pq, pv = IPA["H"], IPA["C"], IPA["PQ"], IPA["PV"]
+        rows = B * N * h * (3 * c + 6 * pq + 3 * pv)  # q, k, v, q_pts, k_pts, v_pts
+        outs = B * N * h * (c + 3 * pv + C)
+        bytes_ = esize * (pair * C + pair * h + rows + outs) + 4 * B * N + 4 * h
+        # Every key is computed, masked or not: q.k, the point distances, p.v, p.v_pts, p.z.
+        return bytes_, 2 * B * h * N * N * (2 * c + 3 * pq + 3 * pv + C)
     w = 4 * (H * C + C * C + 5 * C)
     return pair * H * esize + pair * C * esize + w + pair * C * esize, 2 * pair * (H * C + C * C)
 
@@ -165,12 +222,13 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
 def phase_kernels(state):
     import torch
 
-    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.ops import ipa, triangle, trimul
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {k["name"]: {} for k in KERNELS}
     failed = []
+    trimul.reset_launch_counts()
     for N in (256, 224):
         B = 2
         w32 = random_trimul_weights(C_P, H_MUL, gen, dev)
@@ -198,6 +256,24 @@ def phase_kernels(state):
             x_p = trimul.contract_cm_plain(a_p, b_p, True)
             cases.append(("trimul_epilogue", None, lambda: trimul.epilogue_cm(x_p, z, w),
                           lambda: trimul.epilogue_cm_plain(x_p, z, w), None))
+            # The IPA core at full width, the padded tail masked on the key
+            # side; the plain version follows the kernel on padded rows too.
+            ipa_args = random_ipa_inputs(B, N, z, res_mask, gen)
+            cases.append(("ipa_attention", None, lambda: ipa.ipa_attention(*ipa_args),
+                          lambda: ipa.ipa_attention_plain(*ipa_args), None))
+            # The standalone contractions in the model layout [B, N, N, C].
+            ta, tb = (0.3 * torch.randn(B, N, N, C_P, generator=gen, device=dev)).to(dtype), (0.3 * z32).to(dtype)
+            for outgoing in (True, False):
+                eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
+                for layout in triangle.LAYOUTS:
+                    cases.append((
+                        f"triangle_multiply_{layout}", outgoing,
+                        lambda o=outgoing, l=layout: triangle.triangle_multiply(ta, tb, o, l),
+                        lambda o=outgoing: triangle.triangle_multiply_reference(ta, tb, o),
+                        lambda e=eq: torch.einsum(e, ta, tb),
+                    ))
+            cases.append(("contract_cm_km", None, lambda: trimul.contract_cm_km(a_p, b_p),
+                          lambda: trimul.contract_cm_km_plain(a_p, b_p), lambda: torch.matmul(a_p, b_p)))
             for name, outgoing, kern, plain, library in cases:
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
@@ -224,6 +300,7 @@ def phase_kernels(state):
                 if N == 256 and dtype == torch.float32:
                     results[name][outgoing] = rec
     state["kernel_main"] = results
+    state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
     if failed:
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
 
@@ -234,18 +311,21 @@ def phase_kernels(state):
 
 
 @contextlib.contextmanager
-def plain_trimul():
-    """Swap the plain versions in for the kernel wrappers (comparison only)."""
-    from genie2_tpu_torch.ops import trimul
+def plain_kernels():
+    """Swap the plain versions in for the kernel wrappers that the denoiser
+    calls, TriMul and IPA (comparison only)."""
+    from genie2_tpu_torch.nn import structure
+    from genie2_tpu_torch.ops import ipa, trimul
 
-    saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm)
+    saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention)
     trimul.project_gated_cm = trimul.project_gated_cm_plain
     trimul.contract_cm = trimul.contract_cm_plain
     trimul.epilogue_cm = trimul.epilogue_cm_plain
+    structure.ipa_attention = ipa.ipa_attention_plain
     try:
         yield
     finally:
-        trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm = saved
+        trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention = saved
 
 
 def example_config():
@@ -265,6 +345,21 @@ def seeded_denoiser(config, device):
     torch.manual_seed(SEED)
     model = randomize_zero_init(Denoiser.from_config(config), SEED)
     return model.to(device).eval()
+
+
+def expected_launches(config, denoiser_calls: int):
+    """Launch counts after `denoiser_calls` calls of the denoiser: each pair
+    layer runs an outgoing and an incoming TriMul (project, contract,
+    epilogue each), each structure layer of each block one IPA core; the
+    standalone contractions are on no path."""
+    from genie2_tpu_torch.ops import trimul
+
+    pair = config.model["n_pair_transform_layer"] * denoiser_calls
+    structure = config.model["n_structure_layer"] * config.model["n_structure_block"] * denoiser_calls
+    want = dict.fromkeys(trimul.LAUNCHES, 0)
+    want.update(trimul_project=2 * pair, trimul_contract_out=pair, trimul_contract_in=pair,
+                trimul_epilogue=2 * pair, ipa_attention=structure)
+    return want
 
 
 def phase_denoiser(state):
@@ -295,7 +390,7 @@ def phase_denoiser(state):
         torch.cuda.synchronize()
         launches = dict(trimul.LAUNCHES)
         ms_k = cuda_time_ms(run, iters=5, warmup=1)
-        with plain_trimul():
+        with plain_kernels():
             z_p = run()
             ms_p = cuda_time_ms(run, iters=5, warmup=1)
     err = (z_k - z_p).abs().max().item()
@@ -309,9 +404,8 @@ def phase_denoiser(state):
     emit(rec)
     if not rec["finite"] or rec["rel_err"] > DENOISER_TOL:
         raise PhaseFailed(f"denoiser z disagrees: rel {rec['rel_err']:.3g}")
-    expected = config.model["n_pair_transform_layer"]
-    if launches["trimul_project"] != 2 * expected or launches["trimul_contract_out"] != expected:
-        raise PhaseFailed(f"denoiser launches {launches}")
+    if launches != expected_launches(config, 1):
+        raise PhaseFailed(f"denoiser launches {launches}, expected {expected_launches(config, 1)}")
 
 
 # ------------------------------------------------------------------ #
@@ -319,17 +413,15 @@ def phase_denoiser(state):
 # ------------------------------------------------------------------ #
 
 
-def phase_main(state):
-    import numpy as np
+def release_dir(state):
+    """The seeded full-width model as a release-layout checkpoint under a
+    temporary directory (removed by main): {work}/results/smoke/..."""
     import torch
 
-    from genie2_tpu_torch.cli import sample_unconditional
-    from genie2_tpu_torch.features import read_ca_coords
-    from genie2_tpu_torch.ops import trimul
-
-    model = state.get("model") or seeded_denoiser(example_config(), torch.device("cuda"))
-    work = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
+    if "work" not in state:
+        model = state.get("model") or seeded_denoiser(example_config(), torch.device("cuda"))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        state["work"] = work
         rootdir = os.path.join(work, "results")
         os.makedirs(os.path.join(rootdir, "smoke", "checkpoints"))
         shutil.copy(os.path.join(HERE, "configs", "example.configuration"),
@@ -338,54 +430,186 @@ def phase_main(state):
             {"state_dict": {f"model.{k}": v.detach().cpu() for k, v in model.state_dict().items()}},
             os.path.join(rootdir, "smoke", "checkpoints", "epoch.1.ckpt"),
         )
-        outdir = os.path.join(work, "out")
-        lengths = (256, 200)
-        argv = [
-            "--name", "smoke", "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir,
-            "--scale", "0.6", "--num_samples", "2", "--batch_size", "2",
-            "--min_length", str(min(lengths)), "--max_length", str(max(lengths)),
-            "--length_step", str(max(lengths) - min(lengths)), "--seed", str(SEED),
-            "--device", "cuda",
-        ]
-        trimul.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        per_length = sample_unconditional.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(trimul.LAUNCHES)
+    return state["work"], os.path.join(state["work"], "results")
 
-        coords_ok = True
-        for L in lengths:
-            for i in range(2):
-                path = os.path.join(outdir, "pdbs", f"{L}_{i}.pdb")
-                if not os.path.isfile(path):
-                    raise PhaseFailed(f"missing {path}")
-                xyz = read_ca_coords(path)
-                coords_ok &= xyz.shape == (L, 3) and bool(np.isfinite(xyz).all())
-        n_steps = 1000
-        expected = len(lengths) * n_steps * 5  # per direction
-        rec = {
-            "phase": "main", "lengths": list(lengths), "samples": 2 * len(lengths),
-            "seconds": seconds, "samples_per_min": 2 * len(lengths) / seconds * 60.0,
-            "ms_per_denoiser_step": seconds / (len(lengths) * n_steps) * 1e3,
-            "seconds_per_length": per_length,
-            "samples_per_min_at_256": 2 / per_length[256] * 60.0,
-            "ms_per_step_at_256": per_length[256] / n_steps * 1e3,
-            "batch": 2, "launches": launches, "coords_ok": coords_ok, "smi": state["smi"],
-        }
-        emit(rec)
-        state["launches"] = launches
-        if not coords_ok:
-            raise PhaseFailed("sampled coordinates are not finite or have the wrong shape")
-        want = {
-            "trimul_project": 2 * expected, "trimul_contract_out": expected,
-            "trimul_contract_in": expected, "trimul_epilogue": 2 * expected,
-        }
+
+def drive(cli_main, argv):
+    """One CLI run with the launch counts set to 0 just before it and read
+    just after. Returns (the CLI's result, wall seconds, launch counts)."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+
+    trimul.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = cli_main(argv)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, dict(trimul.LAUNCHES)
+
+
+def check_ca_file(path, length=None):
+    """Finite CA coordinates of the expected length; returns the length."""
+    import numpy as np
+
+    from genie2_tpu_torch.features import read_ca_coords
+
+    if not os.path.isfile(path):
+        raise PhaseFailed(f"missing {path}")
+    xyz = read_ca_coords(path)
+    if xyz.ndim != 2 or xyz.shape[1] != 3 or not np.isfinite(xyz).all() or not len(xyz) \
+            or (length is not None and len(xyz) != length):
+        raise PhaseFailed(f"{path}: coordinates {xyz.shape} are not finite or have the wrong shape")
+    return len(xyz)
+
+
+def common_argv(rootdir, outdir, scale):
+    return ["--name", "smoke", "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--scale", scale,
+            "--seed", str(SEED), "--device", "cuda"]
+
+
+def phase_main(state):
+    from genie2_tpu_torch.cli import sample_unconditional
+
+    config = example_config()
+    work, rootdir = release_dir(state)
+    outdir = os.path.join(work, "out")
+    lengths = (256, 200)
+    argv = common_argv(rootdir, outdir, "0.6") + [
+        "--num_samples", "2", "--batch_size", "2", "--min_length", str(min(lengths)),
+        "--max_length", str(max(lengths)), "--length_step", str(max(lengths) - min(lengths)),
+    ]
+    per_length, seconds, launches = drive(sample_unconditional.main, argv)
+
+    for L in lengths:
+        for i in range(2):
+            check_ca_file(os.path.join(outdir, "pdbs", f"{L}_{i}.pdb"), L)
+    n_steps = config.diffusion["n_timestep"]
+    rec = {
+        "phase": "main", "lengths": list(lengths), "samples": 2 * len(lengths),
+        "seconds": seconds, "samples_per_min": 2 * len(lengths) / seconds * 60.0,
+        "ms_per_denoiser_step": seconds / (len(lengths) * n_steps) * 1e3,
+        "seconds_per_length": per_length,
+        "samples_per_min_at_256": 2 / per_length[256] * 60.0,
+        "ms_per_step_at_256": per_length[256] / n_steps * 1e3,
+        "batch": 2, "launches": launches, "coords_ok": True, "smi": state["smi"],
+    }
+    emit(rec)
+    state["launches"] = launches
+    want = expected_launches(config, len(lengths) * n_steps)
+    if launches != want:
+        raise PhaseFailed(f"launch counts {launches}, expected {want}")
+
+
+# ------------------------------------------------------------------ #
+# Phase 5
+# ------------------------------------------------------------------ #
+
+MOTIF_SEGMENTS = (("A", 10, 21, "A"), ("B", 40, 48, "B"))  # chain, first, last residue, group
+SCAFFOLD_RANGE = (20, 45)
+TOTAL_RANGE = (100, 128)
+N_MOTIF = sum(last - first + 1 for _, first, last, _ in MOTIF_SEGMENTS)
+
+
+def write_motif_problem(path):
+    """A motif problem in the REMARK 999 grammar (features/motif.py): three
+    scaffold segments around two motif segments in groups A and B, whose CA
+    atoms follow a seeded random walk with 3.8 A steps."""
+    import numpy as np
+
+    from genie2_tpu_torch.features.residues import RESTYPE_1_TO_3, RESTYPES
+
+    rng = np.random.default_rng(SEED)
+    scaffold = f"REMARK 999 INPUT   {SCAFFOLD_RANGE[0]:4d}{SCAFFOLD_RANGE[1]:4d}\n"
+    lines = ["REMARK 999 NAME   smoke_motif\n",
+             f"REMARK 999 MINIMUM TOTAL LENGTH      {TOTAL_RANGE[0]}\n",
+             f"REMARK 999 MAXIMUM TOTAL LENGTH      {TOTAL_RANGE[1]}\n", scaffold]
+    for chain, first, last, group in MOTIF_SEGMENTS:
+        lines += [f"REMARK 999 INPUT  {chain}{first:4d}{last:4d} {group}\n", scaffold]
+    serial, pos = 1, np.zeros(3)
+    for chain, first, last, _ in MOTIF_SEGMENTS:
+        pos = pos + rng.normal(size=3) * 10.0
+        for resseq in range(first, last + 1):
+            step = rng.normal(size=3)
+            pos = pos + 3.8 * step / np.linalg.norm(step)
+            name = RESTYPE_1_TO_3[RESTYPES[serial % len(RESTYPES)]]
+            lines.append(
+                f"ATOM  {serial:5d}  CA  {name} {chain}{resseq:4d}    "
+                f"{pos[0]:8.3f}{pos[1]:8.3f}{pos[2]:8.3f}  1.00  0.00           C  \n"
+            )
+            serial += 1
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+
+
+def phase_scaffold(state):
+    from genie2_tpu_torch.cli import sample_scaffold, sample_unconditional
+
+    config = example_config()
+    n_steps = config.diffusion["n_timestep"]
+    work, rootdir = release_dir(state)
+    datadir = os.path.join(work, "problems")
+    os.makedirs(datadir)
+    write_motif_problem(os.path.join(datadir, "smoke_motif.pdb"))
+
+    # name -> (flags, denoiser calls): guidance calls the model twice a step.
+    runs = {
+        "ancestral": (["--strength", "0"], n_steps),
+        "ddim50_cfg": (["--ddim_steps", "50", "--ddim_eta", "0.5", "--strength", "1.5"], 2 * 50),
+        "dpm25": (["--dpm_steps", "25"], 25),
+    }
+    state["launches_scaffold"] = {}
+    for name, (flags, calls) in runs.items():
+        outdir = os.path.join(work, f"scaffold_{name}")
+        argv = common_argv(rootdir, outdir, "0.4") + [
+            "--datadir", datadir, "--num_samples", "2", "--batch_size", "2", *flags]
+        per_motif, seconds, launches = drive(sample_scaffold.main, argv)
+        lengths = []
+        for i in range(2):
+            design = os.path.join(outdir, "motif=smoke_motif", "pdbs", f"smoke_motif_{i}.pdb")
+            lengths.append(check_ca_file(design))
+            if not TOTAL_RANGE[0] <= lengths[-1] <= TOTAL_RANGE[1]:
+                raise PhaseFailed(f"{design}: length {lengths[-1]} outside {TOTAL_RANGE}")
+            motif = os.path.join(outdir, "motif=smoke_motif", "motif_pdbs", f"smoke_motif_{i}.pdb")
+            if check_ca_file(motif) != N_MOTIF:
+                raise PhaseFailed(f"{motif}: not {N_MOTIF} motif residues")
+            with open(design) as fh:
+                marked = sum(1 for ln in fh if ln.startswith("ATOM") and ln[72] != " ")
+            if marked != N_MOTIF:
+                raise PhaseFailed(f"{design}: {marked} residues carry a motif group, expected {N_MOTIF}")
+        emit({"phase": "scaffold", "run": name, "flags": flags, "lengths": lengths, "denoiser_calls": calls,
+              "seconds": seconds, "seconds_per_motif_problem": per_motif["smoke_motif"], "samples": 2,
+              "launches": launches, "smi": state["smi"]})
+        state["launches_scaffold"][name] = launches
+        want = expected_launches(config, calls)
         if launches != want:
-            raise PhaseFailed(f"launch counts {launches}, expected {want}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+            raise PhaseFailed(f"scaffold {name}: launch counts {launches}, expected {want}")
+
+    # The unconditional CLI's packed sweep and trajectory dumps, at a short length.
+    outdir = os.path.join(work, "out_pack")
+    argv = common_argv(rootdir, outdir, "0.6") + [
+        "--pack", "--num_samples", "1", "--batch_size", "2", "--min_length", "56", "--max_length", "64", "--length_step", "8"]
+    _, seconds, launches = drive(sample_unconditional.main, argv)
+    for L in (56, 64):
+        check_ca_file(os.path.join(outdir, "pdbs", f"{L}_0.pdb"), L)
+    emit({"phase": "scaffold", "run": "pack", "lengths": [56, 64], "seconds": seconds, "launches": launches})
+    if launches != expected_launches(config, n_steps):
+        raise PhaseFailed(f"pack: launch counts {launches}")
+
+    outdir = os.path.join(work, "out_dump")
+    every = 250
+    argv = common_argv(rootdir, outdir, "0.6") + [
+        "--dump_trajectory_every", str(every), "--num_samples", "2", "--batch_size", "2",
+        "--min_length", "64", "--max_length", "64"]
+    _, seconds, launches = drive(sample_unconditional.main, argv)
+    steps = list(range(every, n_steps + 1, every))
+    for step in steps:
+        check_ca_file(os.path.join(outdir, "test", "64_0", f"xt_predicted_test_{step}.pdb"), 64)
+    for i in range(2):
+        check_ca_file(os.path.join(outdir, "pdbs", f"64_{i}.pdb"), 64)
+    emit({"phase": "scaffold", "run": "dump_trajectory", "snapshot_steps": steps, "seconds": seconds, "launches": launches})
+    if launches != expected_launches(config, n_steps):
+        raise PhaseFailed(f"dump_trajectory: launch counts {launches}")
 
 
 # ------------------------------------------------------------------ #
@@ -393,6 +617,8 @@ def phase_main(state):
 
 def kernels_line(state):
     launches = state.get("launches", {})
+    scaffold = state.get("launches_scaffold", {})
+    kernel_phase = state.get("kernel_phase_launches", {})
     out = []
     for k in KERNELS:
         name = k["name"]
@@ -400,40 +626,51 @@ def kernels_line(state):
         if not recs:
             continue
         rs = list(recs.values())
+        counters = ("trimul_contract_out", "trimul_contract_in") if name == "trimul_contract" else (name,)
+        count = lambda table: sum(table.get(c, 0) for c in counters)
         entry = {
             **k, "route": "cuda",
-            "launches": (launches.get("trimul_contract_out", 0) + launches.get("trimul_contract_in", 0))
-            if name == "trimul_contract" else launches.get(name, 0),
+            # On the main path: the unconditional sweep's count. Off it:
+            # the launches of the kernels phase (comparisons and timings).
+            "launches": count(kernel_phase) if name in OFF_PATH else count(launches),
+            "launches_from": "kernels phase" if name in OFF_PATH else "main phase",
+            "launches_scaffold": {run: count(table) for run, table in scaffold.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
             "library_ms": (sum(r["library_ms"] for r in rs) / len(rs)) if rs[0]["library_ms"] is not None else None,
-            "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32"},
+            "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else {})},
         }
         if name == "trimul_contract":
             entry["launches_out"] = launches.get("trimul_contract_out", 0)
             entry["launches_in"] = launches.get("trimul_contract_in", 0)
+        if len(recs) == 2:
             entry["ms_out"], entry["ms_in"] = recs[True]["ms"], recs[False]["ms"]
         out.append(entry)
     return {"kernels": out}
 
 
-PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main}
+PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
+          "scaffold": phase_scaffold}
 
 
 def main() -> int:
     import torch
 
     state = {}
-    for name, phase in PHASES.items():
-        t0 = time.perf_counter()
-        try:
-            phase(state)
-        except PhaseFailed as e:
-            emit({"phase": name, "failed": str(e)})
-            return 1
-        emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0})
+    try:
+        for name, phase in PHASES.items():
+            t0 = time.perf_counter()
+            try:
+                phase(state)
+            except PhaseFailed as e:
+                emit({"phase": name, "failed": str(e)})
+                return 1
+            emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0})
+    finally:
+        if "work" in state:
+            shutil.rmtree(state["work"], ignore_errors=True)
     print(state["smi"], flush=True)
     emit(kernels_line(state))
     emit({

@@ -1,0 +1,58 @@
+"""Flags and set-up that the sampling CLIs share."""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict
+
+import torch
+
+SOLVER_FLAGS = ("ddim_steps", "ddim_eta", "ddim_eta_switch_t", "dpm_steps", "dump_trajectory_every", "fast_spacing")
+
+
+def add_model_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--name", type=str, required=True, help="Model name")
+    parser.add_argument("--epoch", type=int, required=True, help="Model epoch")
+    parser.add_argument("--rootdir", type=str, default="results", help="Root directory")
+    parser.add_argument("--scale", type=float, required=True, help="Sampling noise scale")
+    parser.add_argument("--outdir", type=str, required=True, help="Output directory")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--ema", action="store_true", help="Sample from epoch.{E}.ema.ckpt")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; no card without --device cpu is an error")
+    parser.add_argument("--mesh_seq", type=int, default=1, help="Only 1 is supported (sequence sharding is not ported)")
+    parser.add_argument("--mesh_model", type=int, default=1, help="Only 1 is supported (tensor parallelism is not ported)")
+    parser.add_argument("--num_devices", type=int, default=None, help="Only 1 is supported (batch sharding is not ported)")
+
+
+def add_solver_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--ddim_steps", type=int, default=0,
+                        help="Accelerated DDIM sampling with this many steps (0 = full ancestral DDPM)")
+    parser.add_argument("--ddim_eta", type=float, default=0.0, help="DDIM stochasticity (0 = deterministic ODE)")
+    parser.add_argument("--ddim_eta_switch_t", type=int, default=0,
+                        help="Hybrid DDIM stochasticity: deterministic (eta=0) while t > this, "
+                             "--ddim_eta (default 1) at or below (0 = off)")
+    parser.add_argument("--dpm_steps", type=int, default=0,
+                        help="Accelerated DPM-Solver++(2M) sampling with this many steps "
+                             "(second-order, deterministic; mutually exclusive with --ddim_steps)")
+    parser.add_argument("--dump_trajectory_every", type=int, default=0,
+                        help="Write x_t snapshot PDBs every K steps to outdir/test/ (full-DDPM path only)")
+    parser.add_argument("--fast_spacing", choices=("uniform", "sqrt"), default="uniform",
+                        help="Step spacing for --ddim_steps/--dpm_steps: sqrt puts more steps at high noise")
+
+
+def solver_params(args) -> Dict[str, Any]:
+    return {k: getattr(args, k) for k in SOLVER_FLAGS}
+
+
+def load_model(args):
+    """Refuse the parallelism flags, fix the matmul precision and load the
+    release-layout checkpoint onto `args.device`. Returns (model, config)."""
+    from genie2_tpu_torch.utils.model_io import load_pretrained_model
+
+    given = [f"--{k}" for k in ("mesh_seq", "mesh_model", "num_devices") if getattr(args, k) not in (None, 1)]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)}: parallelism is not ported to genie2_tpu_torch yet")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return load_pretrained_model(args.rootdir, args.name, args.epoch, ema=args.ema, device=args.device)

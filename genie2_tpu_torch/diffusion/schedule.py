@@ -109,3 +109,37 @@ def posterior_mean_from_eps(schedule: Schedule, xt: torch.Tensor, t: torch.Tenso
     """mu_t = 1/sqrt(a_t) (x_t - (1 - a_t)/sqrt(1 - abar_t) eps)."""
     w_z = (1.0 - schedule.alphas[t]) / schedule.sqrt_one_minus_alphas_cumprod[t]
     return (1.0 / schedule.sqrt_alphas[t])[:, None, None] * (xt - w_z[:, None, None] * eps)
+
+
+def x0_from_eps(schedule: Schedule, xt: torch.Tensor, t: torch.Tensor, eps: torch.Tensor):
+    """E[x_0 | x_t] from the predicted noise."""
+    return (
+        xt - schedule.sqrt_one_minus_alphas_cumprod[t][:, None, None] * eps
+    ) / schedule.sqrt_alphas_cumprod[t][:, None, None]
+
+
+def ddim_step_from_eps(schedule: Schedule, xt: torch.Tensor, t: torch.Tensor, t_prev: torch.Tensor,
+                       eps: torch.Tensor, noise: torch.Tensor, eta):
+    """One DDIM update x_t -> x_{t_prev} (Song et al. 2021, eq. 12) for any
+    step subsequence t > t_prev >= 0. Index 0 of the tables is the clean
+    state (abar_0 = 1), so t_prev = 0 lands on x_0 with no injected noise
+    for any eta. eta = 0 is the deterministic ODE; eta = 1 recovers the
+    DDPM posterior variance on the full step sequence."""
+    abar_t = schedule.alphas_cumprod[t][:, None, None]
+    abar_p = schedule.alphas_cumprod[t_prev][:, None, None]
+    x0 = x0_from_eps(schedule, xt, t, eps)
+    sigma = eta * torch.sqrt((1.0 - abar_p) / (1.0 - abar_t)) * torch.sqrt(1.0 - abar_t / abar_p)
+    dir_xt = torch.sqrt(torch.clamp(1.0 - abar_p - sigma**2, min=0.0)) * eps
+    return torch.sqrt(abar_p) * x0 + dir_xt + sigma * noise
+
+
+def posterior_mean_from_x0(schedule: Schedule, xt: torch.Tensor, t: torch.Tensor, x0: torch.Tensor):
+    """mu_t = coef1 x_0 + coef2 x_t with coef1 = sqrt(abar_{t-1}) beta_t /
+    (1 - abar_t) and coef2 = sqrt(a_t) (1 - abar_{t-1}) / (1 - abar_t)."""
+    coef1 = (
+        schedule.sqrt_alphas_cumprod_prev[t] * schedule.betas[t] / schedule.one_minus_alphas_cumprod[t]
+    )[:, None, None]
+    coef2 = (
+        schedule.sqrt_alphas[t] * (1.0 - schedule.alphas_cumprod_prev[t]) / schedule.one_minus_alphas_cumprod[t]
+    )[:, None, None]
+    return coef1 * x0 + coef2 * xt

@@ -7,7 +7,19 @@ from genie2_tpu_torch.features.schema import (
     to_device,
     to_host,
 )
-from genie2_tpu_torch.features.pdb import read_ca_coords, save_features_to_pdb
+from genie2_tpu_torch.features.pdb import (
+    parse_pdb,
+    read_ca_coords,
+    save_coords_to_pdb,
+    save_features_to_pdb,
+    summarize_pdb,
+)
+from genie2_tpu_torch.features.motif import (
+    features_from_motif_pdb,
+    load_motif_spec,
+    sample_motif_mask,
+    save_motif_pdb,
+)
 
 __all__ = [
     "Features",
@@ -17,6 +29,13 @@ __all__ = [
     "pad_features",
     "to_device",
     "to_host",
+    "parse_pdb",
     "read_ca_coords",
+    "save_coords_to_pdb",
     "save_features_to_pdb",
+    "summarize_pdb",
+    "features_from_motif_pdb",
+    "load_motif_spec",
+    "sample_motif_mask",
+    "save_motif_pdb",
 ]

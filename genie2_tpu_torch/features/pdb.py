@@ -1,13 +1,44 @@
-"""PDB writer for C-alpha traces: CA-only ATOM records, mean-centred
-coordinates rounded to 3 decimals, motif group as segment id at column 72,
-element C at column 77 (the reference's fixed-column layout)."""
+"""Fixed-column PDB I/O for C-alpha traces: CA-only ATOM records, chains
+split where the chain id changes, gzip support on reading, mean-centred
+coordinates rounded to 3 decimals on writing, the motif group as segment id
+at column 72 and element C at column 77 (the reference's layout)."""
 
 from __future__ import annotations
 
+import gzip
+from typing import List, Tuple
+
 import numpy as np
 
-from genie2_tpu_torch.features.residues import RESTYPE_1_TO_3, RESTYPES
-from genie2_tpu_torch.features.schema import Features
+from genie2_tpu_torch.features.residues import RESTYPE_1_TO_3, RESTYPE_3_TO_1, RESTYPE_ORDER, RESTYPES
+from genie2_tpu_torch.features.schema import Features, create_empty_features
+
+
+def parse_pdb(filepath: str) -> Tuple[List[List[int]], List[List[List[float]]]]:
+    """Per-chain residue-type indices and CA coordinates of a fixed-column
+    PDB file. A new chain starts wherever the chain id (column 22) changes,
+    so an id that comes back after another chain opens a fresh chain."""
+    opener = gzip.open if filepath.endswith(".gz") else open
+    with opener(filepath, "rt") as fh:
+        records = [ln for ln in fh if ln.startswith("ATOM") and ln[13:15].strip() == "CA"]
+    if not records:
+        return [], []
+
+    types = np.fromiter(
+        (RESTYPE_ORDER[RESTYPE_3_TO_1[ln[17:20]]] for ln in records), dtype=np.int64, count=len(records)
+    )
+    xyz = np.array([(ln[30:38], ln[38:46], ln[46:54]) for ln in records], dtype=np.float64)
+    chain_ids = np.array([ln[21] for ln in records])
+    starts = np.flatnonzero(np.concatenate([[True], chain_ids[1:] != chain_ids[:-1]])).tolist()
+    bounds = starts + [len(records)]
+    seqs = [types[a:b].tolist() for a, b in zip(bounds, bounds[1:])]
+    coords = [xyz[a:b].tolist() for a, b in zip(bounds, bounds[1:])]
+    return seqs, coords
+
+
+def summarize_pdb(filepath: str):
+    seqs, _ = parse_pdb(filepath)
+    return {"num_residues": int(np.sum([len(s) for s in seqs])), "num_chains": len(seqs)}
 
 
 def save_features_to_pdb(features: Features, filepath: str):
@@ -41,6 +72,13 @@ def save_features_to_pdb(features: Features, filepath: str):
             line = replace(line, 72, group.ljust(4))
             line = replace(line, 77, "C")
             file.write(line + "\n")
+
+
+def save_coords_to_pdb(coords: np.ndarray, filepath: str):
+    """Write a bare [N, 3] CA trace as a single-chain all-ALA PDB file."""
+    features = create_empty_features([len(coords)])
+    features["atom_positions"] = np.asarray(coords, dtype=float)
+    save_features_to_pdb(features, filepath)
 
 
 def read_ca_coords(filepath: str) -> np.ndarray:

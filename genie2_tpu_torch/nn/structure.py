@@ -4,14 +4,13 @@ is reapplied per block (parameters shared across blocks)."""
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from genie2_tpu_torch.geometry import Rigid, quat_to_rot
 from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, layer_norm
+from genie2_tpu_torch.ops.ipa import ipa_attention
 
 
 def _to_points(x: torch.Tensor) -> torch.Tensor:
@@ -21,7 +20,9 @@ def _to_points(x: torch.Tensor) -> torch.Tensor:
 
 class InvariantPointAttention(nn.Module):
     """AF2 Algorithm 22 with the reference's output head, which concatenates
-    the pair-attended features (width H * (c_z + c_hidden + 4 * P_v))."""
+    the pair-attended features (width H * (c_z + c_hidden + 4 * P_v)). The
+    attention core masks the key side only (ops/ipa.py): real rows equal the
+    square mask's, padded rows differ and are dead downstream."""
 
     def __init__(self, c_s, c_z, c_hidden, no_heads, no_qk_points, no_v_points, inf=1e5, eps=1e-8):
         super().__init__()
@@ -51,26 +52,15 @@ class InvariantPointAttention(nn.Module):
         kv_pts = frames.apply(_to_points(self.linear_kv_points(s))).view(B, N, h, pq + pv, 3)
         k_pts, v_pts = kv_pts[..., :pq, :], kv_pts[..., pq:, :]
 
-        b = self.linear_b(z)  # [B, N, N, H]
-        a = torch.einsum("bihc,bjhc->bhij", q, k) * math.sqrt(1.0 / (3 * c))
-        a = a + math.sqrt(1.0 / 3) * b.permute(0, 3, 1, 2)
-
-        diff = q_pts[:, :, None] - k_pts[:, None, :]  # [B, N, N, H, Pq, 3]
-        pt_att = (diff * diff).sum(-1)
-        head_weights = F.softplus(self.head_weights) * math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
-        pt_att = (pt_att * head_weights[:, None]).sum(-1) * (-0.5)  # [B, N, N, H]
-
-        mask = mask.to(s.dtype)
-        square_mask = self.inf * (mask[:, :, None] * mask[:, None, :] - 1)
-        a = a + pt_att.permute(0, 3, 1, 2) + square_mask[:, None]
-        a = torch.softmax(a, dim=-1)
-
-        o = torch.einsum("bhij,bjhc->bihc", a, v).reshape(B, N, h * c)
-        o_pt = torch.einsum("bhij,bjhpd->bihpd", a, v_pts)
+        # Logits, softmax and the three value sums: one kernel on the card.
+        o, o_pt, o_pair = ipa_attention(
+            q, k, v, q_pts, k_pts, v_pts, self.linear_b(z), z, F.softplus(self.head_weights), mask, self.inf
+        )
+        o = o.reshape(B, N, h * c)
         o_pt = frames.unsqueeze(-1).invert_apply(o_pt)
         o_pt_norm = torch.sqrt((o_pt * o_pt).sum(-1) + self.eps).reshape(B, N, h * pv)
         o_pt_flat = o_pt.reshape(B, N, h * pv, 3)
-        o_pair = torch.einsum("bhij,bijc->bihc", a, z).reshape(B, N, h * self.c_z)
+        o_pair = o_pair.reshape(B, N, h * self.c_z)
 
         out = torch.cat(
             [o, o_pt_flat[..., 0], o_pt_flat[..., 1], o_pt_flat[..., 2], o_pt_norm, o_pair], dim=-1

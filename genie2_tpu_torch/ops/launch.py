@@ -1,0 +1,74 @@
+"""What the kernel wrappers of `ops/` share: the launch counters, the
+device rule, the activation checks and the ctypes launch itself.
+
+A wrapper takes its plain version for a tensor on the CPU and launches its
+kernel for a tensor on the card; anything else raises. It adds one to its
+entry of `LAUNCHES` where it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from genie2_tpu_torch.ops import build
+
+# Kernel launches on the card, counted by the wrappers.
+LAUNCHES: Dict[str, int] = {
+    "trimul_project": 0,
+    "trimul_contract_out": 0,
+    "trimul_contract_in": 0,
+    "trimul_epilogue": 0,
+    "ipa_attention": 0,
+    "triangle_multiply_cm": 0,
+    "triangle_multiply_nlayout": 0,
+    "contract_cm_km": 0,
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"the kernels run on cuda or cpu tensors, not {t.device}")
+    return False
+
+
+def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor = None):
+    """A contiguous float32 / bfloat16 tensor of `ndim` axes, of `like`'s
+    dtype and device where `like` is given."""
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 or bfloat16)")
+    if t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
+    if like is not None and (t.dtype != like.dtype or t.device != like.device):
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on {like.device}")
+
+
+def launch(source: str, entry: str, argtypes: Sequence, device, *args):
+    """Call the C entry point `entry` of csrc/<source>.cu (built first if
+    needed) for `device`, on its current stream, and raise on a launch
+    error. `argtypes` are the ctypes of `args`; the stream is appended.
+    Tensors go in as pointers; `args` keeps every tensor (temporaries
+    included) referenced until the launch is enqueued, after which the
+    caching allocator only hands their memory to later work on the same
+    stream."""
+    fn = getattr(build.load(source), entry)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        code = fn(*c_args, stream)
+    if code != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {code}")

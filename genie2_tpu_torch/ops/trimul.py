@@ -13,6 +13,10 @@ activations channel-major, [B, H, N, N], between them:
               LN_out folded into linear_z: r*(x.ws) - r*mu*u + vb,
               times sigmoid(LN_in(z).W_g + b_g) with LN_in recomputed.
 
+`contract_cm_km` is the same contraction with the right operand stored
+k-major, x[b,h,i,j] = sum_k a[b,h,i,k] b[b,h,k,j] (csrc/triangle_contract.cu);
+no module calls it, as in genie2_tpu.
+
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a tensor on the card; anything else raises. The plain
 versions keep the JAX functions' argument layouts (ops/trimul_fused.py in
@@ -31,26 +35,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from genie2_tpu_torch.ops import build
+from genie2_tpu_torch.ops.launch import (
+    DTYPE_CODES as _DTYPE_CODES,
+    LAUNCHES,
+    check_activation as _check_activation,
+    launch,
+    on_cpu as _on_cpu,
+    reset_launch_counts,
+)
 
 LN_EPS = 1e-6
 
 Weights = Dict[str, torch.Tensor]
-
-# Kernel launches on the card, counted by the wrappers below.
-LAUNCHES = {
-    "trimul_project": 0,
-    "trimul_contract_out": 0,
-    "trimul_contract_in": 0,
-    "trimul_epilogue": 0,
-}
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------- #
@@ -90,6 +86,11 @@ def contract_cm_plain(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -
     return x.to(a.dtype)
 
 
+def contract_cm_km_plain(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
+    """a [B,H,I,K] x b [B,H,K,J] -> [B,H,I,J], float32 accumulation."""
+    return torch.matmul(a.float(), b_km.float()).to(a.dtype)
+
+
 def fold_ln_out(w: Weights, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LN_out folded into linear_z: ws = w_z * scale rounded to the
     activation dtype ([C_out, H], as float32), u = sum_h ws and
@@ -121,21 +122,6 @@ def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Ten
 # --------------------------------------------------------------------- #
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise RuntimeError(f"trimul kernels run on cuda or cpu tensors, not {t.device}")
-    return False
-
-
-def _check_activation(name: str, t: torch.Tensor, ndim: int):
-    if t.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 or bfloat16)")
-    if t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {ndim}-d tensor, got {tuple(t.shape)}")
-
-
 def _f32(t: torch.Tensor, device) -> torch.Tensor:
     """A weight as a contiguous float32 tensor on `device` (a no-op for
     float32 parameters)."""
@@ -151,33 +137,29 @@ def _wt(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 _ARGTYPES = {
-    "trimul_project": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "trimul_epilogue": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "trimul_project": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5,
+    "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
+    "trimul_epilogue": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
 }
 
 
-def _kernel(name: str):
-    """The C entry point `name` of csrc/<name>.cu, built and typed."""
-    fn = getattr(build.load(name), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, device, *args):
-    """Call csrc/<name>.cu's entry point for `device`, on its current
-    stream, and raise on a launch error. Tensors go in as pointers; `args`
-    keeps every tensor (temporaries included) referenced until the launch
-    is enqueued, after which the caching allocator only hands their memory
-    to later work on the same stream."""
-    c_args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        code = _kernel(name)(*c_args, stream)
-    if code != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {code}")
+    """csrc/<name>.cu's entry point of the same name."""
+    launch(name, name, _ARGTYPES[name], device, *args)
+
+
+_TRIANGLE_CONTRACT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+
+
+def launch_triangle_contract(a, b, out, dims, sa, sb, so, variant: int):
+    """csrc/triangle_contract.cu on [B,C,N,N]-shaped views, dims = (B, C,
+    N), given by their element strides (batch, channel, row, k):
+    out[b,c,i,j] = sum_k a[b,c,i,k] b[b,c,j,k]. variant 0: k contiguous in
+    a and b; 1: k contiguous in a, the row in b; 2: the channel contiguous
+    in all."""
+    B, C, N = dims
+    launch("triangle_contract", "triangle_contract", _TRIANGLE_CONTRACT_ARGTYPES, out.device,
+           a, b, out, B, C, N, *sa, *sb, *so, variant, _DTYPE_CODES[out.dtype])
 
 
 _MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
@@ -221,6 +203,21 @@ def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torc
     out = torch.empty_like(a)
     _launch("trimul_contract", a.device, a, b, out, B * H, N, int(outgoing), _DTYPE_CODES[a.dtype])
     LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] += 1
+    return out
+
+
+def contract_cm_km(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
+    """a [B,H,I,K] x b [B,H,K,J] -> [B,H,I,J] (right operand k-major)."""
+    if _on_cpu(a):
+        return contract_cm_km_plain(a, b_km)
+    _check_activation("contract_km a", a, 4)
+    _check_activation("contract_km b", b_km, 4, like=a)
+    if a.shape[2] != a.shape[3] or b_km.shape != a.shape:
+        raise ValueError(f"contract_km: a {tuple(a.shape)}, b {tuple(b_km.shape)}")
+    out = torch.empty_like(a)
+    sb, sh, s2, s3 = b_km.stride()
+    launch_triangle_contract(a, b_km, out, a.shape[:3], a.stride(), (sb, sh, s3, s2), out.stride(), variant=1)
+    LAUNCHES["contract_cm_km"] += 1
     return out
 
 

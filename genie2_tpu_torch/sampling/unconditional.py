@@ -1,5 +1,6 @@
-"""Unconditional length-conditioned sampler: empty features for a target
-length, outputs written as `{outdir}/pdbs/{prefix}_{offset+i}.pdb`."""
+"""Unconditional length-conditioned samplers: empty features for a target
+length, outputs written as `{outdir}/pdbs/{prefix}_{offset+i}.pdb` (or under
+the given names, for the packed sampler)."""
 
 from __future__ import annotations
 
@@ -23,4 +24,26 @@ class UnconditionalSampler(BaseSampler):
     def on_sample_end(self, params: Dict[str, Any], list_np_features: List[Dict]):
         for i, np_features in enumerate(list_np_features):
             name = f"{params['prefix']}_{params['offset'] + i}"
+            save_features_to_pdb(np_features, os.path.join(params["outdir"], "pdbs", f"{name}.pdb"))
+
+
+class PackedUnconditionalSampler(UnconditionalSampler):
+    """Length-packed variant: one batch mixes target lengths, padded to a
+    shared bucket, so every batch of a sweep is full.
+
+    Required params: `lengths` (one per sample) and `names` (the output
+    file stem of each sample, e.g. "173_2")."""
+
+    def setup(self):
+        self.add_required_parameter("lengths")
+        self.add_required_parameter("names")
+
+    def validate_parameters(self, params: Dict[str, Any]) -> bool:
+        return super().validate_parameters(params) and len(params["lengths"]) == len(params["names"])
+
+    def create_np_features_batch(self, params: Dict[str, Any]):
+        return [create_empty_features([length]) for length in params["lengths"]]
+
+    def on_sample_end(self, params: Dict[str, Any], list_np_features: List[Dict]):
+        for name, np_features in zip(params["names"], list_np_features):
             save_features_to_pdb(np_features, os.path.join(params["outdir"], "pdbs", f"{name}.pdb"))

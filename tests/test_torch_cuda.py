@@ -1,4 +1,5 @@
-"""genie2_tpu_torch's TriMul kernels against their plain versions on the card.
+"""genie2_tpu_torch's kernels (TriMul, IPA attention, the triangle
+contractions) against their plain versions on the card.
 
 Marked `cuda`; each test skips where torch sees no CUDA device (decided
 inside the test, so every worker collects the same tests). On a machine
@@ -8,7 +9,7 @@ with a card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 import pytest
 import torch
 
-from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.ops import ipa, triangle, trimul
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +73,64 @@ def test_wrapper_rejects_bad_input(device):
         trimul.project_gated_cm(z.half(), torch.ones(1, 8, device=device), w)
     with pytest.raises(ValueError):
         trimul.contract_cm(z[..., :8].permute(0, 3, 1, 2), z[..., :8].permute(0, 3, 1, 2))
+
+
+def _ipa_inputs(device, dtype, B, N, H, C, PQ, PV, CZ, tail):
+    gen = torch.Generator(device=device).manual_seed(N + H)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    q, k, v = r(B, N, H, C), r(B, N, H, C), r(B, N, H, C)
+    pts = [r(B, N, H, PQ, 3) * 3, r(B, N, H, PQ, 3) * 3, r(B, N, H, PV, 3) * 3]
+    bias, z = r(B, N, N, H), r(B, N, N, CZ)
+    mask = (torch.arange(N, device=device) < N - tail).float().expand(B, N).contiguous()
+    return (*(t.to(dtype) for t in (q, k, v, *pts, bias, z)), r(H).abs() + 0.5, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,tail", [(70, 6), (96, 0)])
+@pytest.mark.parametrize("h,c,pq,pv,cz", [(5, 8, 3, 5, 24), (12, 16, 4, 8, 128), (16, 8, 2, 4, 300)])
+def test_ipa_attention_matches_plain(device, dtype, n, tail, h, c, pq, pv, cz):
+    """Ragged N, odd widths, every head bucket and both row counts per
+    block; the plain version follows the kernel on padded rows too."""
+    args = _ipa_inputs(device, dtype, 2, n, h, c, pq, pv, cz, tail)
+    trimul.reset_launch_counts()
+    got = ipa.ipa_attention(*args)
+    torch.cuda.synchronize()
+    assert trimul.LAUNCHES["ipa_attention"] == 1
+    for g, w in zip(got, ipa.ipa_attention_plain(*args)):
+        assert torch.isfinite(g.float()).all()
+        _close(g, w, dtype)
+
+
+def test_ipa_attention_rejects_bad_input(device):
+    args = list(_ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 16, 0))
+    with pytest.raises(ValueError, match="limits"):
+        wide = _ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 600, 0)
+        ipa.ipa_attention(*wide)
+    with pytest.raises(ValueError, match="limits"):
+        ipa.ipa_attention(*_ipa_inputs(device, torch.float32, 1, 16, 17, 8, 2, 2, 16, 0))
+    with pytest.raises(ValueError):
+        ipa.ipa_attention(args[0][:, :8], *args[1:])
+    with pytest.raises(TypeError):
+        ipa.ipa_attention(*(a.half() if a.dim() > 2 else a for a in args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(70, 24), (96, 40)])
+def test_triangle_contractions_match_plain(device, dtype, n, c):
+    gen = torch.Generator(device=device).manual_seed(n)
+    a = (torch.randn(2, n, n, c, generator=gen, device=device) * 0.3).to(dtype)
+    b = (torch.randn(2, n, n, c, generator=gen, device=device) * 0.3).to(dtype)
+    trimul.reset_launch_counts()
+    for outgoing in (True, False):
+        want = triangle.triangle_multiply_reference(a, b, outgoing)
+        for layout in triangle.LAYOUTS:
+            got = triangle.triangle_multiply(a, b, outgoing, layout)
+            assert got.is_contiguous()
+            _close(got, want, dtype)
+    a_cm, b_km = a.permute(0, 3, 1, 2).contiguous(), b.permute(0, 3, 1, 2).contiguous()
+    _close(trimul.contract_cm_km(a_cm, b_km), trimul.contract_cm_km_plain(a_cm, b_km), dtype)
+    torch.cuda.synchronize()
+    counts = trimul.LAUNCHES
+    assert (counts["triangle_multiply_cm"], counts["triangle_multiply_nlayout"], counts["contract_cm_km"]) == (2, 2, 1)
+    with pytest.raises(ValueError):
+        triangle.triangle_multiply(a.permute(0, 2, 1, 3), b)

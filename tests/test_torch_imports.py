@@ -33,7 +33,11 @@ def _imported_modules(path):
 def test_port_has_modules():
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     for expected in ("genie2_tpu_torch/ops/trimul.py", "genie2_tpu_torch/nn/denoiser.py",
-                     "genie2_tpu_torch/cli/sample_unconditional.py", "chip_smoke.py"):
+                     "genie2_tpu_torch/cli/sample_unconditional.py", "chip_smoke.py",
+                     "genie2_tpu_torch/ops/launch.py", "genie2_tpu_torch/ops/ipa.py",
+                     "genie2_tpu_torch/ops/triangle.py", "genie2_tpu_torch/features/motif.py",
+                     "genie2_tpu_torch/sampling/dpm_solver.py", "genie2_tpu_torch/sampling/scaffold.py",
+                     "genie2_tpu_torch/cli/common.py", "genie2_tpu_torch/cli/sample_scaffold.py"):
         assert expected in rel
 
 

@@ -5,8 +5,8 @@ Runs the sampler's reverse step (Frenet frames, the full-width denoiser of
 configs/example.configuration with seeded weights, the posterior mean) a
 few times under torch.profiler and prints one JSON line: the wall time per
 step, the device time per step grouped by kernel family (the three TriMul
-kernels, eigh, matrix products, the rest), the device's busy and idle
-shares, and the top kernels by device time.
+kernels, the IPA attention kernel, eigh, matrix products, the rest), the
+device's busy and idle shares, and the top kernels by device time.
 
     python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh
 
@@ -31,6 +31,8 @@ FAMILIES = (
     ("trimul_project", ("project_kernel",)),
     ("trimul_contract", ("contract_kernel",)),
     ("trimul_epilogue", ("epilogue_kernel",)),
+    ("ipa_attention", ("ipa_kernel",)),
+    ("triangle_contract", ("tile_kernel", "cfast_kernel")),
     ("eigh", ("syev", "cusolver", "jacobi", "eig")),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "dot")),
     ("softmax", ("softmax",)),
