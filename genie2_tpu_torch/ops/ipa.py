@@ -41,9 +41,9 @@ from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, check_activation,
 MAX_HEADS = 16
 _MAX_ITEMS = 512
 _MAX_SMEM_BYTES = 232448
-_TJ, _TI_MAX = 16, 2
+_TJ, _TI_MAX = 32, 2
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -113,15 +113,15 @@ def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf
             f"(H <= {MAX_HEADS}, Cz <= {_MAX_ITEMS}, H (C + 3 Pv + 1) <= {_MAX_ITEMS}, "
             f"{smem} <= {_MAX_SMEM_BYTES} bytes of shared memory)"
         )
+    # The kernel reads a tile of keys as one contiguous run: [q | points].
     qp, kp = scale_points(q_pts, k_pts, head_weights)
-    o = torch.empty((B, N, H, C), dtype=z.dtype, device=z.device)
-    o_pt = torch.empty((B, N, H, PV, 3), dtype=z.dtype, device=z.device)
+    qc, kc, vc = torch.cat([q, qp], -1), torch.cat([k, kp], -1), torch.cat([v, v_pts.flatten(-2)], -1)
+    oc = torch.empty_like(vc)
     o_pair = torch.empty((B, N, H, CZ), dtype=z.dtype, device=z.device)
     launch(
         "ipa_attention", "ipa_attention", _ARGTYPES, z.device,
-        q.contiguous(), k.contiguous(), v.contiguous(), qp.contiguous(), kp.contiguous(),
-        v_pts.contiguous(), bias.contiguous(), z, mask.float().contiguous(), o, o_pt, o_pair,
+        qc, kc, vc, bias.contiguous(), z, mask.float().contiguous(), oc, o_pair,
         B, N, H, C, PQ, PV, CZ, ti, float(inf), DTYPE_CODES[z.dtype],
     )
     LAUNCHES["ipa_attention"] += 1
-    return o, o_pt, o_pair
+    return oc[..., :C], oc[..., C:].unflatten(-1, (PV, 3)), o_pair
