@@ -51,10 +51,7 @@ namespace {
 using namespace trimul;
 
 constexpr int THREADS = 256;
-#ifndef IPA_TJ
-#define IPA_TJ 32
-#endif
-constexpr int TJ = IPA_TJ;  // keys per tile
+constexpr int TJ = 32;      // keys per tile
 constexpr int TI_MAX = 2;   // query rows per block, at most
 constexpr int ITEMS = 2;    // accumulator items per thread, at most
 constexpr int MAX_HEADS = 16;

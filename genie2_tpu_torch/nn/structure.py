@@ -141,7 +141,7 @@ class StructureNet(nn.Module):
         )
 
     def forward(self, s, p, ts: Rigid, features):
-        mask = features["residue_mask"]
+        mask = features["residue_mask"].float()  # cast once for all layers' attention cores
         states = [s]
         for _ in range(self.n_structure_block):
             for layer in self.net:

@@ -35,6 +35,8 @@ from typing import Dict, Tuple
 
 import torch
 
+# LAUNCHES and reset_launch_counts are re-exported: callers read and reset
+# every kernel's counter through this module.
 from genie2_tpu_torch.ops.launch import (
     DTYPE_CODES as _DTYPE_CODES,
     LAUNCHES,

@@ -137,12 +137,12 @@ class BaseSampler(ABC):
         uncond_bias = self.model.pair_feature_net.static_bias(uncond, self.dtype)
         w = 1.0 + float(strength)
 
-        def guided(frames, t_vec):
+        def combined(frames, t_vec):
             z_c = conditional(frames, t_vec)
             z_u = apply_denoiser(self.model, frames, t_vec, uncond, uncond_bias, self.dtype)
             return z_u + w * (z_c - z_u)
 
-        return guided
+        return combined
 
     @torch.inference_mode()
     def _sample(self, params: Dict[str, Any]):

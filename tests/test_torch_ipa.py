@@ -132,7 +132,7 @@ def test_module_matches_flax(masked_tail):
                   torch.tensor(mask)).numpy()
     real = mask.astype(bool)
     assert np.abs(want[real]).max() > 1e-2
-    np.testing.assert_allclose(got[real], want[real], atol=3e-5 * max(1.0, np.abs(want[real]).max()), rtol=3e-5)
+    np.testing.assert_allclose(got[real], want[real], atol=3e-5, rtol=3e-5)
 
 
 def test_wrapper_counts_nothing_on_cpu_and_refuses_other_devices():

@@ -263,7 +263,7 @@ def tiny_release(models, tmp_path):
 
 
 def test_cfg_z_matches_jax(models, tiny_release):
-    """The guided noise prediction eps_u + (1 + s)(eps_c - eps_u) on a
+    """The noise prediction under guidance, eps_u + (1 + s)(eps_c - eps_u) on a
     motif-conditioned batch padded to its bucket, against genie2_tpu's
     `_cfg_apply_fn`; real rows, 1e-4. strength 0 is the conditional model."""
     flax_model, variables, port, _ = models

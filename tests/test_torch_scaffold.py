@@ -153,8 +153,8 @@ def test_placement_seed_reproduces_and_guidance_changes_samples(tiny_release, sp
         return sampler.sample({"scale": 0.4, "outdir": str(tmp_path / "o"), "num_samples": 2, "prefix": "m",
                                "offset": 0, "filepath": spec_path, "strength": strength, "seed": 1, "dpm_steps": 3})
 
-    a, b, guided = run(0), run(0), run(2.0)
-    for fa, fb, fg in zip(a, b, guided):
+    a, b, steered = run(0), run(0), run(2.0)
+    for fa, fb, fg in zip(a, b, steered):
         np.testing.assert_array_equal(fa["fixed_sequence_mask"], fb["fixed_sequence_mask"])
         np.testing.assert_array_equal(fa["atom_positions"], fb["atom_positions"])
         np.testing.assert_array_equal(fa["fixed_sequence_mask"], fg["fixed_sequence_mask"])
