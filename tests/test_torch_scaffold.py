@@ -162,3 +162,33 @@ def test_placement_seed_reproduces_and_guidance_changes_samples(tiny_release, sp
         assert np.abs(fg["atom_positions"] - fa["atom_positions"]).max() > 1e-4
     lengths = {int(f["num_residues"]) for s in range(6) for f in run(0, placement_seed=s)}
     assert len(lengths) > 1  # placements vary with the seed
+
+
+def test_smoke_script_motif_problem_and_kernel_bounds(tmp_path):
+    """chip_smoke.py's own motif problem parses like any other (and equally
+    on the genie2_tpu side), and its byte / operation counts give the bounds
+    the kernels' notes state."""
+    import chip_smoke
+
+    path = str(tmp_path / "smoke_motif.pdb")
+    chip_smoke.write_motif_problem(path)
+    spec = tfeatures.load_motif_spec(path)
+    assert spec == jfeatures.load_motif_spec(path)
+    assert [s["type"] for s in spec["structures"]] == ["scaffold", "motif", "scaffold", "motif", "scaffold"]
+    assert (spec["min_total_length"], spec["max_total_length"]) == chip_smoke.TOTAL_RANGE
+    assert [len(s) for s in tfeatures.parse_pdb(path)[0]] == [12, 9]
+    feats = tfeatures.features_from_motif_pdb(path, np.random.default_rng(0))
+    assert int(feats["fixed_sequence_mask"].sum()) == chip_smoke.N_MOTIF == 21
+    assert chip_smoke.TOTAL_RANGE[0] <= int(feats["num_residues"]) <= chip_smoke.TOTAL_RANGE[1]
+    assert set(np.unique(feats["fixed_group"])) == {0, 1, 2}
+    coords = np.array(tfeatures.parse_pdb(path)[1][0])
+    np.testing.assert_allclose(np.linalg.norm(np.diff(coords, axis=0), axis=1), 3.8, atol=2e-3)
+
+    # B=2, N=256, fp32: IPA is bound by bytes (z read once), the contractions by operations.
+    bytes_, ops = chip_smoke.kernel_bytes_ops("ipa_attention", 2, 256, 128, 128, 4)
+    assert ops == 2 * 2 * 12 * 256 * 256 * (2 * 16 + 12 + 24 + 128)
+    assert 2 * 256 * 256 * (128 + 12) * 4 < bytes_ < 1.10 * 2 * 256 * 256 * (128 + 12) * 4
+    assert bytes_ / chip_smoke.PEAK_BYTES_PER_S > ops / chip_smoke.PEAK_OPS_PER_S["float32"]
+    for name in chip_smoke.OFF_PATH:
+        bytes_, ops = chip_smoke.kernel_bytes_ops(name, 2, 256, 128, 128, 4)
+        assert (bytes_, ops) == (3 * 2 * 128 * 256 * 256 * 4, 2 * 2 * 128 * 256 ** 3)
