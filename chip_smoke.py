@@ -7,12 +7,14 @@ Phases, in order; any failure exits non-zero:
   1. device    print the card's name and power limit, require CUDA, build
                the kernels from genie2_tpu_torch/csrc with nvcc;
   2. kernels   each kernel (three TriMul stages, the IPA attention core,
-               the three standalone triangle contractions) against its
-               plain PyTorch version on the card, float32 and bfloat16, at
-               N=256 and the ragged N=224; times of the kernel, the plain
-               version and a library call;
+               the three standalone triangle contractions, the triangle
+               attention core) against its plain PyTorch version on the
+               card, float32 and bfloat16, at N=256 and the ragged N=224;
+               times of the kernel, the plain version and a library call;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
-               with the plain versions swapped in, compared on z;
+               with the plain versions swapped in, compared on z; once for
+               configs/example.configuration and once for the same
+               configuration with triangle attention in its pair layers;
   4. main      the unconditional sampling CLI from a seeded Lightning-style
                checkpoint: 1000 steps at L=256 and L=200, PDBs checked,
                kernel launches counted;
@@ -22,6 +24,11 @@ Phases, in order; any failure exits non-zero:
                DPM-Solver++-25; then the unconditional CLI with --pack and
                with --dump_trajectory_every at L=64; files, coordinates and
                kernel launches checked;
+  6. triatt    the configuration with triangle attention as a second
+               release directory: the unconditional CLI, 1000 steps at
+               L=256, and the SSE-guided particle CLI, 8 particles of
+               length 128, 1000 steps; PDBs, the ESS trace, the printed
+               fractions and kernel launches checked;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -51,13 +58,18 @@ SEED = 0
 #   bfloat16 3e-2: both round to bfloat16 at the same points, but a value
 #     on a rounding boundary can land one bf16 ulp (2^-8) apart.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-# Denoiser z, relative to max |z|: ten TriMul calls and eight IPA layers
-# carry the kernels' float32 summation-order differences forward.
+# Denoiser z, relative to max |z|: ten TriMul calls, ten triangle attention
+# calls where the configuration has them and eight IPA layers carry the
+# kernels' float32 summation-order differences forward.
 DENOISER_TOL = 1e-3
 C_P = 128  # configs/example.configuration pairFeatureDimension
 H_MUL = 128  # triangularMultiplicativeHiddenDimension (default)
 # IPA widths of configs/example.configuration: heads, hidden, qk and v points.
 IPA = {"H": 12, "C": 16, "PQ": 4, "PV": 8}
+# Triangle attention widths (the configuration's defaults): heads, head width.
+TRI_ATT = {"H": 4, "c": 32}
+# The second configuration: the example file with triangle attention on.
+TRI_ATT_LINE = "includeTriangularAttention True\n"
 
 KERNELS = [
     {
@@ -96,6 +108,12 @@ KERNELS = [
         "name": "contract_cm_km",
         "source": "genie2_tpu_torch/csrc/triangle_contract.cu",
         "replaces": "genie2_tpu/ops/trimul_fused.py:213",
+    },
+    # On the path of the configuration with triangle attention only.
+    {
+        "name": "tri_attention",
+        "source": "genie2_tpu_torch/csrc/tri_att_flash.cu",
+        "replaces": "genie2_tpu/ops/tri_att_flash.py:162",
     },
 ]
 OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
@@ -197,6 +215,32 @@ def random_ipa_inputs(B, N, z, res_mask, gen):
             r(B, N, h, pv, 3, scale=3.0), r(B, N, N, h), z, head_weights, res_mask)
 
 
+def random_tri_att_inputs(B, N, dtype, gen, device):
+    """The triangle attention core's arguments at full width (ops/tri_att.py):
+    a padded tail of keys in every row and, in the last sample, rows whose
+    keys are all padded."""
+    import torch
+
+    h, c = TRI_ATT["H"], TRI_ATT["c"]
+    q, k, v = ((torch.randn(B, N, N, h, c, generator=gen, device=device)).to(dtype) for _ in range(3))
+    tb = torch.randn(B, h, N, N, generator=gen, device=device).to(dtype)
+    res = (torch.arange(N, device=device) < N - 24).float().expand(B, N).clone()
+    res[-1, N - 40:] = 0.0
+    return q, k, v, tb, res[:, :, None] * res[:, None, :]
+
+
+def sdpa_tri_attention(q, k, v, tb, mask, inf=1e9):
+    """The same function as one library call, timed only: rows become batch
+    entries and both biases one materialised attn_mask [B*I, H, J, J]."""
+    import torch
+
+    B, I, J, H, c = q.shape
+    heads = lambda t: t.permute(0, 1, 3, 2, 4).reshape(B * I, H, J, c)
+    bias = (tb[:, None].float() + inf * (mask.float()[:, :, None, None, :] - 1.0)).to(q.dtype).reshape(B * I, H, J, J)
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+
 def kernel_bytes_ops(name, B, N, C, H, esize):
     """Bytes each kernel must move (inputs read once, outputs written once)
     and the multiply-adds it does, counted as 2 operations each."""
@@ -215,6 +259,11 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
         bytes_ = esize * (pair * C + pair * h + rows + outs) + 4 * B * N + 4 * h
         # Every key is computed, masked or not: q.k, the point distances, p.v, p.v_pts, p.z.
         return bytes_, 2 * B * h * N * N * (2 * c + 3 * pq + 3 * pv + C)
+    if name == "tri_attention":
+        h, c = TRI_ATT["H"], TRI_ATT["c"]
+        # q, k, v read and o written, the triangle bias, the float32 mask;
+        # every key is computed, masked or not: q.k and p.v per (row, query, key).
+        return esize * (4 * pair * h * c + B * h * N * N) + 4 * pair, 2 * B * h * N ** 3 * 2 * c
     w = 4 * (H * C + C * C + 5 * C)
     return pair * H * esize + pair * C * esize + w + pair * C * esize, 2 * pair * (H * C + C * C)
 
@@ -222,7 +271,7 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
 def phase_kernels(state):
     import torch
 
-    from genie2_tpu_torch.ops import ipa, triangle, trimul
+    from genie2_tpu_torch.ops import ipa, tri_att, triangle, trimul
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -274,6 +323,11 @@ def phase_kernels(state):
                     ))
             cases.append(("contract_cm_km", None, lambda: trimul.contract_cm_km(a_p, b_p),
                           lambda: trimul.contract_cm_km_plain(a_p, b_p), lambda: torch.matmul(a_p, b_p)))
+            # Triangle attention at full width; all rows are compared, the
+            # fully padded ones (uniform attention) too.
+            ta_args = random_tri_att_inputs(B, N, dtype, gen, dev)
+            cases.append(("tri_attention", None, lambda: tri_att.tri_attention(*ta_args),
+                          lambda: tri_att.tri_attention_plain(*ta_args), sdpa_tri_attention(*ta_args)))
             for name, outgoing, kern, plain, library in cases:
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
@@ -316,25 +370,31 @@ def phase_kernels(state):
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the plain versions in for the kernel wrappers that the denoiser
-    calls, TriMul and IPA (comparison only)."""
-    from genie2_tpu_torch.nn import structure
-    from genie2_tpu_torch.ops import ipa, trimul
+    calls, TriMul, IPA and triangle attention (comparison only)."""
+    from genie2_tpu_torch.nn import primitives, structure
+    from genie2_tpu_torch.ops import ipa, tri_att, trimul
 
-    saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention)
+    saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention,
+             primitives.tri_attention)
     trimul.project_gated_cm = trimul.project_gated_cm_plain
     trimul.contract_cm = trimul.contract_cm_plain
     trimul.epilogue_cm = trimul.epilogue_cm_plain
     structure.ipa_attention = ipa.ipa_attention_plain
+    primitives.tri_attention = tri_att.tri_attention_plain
     try:
         yield
     finally:
-        trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention = saved
+        (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention,
+         primitives.tri_attention) = saved
 
 
-def example_config():
+def example_config(tri_att: bool = False):
+    """configs/example.configuration; with `tri_att`, the same file with
+    triangle attention on (4 heads of 32, the configuration's defaults)."""
     from genie2_tpu_torch.config import Config
 
-    return Config(os.path.join(HERE, "configs", "example.configuration"))
+    overrides = {"includeTriangularAttention": True} if tri_att else None
+    return Config(os.path.join(HERE, "configs", "example.configuration"), overrides=overrides)
 
 
 def seeded_denoiser(config, device):
@@ -353,19 +413,34 @@ def seeded_denoiser(config, device):
 def expected_launches(config, denoiser_calls: int):
     """Launch counts after `denoiser_calls` calls of the denoiser: each pair
     layer runs an outgoing and an incoming TriMul (project, contract,
-    epilogue each), each structure layer of each block one IPA core; the
-    standalone contractions are on no path."""
+    epilogue each) and, where the configuration has triangle attention, a
+    starting and an ending one; each structure layer of each block one IPA
+    core; the standalone contractions are on no path."""
     from genie2_tpu_torch.ops import trimul
 
     pair = config.model["n_pair_transform_layer"] * denoiser_calls
     structure = config.model["n_structure_layer"] * config.model["n_structure_block"] * denoiser_calls
     want = dict.fromkeys(trimul.LAUNCHES, 0)
     want.update(trimul_project=2 * pair, trimul_contract_out=pair, trimul_contract_in=pair,
-                trimul_epilogue=2 * pair, ipa_attention=structure)
+                trimul_epilogue=2 * pair, ipa_attention=structure,
+                tri_attention=2 * pair if config.model["include_tri_att"] else 0)
     return want
 
 
 def phase_denoiser(state):
+    import torch
+
+    dev = torch.device("cuda")
+    for tri_att in (False, True):
+        config = example_config(tri_att)
+        model = seeded_denoiser(config, dev)
+        state["model_triatt" if tri_att else "model"] = model
+        compare_denoiser(config, model, tri_att)
+
+
+def compare_denoiser(config, model, tri_att):
+    """One denoiser call at L=256, batch 2, with the kernels and with every
+    plain version swapped in: z compared, launches counted, both timed."""
     import numpy as np
     import torch
 
@@ -374,9 +449,6 @@ def phase_denoiser(state):
     from genie2_tpu_torch.ops import trimul
 
     dev = torch.device("cuda")
-    config = example_config()
-    model = seeded_denoiser(config, dev)
-    state["model"] = model
     L = 256
     feats = to_device(batchify([create_empty_features([L]) for _ in range(2)]), dev)
     rng = np.random.default_rng(SEED)
@@ -399,7 +471,7 @@ def phase_denoiser(state):
     err = (z_k - z_p).abs().max().item()
     scale = z_p.abs().max().item()
     rec = {
-        "phase": "denoiser", "L": L, "B": 2, "max_abs_err": err, "max_abs_z": scale,
+        "phase": "denoiser", "triangle_attention": tri_att, "L": L, "B": 2, "max_abs_err": err, "max_abs_z": scale,
         "rel_err": err / max(scale, 1e-30), "tol": DENOISER_TOL,
         "ms_kernels": ms_k, "ms_plain": ms_p, "launches_one_call": launches,
         "finite": bool(torch.isfinite(z_k).all().item()),
@@ -416,24 +488,28 @@ def phase_denoiser(state):
 # ------------------------------------------------------------------ #
 
 
-def release_dir(state):
+def release_dir(state, tri_att: bool = False):
     """The seeded full-width model as a release-layout checkpoint under a
-    temporary directory (removed by main): {work}/results/smoke/..."""
+    temporary directory (removed by main): {work}/results/smoke/..., or
+    .../smoke_triatt/... for the configuration with triangle attention.
+    Returns (work, rootdir, name)."""
     import torch
 
     if "work" not in state:
-        model = state.get("model") or seeded_denoiser(example_config(), torch.device("cuda"))
-        work = tempfile.mkdtemp(prefix="chip_smoke_")
-        state["work"] = work
-        rootdir = os.path.join(work, "results")
-        os.makedirs(os.path.join(rootdir, "smoke", "checkpoints"))
-        shutil.copy(os.path.join(HERE, "configs", "example.configuration"),
-                    os.path.join(rootdir, "smoke", "configuration"))
+        state["work"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    name, key = ("smoke_triatt", "model_triatt") if tri_att else ("smoke", "model")
+    rootdir = os.path.join(state["work"], "results")
+    if not os.path.isdir(os.path.join(rootdir, name)):
+        model = state.get(key) or seeded_denoiser(example_config(tri_att), torch.device("cuda"))
+        os.makedirs(os.path.join(rootdir, name, "checkpoints"))
+        with open(os.path.join(HERE, "configs", "example.configuration")) as src, \
+                open(os.path.join(rootdir, name, "configuration"), "w") as dst:
+            dst.write(src.read().rstrip("\n") + "\n" + (TRI_ATT_LINE if tri_att else ""))
         torch.save(
             {"state_dict": {f"model.{k}": v.detach().cpu() for k, v in model.state_dict().items()}},
-            os.path.join(rootdir, "smoke", "checkpoints", "epoch.1.ckpt"),
+            os.path.join(rootdir, name, "checkpoints", "epoch.1.ckpt"),
         )
-    return state["work"], os.path.join(state["work"], "results")
+    return state["work"], rootdir, name
 
 
 def drive(cli_main, argv):
@@ -466,8 +542,8 @@ def check_ca_file(path, length=None):
     return len(xyz)
 
 
-def common_argv(rootdir, outdir, scale):
-    return ["--name", "smoke", "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--scale", scale,
+def common_argv(rootdir, outdir, scale, name="smoke"):
+    return ["--name", name, "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--scale", scale,
             "--seed", str(SEED), "--device", "cuda"]
 
 
@@ -475,7 +551,7 @@ def phase_main(state):
     from genie2_tpu_torch.cli import sample_unconditional
 
     config = example_config()
-    work, rootdir = release_dir(state)
+    work, rootdir, _ = release_dir(state)
     outdir = os.path.join(work, "out")
     lengths = (256, 200)
     argv = common_argv(rootdir, outdir, "0.6") + [
@@ -550,7 +626,7 @@ def phase_scaffold(state):
 
     config = example_config()
     n_steps = config.diffusion["n_timestep"]
-    work, rootdir = release_dir(state)
+    work, rootdir, _ = release_dir(state)
     datadir = os.path.join(work, "problems")
     os.makedirs(datadir)
     write_motif_problem(os.path.join(datadir, "smoke_motif.pdb"))
@@ -616,10 +692,74 @@ def phase_scaffold(state):
 
 
 # ------------------------------------------------------------------ #
+# Phase 6
+# ------------------------------------------------------------------ #
+
+SSE_LENGTH, SSE_PARTICLES = 128, 8
+
+
+def phase_triatt(state):
+    """The configuration with triangle attention through two entry points."""
+    from genie2_tpu_torch.cli import sample_sse, sample_unconditional
+
+    config = example_config(tri_att=True)
+    n_steps = config.diffusion["n_timestep"]
+    work, rootdir, name = release_dir(state, tri_att=True)
+
+    L = 256
+    outdir = os.path.join(work, "triatt_out")
+    argv = common_argv(rootdir, outdir, "0.6", name) + [
+        "--num_samples", "2", "--batch_size", "2", "--min_length", str(L), "--max_length", str(L)]
+    per_length, seconds, launches = drive(sample_unconditional.main, argv)
+    for i in range(2):
+        check_ca_file(os.path.join(outdir, "pdbs", f"{L}_{i}.pdb"), L)
+    emit({
+        "phase": "triatt", "run": "unconditional", "configuration": "example + " + TRI_ATT_LINE.strip(),
+        "length": L, "samples": 2, "batch": 2, "seconds": seconds,
+        "samples_per_min_at_256": 2 / per_length[L] * 60.0, "ms_per_step_at_256": per_length[L] / n_steps * 1e3,
+        "launches": launches, "coords_ok": True, "smi": state["smi"],
+    })
+    state["launches_triatt"] = launches
+    want = expected_launches(config, n_steps)
+    if launches != want:
+        raise PhaseFailed(f"triatt unconditional: launch counts {launches}, expected {want}")
+
+    outdir = os.path.join(work, "triatt_sse")
+    argv = ["--name", name, "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--seed", str(SEED),
+            "--device", "cuda", "--length", str(SSE_LENGTH), "--num_particles", str(SSE_PARTICLES),
+            "--target", "helix", "--strength", "20"]
+    result, seconds, launches = drive(sample_sse.main, argv)
+    for i in range(SSE_PARTICLES):
+        check_ca_file(os.path.join(outdir, "pdbs", f"{SSE_LENGTH}_{i}.pdb"), SSE_LENGTH)
+    ess = result["ess_trace"]
+    ess_ok = len(ess) == n_steps and all(1.0 - 1e-4 <= e <= SSE_PARTICLES + 1e-4 for e in ess)  # NaN fails too
+    emit({
+        "phase": "triatt", "run": "sse", "length": SSE_LENGTH, "particles": SSE_PARTICLES, "target": "helix",
+        "strength": 20, "seconds": seconds, "ms_per_step": seconds / n_steps * 1e3,
+        "soft_helix_mean": result["soft_mean"], "soft_helix_max": result["soft_max"],
+        "hard_helix_mean": result["hard_mean"], "ess_min": result["ess_min"], "ess_mean": result["ess_mean"],
+        "resamples": result["resamples"], "launches": launches, "smi": state["smi"],
+        "note": "seeded random weights: the fractions say nothing about quality and are held to [0, 1] only",
+    })
+    state["launches_sse"] = launches
+    if not ess_ok:
+        raise PhaseFailed(f"sse: ESS trace of {len(ess)} steps outside [1, {SSE_PARTICLES}] or not finite")
+    for key in ("soft_mean", "soft_max", "hard_mean"):
+        if not 0.0 <= result[key] <= 1.0:
+            raise PhaseFailed(f"sse: {key} = {result[key]} outside [0, 1]")
+    if not 0 <= result["resamples"] <= n_steps:
+        raise PhaseFailed(f"sse: {result['resamples']} resampling steps")
+    want = expected_launches(config, n_steps)
+    if launches != want:
+        raise PhaseFailed(f"sse: launch counts {launches}, expected {want}")
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
     launches = state.get("launches", {})
+    triatt = state.get("launches_triatt", {})
     scaffold = state.get("launches_scaffold", {})
     kernel_phase = state.get("kernel_phase_launches", {})
     out = []
@@ -633,17 +773,22 @@ def kernels_line(state):
         count = lambda table: sum(table.get(c, 0) for c in counters)
         entry = {
             **k, "route": "cuda",
-            # On the main path: the unconditional sweep's count. Off it:
-            # the launches of the kernels phase (comparisons and timings).
-            "launches": count(kernel_phase) if name in OFF_PATH else count(launches),
-            "launches_from": "kernels phase" if name in OFF_PATH else "main phase",
+            # On the main path: the unconditional sweep's count. On the
+            # path of the triangle attention configuration only: that
+            # configuration's 1000-step run. Off every path: the launches
+            # of the kernels phase (comparisons and timings).
+            "launches": count(kernel_phase) if name in OFF_PATH else count(triatt) if name == "tri_attention"
+            else count(launches),
+            "launches_from": "kernels phase" if name in OFF_PATH else "triatt phase, unconditional"
+            if name == "tri_attention" else "main phase",
             "launches_scaffold": {run: count(table) for run, table in scaffold.items()},
+            "launches_triatt": {"unconditional": count(triatt), "sse": count(state.get("launches_sse", {}))},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
             "library_ms": (sum(r["library_ms"] for r in rs) / len(rs)) if rs[0]["library_ms"] is not None else None,
-            "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else {})},
+            "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else TRI_ATT if name == "tri_attention" else {})},
         }
         if name == "trimul_contract":
             entry["launches_out"] = launches.get("trimul_contract_out", 0)
@@ -655,7 +800,7 @@ def kernels_line(state):
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
-          "scaffold": phase_scaffold}
+          "scaffold": phase_scaffold, "triatt": phase_triatt}
 
 
 def main() -> int:

@@ -10,19 +10,25 @@ import torch
 SOLVER_FLAGS = ("ddim_steps", "ddim_eta", "ddim_eta_switch_t", "dpm_steps", "dump_trajectory_every", "fast_spacing")
 
 
-def add_model_arguments(parser: argparse.ArgumentParser):
+def add_checkpoint_arguments(parser: argparse.ArgumentParser):
+    """The flags every sampling CLI has: which checkpoint, where to write,
+    the seed, the device and the parallelism flags that are refused."""
     parser.add_argument("--name", type=str, required=True, help="Model name")
     parser.add_argument("--epoch", type=int, required=True, help="Model epoch")
     parser.add_argument("--rootdir", type=str, default="results", help="Root directory")
-    parser.add_argument("--scale", type=float, required=True, help="Sampling noise scale")
     parser.add_argument("--outdir", type=str, required=True, help="Output directory")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--ema", action="store_true", help="Sample from epoch.{E}.ema.ckpt")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; no card without --device cpu is an error")
-    parser.add_argument("--mesh_seq", type=int, default=1, help="Only 1 is supported (sequence sharding is not ported)")
     parser.add_argument("--mesh_model", type=int, default=1, help="Only 1 is supported (tensor parallelism is not ported)")
     parser.add_argument("--num_devices", type=int, default=None, help="Only 1 is supported (batch sharding is not ported)")
+
+
+def add_model_arguments(parser: argparse.ArgumentParser):
+    add_checkpoint_arguments(parser)
+    parser.add_argument("--scale", type=float, required=True, help="Sampling noise scale")
+    parser.add_argument("--mesh_seq", type=int, default=1, help="Only 1 is supported (sequence sharding is not ported)")
 
 
 def add_solver_arguments(parser: argparse.ArgumentParser):
@@ -50,7 +56,7 @@ def load_model(args):
     release-layout checkpoint onto `args.device`. Returns (model, config)."""
     from genie2_tpu_torch.utils.model_io import load_pretrained_model
 
-    given = [f"--{k}" for k in ("mesh_seq", "mesh_model", "num_devices") if getattr(args, k) not in (None, 1)]
+    given = [f"--{k}" for k in ("mesh_seq", "mesh_model", "num_devices") if getattr(args, k, None) not in (None, 1)]
     if given:
         raise NotImplementedError(f"{', '.join(given)}: parallelism is not ported to genie2_tpu_torch yet")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -20,6 +20,7 @@ from genie2_tpu_torch.features.motif import (
     sample_motif_mask,
     save_motif_pdb,
 )
+from genie2_tpu_torch.features.secstruct import assign_secstruct, helix_statistic, sec_struct_frac
 
 __all__ = [
     "Features",
@@ -38,4 +39,7 @@ __all__ = [
     "load_motif_spec",
     "sample_motif_mask",
     "save_motif_pdb",
+    "assign_secstruct",
+    "helix_statistic",
+    "sec_struct_frac",
 ]

@@ -4,9 +4,10 @@ from genie2_tpu_torch.nn.pair_stack import (
     PairTransformLayer,
     PairTransformNet,
     PairTransition,
+    TriangleAttention,
     TriangleMultiplicativeUpdate,
 )
-from genie2_tpu_torch.nn.primitives import Linear
+from genie2_tpu_torch.nn.primitives import Attention, Linear
 from genie2_tpu_torch.nn.structure import (
     BackboneUpdate,
     InvariantPointAttention,
@@ -22,7 +23,9 @@ __all__ = [
     "PairTransformLayer",
     "PairTransformNet",
     "PairTransition",
+    "TriangleAttention",
     "TriangleMultiplicativeUpdate",
+    "Attention",
     "Linear",
     "BackboneUpdate",
     "InvariantPointAttention",

@@ -22,7 +22,9 @@ from genie2_tpu_torch.nn.structure import StructureNet
 
 class Denoiser(nn.Module):
     """Given noisy frames at timestep t, predict the added noise. Dropout
-    rates are accepted for the configuration's sake; inference has none."""
+    rates are accepted for the configuration's sake; inference has none.
+    `tri_att_chunk` is the row chunk of triangle attention's plain version
+    (0 = all rows at once)."""
 
     def __init__(
         self, c_s, c_p, n_timestep, rescale, c_pos_emb, c_chain_emb, c_timestep_emb, max_n_res,
@@ -30,7 +32,7 @@ class Denoiser(nn.Module):
         n_pair_transform_layer, include_mul_update, include_tri_att, c_hidden_mul, c_hidden_tri_att,
         n_head_tri, tri_dropout, pair_transition_n, n_structure_layer, n_structure_block,
         c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, ipa_dropout, n_structure_transition_layer,
-        structure_transition_dropout, quat_method: str = "closed",
+        structure_transition_dropout, quat_method: str = "closed", tri_att_chunk: int = 0,
     ):
         super().__init__()
         self.rescale = rescale
@@ -42,7 +44,7 @@ class Denoiser(nn.Module):
         )
         self.pair_transform_net = (
             PairTransformNet(c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
-                             c_hidden_mul, pair_transition_n)
+                             c_hidden_mul, pair_transition_n, c_hidden_tri_att, n_head_tri, tri_att_chunk)
             if n_pair_transform_layer > 0 else None
         )
         self.structure_net = StructureNet(
@@ -58,6 +60,7 @@ class Denoiser(nn.Module):
             max_n_res=config.io["max_n_res"],
             max_n_chain=config.io["max_n_chain"],
             quat_method=config.tpu.get("rot_to_quat_method", "closed"),
+            tri_att_chunk=config.tpu.get("tri_att_chunk", 0),
         )
 
     def forward(

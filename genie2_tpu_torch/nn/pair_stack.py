@@ -1,10 +1,12 @@
-"""Pair-representation stack: triangle multiplicative updates and the pair
-transition, residual and masked. Triangle attention is a later slice.
+"""Pair-representation stack: triangle multiplicative updates, triangle
+attention and the pair transition, residual and masked.
 
 `TriangleMultiplicativeUpdate` always runs as the three-stage pipeline of
 `ops/trimul.py`: on a CUDA tensor through the three kernels, on a CPU tensor
 through their plain versions. The kernels take any N and any hidden width,
-so there is no shape gate.
+so there is no shape gate. `TriangleAttention` runs its attention core
+through `ops/tri_att.py` in the same way (one kernel launch per module call
+on the card).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from genie2_tpu_torch.nn.primitives import Linear, layer_norm
+from genie2_tpu_torch.nn.primitives import Attention, Linear, layer_norm
 from genie2_tpu_torch.ops import trimul
 
 
@@ -46,6 +48,32 @@ class TriangleMultiplicativeUpdate(nn.Module):
         return trimul.trimul(z.contiguous(), res_mask.to(z.dtype), self.fused_weights(), self.outgoing)
 
 
+class TriangleAttention(nn.Module):
+    """AF2 Algorithms 13/14. `starting` attends along the rows of the pair
+    representation; the ending-node variant swaps the pair axes around the
+    same computation (a copy on the way in, inside the layer norm, and a
+    view on the way out)."""
+
+    def __init__(self, c_in: int, c_hidden: int, no_heads: int, starting: bool = True, inf: float = 1e9,
+                 row_chunk: int = 0):
+        super().__init__()
+        self.starting = starting
+        self.layer_norm = layer_norm(c_in)
+        self.linear = Linear(c_in, no_heads, bias=False, init="normal")
+        self.mha = Attention(c_in, c_in, c_in, c_hidden, no_heads, row_chunk=row_chunk, inf=inf)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [B,N,N,C], mask [B,N,N] (the pair mask) -> the update before
+        the residual."""
+        if not self.starting:
+            x, mask = x.transpose(-2, -3), mask.transpose(-1, -2)
+        x = self.layer_norm(x)
+        # [B, I, J, H] -> [B, H, I, J]: the bias of query i and key j, for every row.
+        tb = self.linear(x).permute(0, 3, 1, 2).contiguous()
+        out = self.mha(x, x, x, tb, mask)
+        return out if self.starting else out.transpose(-2, -3)
+
+
 class PairTransition(nn.Module):
     """AF2 Algorithm 15."""
 
@@ -61,32 +89,42 @@ class PairTransition(nn.Module):
 
 
 class PairTransformLayer(nn.Module):
-    """TriMulOut + TriMulIn + PairTransition, residual, masked."""
+    """TriMulOut + TriMulIn [+ TriAttStart + TriAttEnd] + PairTransition,
+    residual, masked."""
 
-    def __init__(self, c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n):
+    def __init__(self, c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n,
+                 c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0):
         super().__init__()
-        if include_tri_att:
-            raise NotImplementedError("triangle attention is not ported yet")
         self.include_mul_update = include_mul_update
+        self.include_tri_att = include_tri_att
         if include_mul_update:
             self.tri_mul_out = TriangleMultiplicativeUpdate(c_p, c_hidden_mul, outgoing=True)
             self.tri_mul_in = TriangleMultiplicativeUpdate(c_p, c_hidden_mul, outgoing=False)
+        if include_tri_att:
+            self.tri_att_start = TriangleAttention(c_p, c_hidden_tri_att, n_head_tri, starting=True,
+                                                   row_chunk=tri_att_chunk)
+            self.tri_att_end = TriangleAttention(c_p, c_hidden_tri_att, n_head_tri, starting=False,
+                                                 row_chunk=tri_att_chunk)
         self.pair_transition = PairTransition(c_p, pair_transition_n)
 
     def forward(self, p, pair_mask, res_mask):
         if self.include_mul_update:
             p = p + self.tri_mul_out(p, res_mask)
             p = p + self.tri_mul_in(p, res_mask)
+        if self.include_tri_att:
+            p = p + self.tri_att_start(p, pair_mask)
+            p = p + self.tri_att_end(p, pair_mask)
         p = p + self.pair_transition(p, pair_mask)
         return p * pair_mask[..., None].to(p.dtype)
 
 
 class PairTransformNet(nn.Module):
     def __init__(self, c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
-                 c_hidden_mul, pair_transition_n):
+                 c_hidden_mul, pair_transition_n, c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0):
         super().__init__()
         self.net = nn.ModuleList(
-            PairTransformLayer(c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n)
+            PairTransformLayer(c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n,
+                               c_hidden_tri_att, n_head_tri, tri_att_chunk)
             for _ in range(n_pair_transform_layer)
         )
 

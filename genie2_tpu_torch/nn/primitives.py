@@ -1,4 +1,5 @@
-"""Linear layers with the reference's initializer table, and LayerNorm.
+"""Linear layers with the reference's initializer table, LayerNorm, and the
+gated multi-head attention of the triangle attention modules.
 
 The reference's fan formula is idiosyncratic: for an [out, in] weight it
 takes fan_in = out^2 * in and fan_out = out * in^2. Its checkpoints were
@@ -12,6 +13,8 @@ import math
 
 import torch
 from torch import nn
+
+from genie2_tpu_torch.ops.tri_att import tri_attention
 
 # std of the standard normal truncated to [-2, 2]
 _TRUNCNORM_STD = 0.8796256610342398
@@ -63,3 +66,39 @@ class Linear(nn.Linear):
 
 def layer_norm(c: int) -> nn.LayerNorm:
     return nn.LayerNorm(c, eps=LN_EPS)
+
+
+class Attention(nn.Module):
+    """Gated multi-head attention as triangle attention drives it: the
+    inputs are [B, I, J, C], every row i attends within itself, and the two
+    biases of the logits are the triangle bias `tb` [B, H, J, J] (shared by
+    all rows) and the key-side mask `mask` [B, I, J], added as
+    inf (mask - 1). `c_hidden` is the width of one head.
+
+    The projections are plain products; the attention core between them is
+    `ops/tri_att.py:tri_attention`: the kernel on the card, the plain
+    version on the CPU. `row_chunk` > 0 bounds the logits the plain version
+    holds at once to that many rows; the kernel holds none."""
+
+    def __init__(self, c_q: int, c_k: int, c_v: int, c_hidden: int, no_heads: int, gating: bool = True,
+                 row_chunk: int = 0, inf: float = 1e9):
+        super().__init__()
+        self.c_hidden, self.no_heads, self.row_chunk, self.inf = c_hidden, no_heads, row_chunk, inf
+        self.linear_q = Linear(c_q, no_heads * c_hidden, bias=False, init="glorot")
+        self.linear_k = Linear(c_k, no_heads * c_hidden, bias=False, init="glorot")
+        self.linear_v = Linear(c_v, no_heads * c_hidden, bias=False, init="glorot")
+        self.linear_g = Linear(c_q, no_heads * c_hidden, init="gating") if gating else None
+        self.linear_o = Linear(no_heads * c_hidden, c_q, init="final")
+
+    def forward(self, q_x: torch.Tensor, k_x: torch.Tensor, v_x: torch.Tensor, tb: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        if q_x.dim() != 4:
+            raise ValueError(f"Attention: expected [B, I, J, C] inputs, got {tuple(q_x.shape)}")
+        heads = (self.no_heads, self.c_hidden)
+        q = self.linear_q(q_x).unflatten(-1, heads)
+        k = self.linear_k(k_x).unflatten(-1, heads)
+        v = self.linear_v(v_x).unflatten(-1, heads)
+        o = tri_attention(q, k, v, tb, mask, self.inf, self.row_chunk)
+        if self.linear_g is not None:
+            o = o * torch.sigmoid(self.linear_g(q_x)).unflatten(-1, heads)
+        return self.linear_o(o.flatten(-2))

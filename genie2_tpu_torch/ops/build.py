@@ -23,7 +23,8 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 
-SOURCES = ("trimul_project", "trimul_contract", "trimul_epilogue", "ipa_attention", "triangle_contract")
+SOURCES = ("trimul_project", "trimul_contract", "trimul_epilogue", "ipa_attention", "triangle_contract",
+           "tri_att_flash")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,9 +1,12 @@
 """What the kernel wrappers of `ops/` share: the launch counters, the
-device rule, the activation checks and the ctypes launch itself.
+device rule, the activation checks, the gradient rule and the ctypes launch
+itself.
 
 A wrapper takes its plain version for a tensor on the CPU and launches its
 kernel for a tensor on the card; anything else raises. It adds one to its
-entry of `LAUNCHES` where it launches, and nowhere else.
+entry of `LAUNCHES` where it launches, and nowhere else. The kernels are
+forward only: a launch whose inputs would need a gradient raises
+(`check_no_grad`); the plain versions on the CPU are differentiable.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ LAUNCHES: Dict[str, int] = {
     "triangle_multiply_cm": 0,
     "triangle_multiply_nlayout": 0,
     "contract_cm_km": 0,
+    "tri_attention": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +47,19 @@ def on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def check_no_grad(entry: str, tensors: Sequence[torch.Tensor]):
+    """Raise where autograd would record through a kernel: grad mode is on
+    and one of `tensors` (an activation, a weight or a temporary made from
+    one) requires grad. A kernel returns a tensor without a graph, so the
+    gradient would be silently missing. Under `torch.no_grad()` or
+    `torch.inference_mode()` every tensor passes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{entry}: the CUDA kernels are forward only, but an input requires grad with grad mode on; "
+            "call under torch.inference_mode() / torch.no_grad(), or detach the inputs"
+        )
+
+
 def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor = None):
     """A contiguous float32 / bfloat16 tensor of `ndim` axes, of `like`'s
     dtype and device where `like` is given."""
@@ -57,11 +74,12 @@ def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor =
 def launch(source: str, entry: str, argtypes: Sequence, device, *args):
     """Call the C entry point `entry` of csrc/<source>.cu (built first if
     needed) for `device`, on its current stream, and raise on a launch
-    error. `argtypes` are the ctypes of `args`; the stream is appended.
+    error or where a tensor among `args` would need a gradient. `argtypes` are the ctypes of `args`; the stream is appended.
     Tensors go in as pointers; `args` keeps every tensor (temporaries
     included) referenced until the launch is enqueued, after which the
     caching allocator only hands their memory to later work on the same
     stream."""
+    check_no_grad(entry, [a for a in args if isinstance(a, torch.Tensor)])
     fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, ctypes.c_void_p]

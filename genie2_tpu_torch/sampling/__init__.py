@@ -12,7 +12,19 @@ from genie2_tpu_torch.sampling.ddpm import (
     step_noise,
 )
 from genie2_tpu_torch.sampling.dpm_solver import dpm_solver_sample, dpm_solver_sample_injected
+from genie2_tpu_torch.sampling.feynman_kac import FKResult, smc_feynman_kac, smc_feynman_kac_injected
+from genie2_tpu_torch.sampling.resampling import (
+    RESAMPLERS,
+    ess_from_log_weights,
+    multinomial_resample_indices,
+    normalize_log_weights,
+    resampling_draws,
+    resampling_generator,
+    stratified_resample_indices,
+    systematic_resample_indices,
+)
 from genie2_tpu_torch.sampling.scaffold import ScaffoldSampler
+from genie2_tpu_torch.sampling.sse_guided import soft_sse_fraction, sse_guided_sample, sse_guided_sample_injected
 from genie2_tpu_torch.sampling.unconditional import PackedUnconditionalSampler, UnconditionalSampler
 
 __all__ = [
@@ -34,4 +46,18 @@ __all__ = [
     "ScaffoldSampler",
     "PackedUnconditionalSampler",
     "UnconditionalSampler",
+    "FKResult",
+    "smc_feynman_kac",
+    "smc_feynman_kac_injected",
+    "soft_sse_fraction",
+    "sse_guided_sample",
+    "sse_guided_sample_injected",
+    "RESAMPLERS",
+    "ess_from_log_weights",
+    "multinomial_resample_indices",
+    "normalize_log_weights",
+    "resampling_draws",
+    "resampling_generator",
+    "stratified_resample_indices",
+    "systematic_resample_indices",
 ]

@@ -1,0 +1,96 @@
+"""Generic reverse-time Feynman-Kac particle filter (Chopin's formulation).
+
+Counterpart of genie2_tpu/sampling/feynman_kac.py. The proposal M and the
+potential G are callables:
+
+    M(noise, particles, extra, t) -> (particles, extra)
+    G(particles_new, particles_old, extra, t) -> log potential [P]
+
+The loop is plain Python over t = n_steps..1 under the caller's
+`torch.inference_mode()` (there are no scan segments: PyTorch runs eagerly).
+When the effective sample size falls below `ess_threshold * P` the particles
+are resampled systematically; as in the JAX package that is a `where`-selected
+gather, computed every step, so no step waits for the host to read the ESS.
+`smc_feynman_kac_injected` takes each step's proposal noise and resampling
+offset from the caller; `smc_feynman_kac` draws the offsets from a generator
+and asks `noise_fn(t)` for the noise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Sequence
+
+import torch
+
+from genie2_tpu_torch.sampling.resampling import (
+    ess_from_log_weights,
+    normalize_log_weights,
+    resampling_draws,
+    systematic_resample_indices,
+)
+
+
+class FKResult(NamedTuple):
+    particles: Any
+    log_weights: torch.Tensor  # [P]
+    ess_trace: torch.Tensor  # [n_steps], before each step's resampling
+    resampled_trace: torch.Tensor  # [n_steps] bool
+
+
+def _first_tensor(tree) -> torch.Tensor:
+    if isinstance(tree, torch.Tensor):
+        return tree
+    return _first_tensor(next(iter(tree.values() if isinstance(tree, dict) else tree)))
+
+
+def _gather(tree, idx: torch.Tensor):
+    """Index the leading (particle) axis of a tensor or of every tensor in
+    a dict / list / tuple of them; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[idx]
+    if isinstance(tree, dict):
+        return {k: _gather(v, idx) for k, v in tree.items()}
+    return type(tree)(_gather(v, idx) for v in tree)
+
+
+def smc_feynman_kac_injected(M: Callable, G: Callable, init_particles: Any, init_extra: Any,
+                             noises: Sequence[Any], offsets: torch.Tensor, n_particles: int,
+                             ess_threshold: float = 0.5) -> FKResult:
+    """The particle filter for steps len(noises)..1: `noises[i]` goes to M
+    and `offsets[i]` (in [0, 1/P)) to the systematic resampler at step
+    len(noises) - i."""
+    n_steps = len(noises)
+    particles, extra = init_particles, init_extra
+    device = _first_tensor(particles).device
+    log_w = torch.zeros(n_particles, dtype=torch.float32, device=device)
+    keep = torch.arange(n_particles, device=device)
+    offsets = offsets.to(device)
+    ess_trace, resampled_trace = [], []
+    for i, t in enumerate(range(n_steps, 0, -1)):
+        new_particles, new_extra = M(noises[i], particles, extra, t)
+        log_w_new = log_w + G(new_particles, particles, new_extra, t)
+
+        ess = ess_from_log_weights(log_w_new)
+        do_resample = ess < ess_threshold * n_particles
+        idx = systematic_resample_indices(torch.softmax(log_w_new, dim=0), offsets[i])
+        sel = torch.where(do_resample, idx, keep)
+
+        particles, extra = _gather(new_particles, sel), _gather(new_extra, sel)
+        log_w = torch.where(do_resample, torch.zeros_like(log_w_new),
+                            normalize_log_weights(log_w_new) + math.log(float(n_particles)))
+        ess_trace.append(ess)
+        resampled_trace.append(do_resample)
+    return FKResult(particles, log_w, torch.stack(ess_trace), torch.stack(resampled_trace))
+
+
+def smc_feynman_kac(M: Callable, G: Callable, init_particles: Any, init_extra: Any, noise_fn: Callable[[int], Any],
+                    generator: torch.Generator, n_steps: int, n_particles: int,
+                    ess_threshold: float = 0.5) -> FKResult:
+    """`smc_feynman_kac_injected` with the noise of step t from `noise_fn(t)`
+    and the resampling offsets drawn from `generator`."""
+    offsets = resampling_draws("systematic", n_particles, generator, steps=n_steps)
+    noises = [noise_fn(t) for t in range(n_steps, 0, -1)]
+    return smc_feynman_kac_injected(M, G, init_particles, init_extra, noises, offsets, n_particles, ess_threshold)

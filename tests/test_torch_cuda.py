@@ -1,5 +1,5 @@
 """genie2_tpu_torch's kernels (TriMul, IPA attention, the triangle
-contractions) against their plain versions on the card.
+contractions, triangle attention) against their plain versions on the card.
 
 Marked `cuda`; each test skips where torch sees no CUDA device (decided
 inside the test, so every worker collects the same tests). On a machine
@@ -9,7 +9,7 @@ with a card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 import pytest
 import torch
 
-from genie2_tpu_torch.ops import ipa, triangle, trimul
+from genie2_tpu_torch.ops import ipa, tri_att, triangle, trimul
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +134,70 @@ def test_triangle_contractions_match_plain(device, dtype, n, c):
     assert (counts["triangle_multiply_cm"], counts["triangle_multiply_nlayout"], counts["contract_cm_km"]) == (2, 2, 1)
     with pytest.raises(ValueError):
         triangle.triangle_multiply(a.permute(0, 2, 1, 3), b)
+
+
+def _tri_att_inputs(device, dtype, B, I, J, H, c, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed + J + c)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    q, k, v, tb = r(B, I, J, H, c), r(B, I, J, H, c), r(B, I, J, H, c), r(B, H, J, J)
+    mask = torch.ones(B, I, J, device=device)
+    mask[:, :, J - 5:] = 0.0  # a padded tail of keys
+    mask[-1, I - 3:, :] = 0.0  # rows whose keys are all padded, in the last sample
+    return q.to(dtype), k.to(dtype), v.to(dtype), tb.to(dtype), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("i,j", [(70, 70), (24, 150), (130, 33)])
+@pytest.mark.parametrize("h,c", [(4, 32), (3, 8), (2, 20), (1, 64)])
+def test_tri_attention_matches_plain(device, dtype, i, j, h, c):
+    """Ragged query and key tiles, I != J, every compiled head width and
+    widths between them, fully padded rows (uniform attention): all rows
+    are compared."""
+    args = _tri_att_inputs(device, dtype, 2, i, j, h, c)
+    trimul.reset_launch_counts()
+    got = tri_att.tri_attention(*args, row_chunk=7)
+    torch.cuda.synchronize()
+    assert trimul.LAUNCHES["tri_attention"] == 1
+    want = tri_att.tri_attention_plain(*args)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got.float()).all()
+    _close(got, want, dtype)
+    # A row without a real key averages v over all keys.
+    uniform = args[2][-1, -1].float().mean(0)
+    assert (got[-1, -1].float() - uniform).abs().max() <= 2 * TOL[dtype] * uniform.abs().max().clamp_min(1.0)
+
+
+def test_tri_attention_rejects_bad_input(device):
+    q, k, v, tb, mask = _tri_att_inputs(device, torch.float32, 1, 16, 16, 2, 8)
+    with pytest.raises(ValueError):
+        tri_att.tri_attention(q, k[:, :8], v, tb, mask)
+    with pytest.raises(ValueError):
+        tri_att.tri_attention(q, k, v, tb[:, :, :8], mask)
+    with pytest.raises(ValueError):
+        tri_att.tri_attention(q.transpose(1, 2), k, v, tb, mask)
+    with pytest.raises(TypeError):
+        tri_att.tri_attention(q.half(), k.half(), v.half(), tb.half(), mask)
+    with pytest.raises(ValueError, match="head width"):
+        tri_att.tri_attention(*_tri_att_inputs(device, torch.float32, 1, 8, 8, 1, 72))
+
+
+def test_kernels_refuse_inputs_that_require_grad(device):
+    """Grad mode on and an input that requires grad: every wrapper raises
+    instead of returning a tensor without a graph; under no_grad it runs."""
+    q, k, v, tb, mask = _tri_att_inputs(device, torch.float32, 1, 16, 16, 2, 8)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tri_att.tri_attention(q, k, v, tb, mask)
+    with torch.no_grad():
+        out = tri_att.tri_attention(q, k, v, tb, mask)
+    assert not out.requires_grad
+    a = torch.randn(1, 8, 16, 16, device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        trimul.contract_cm(a, a.detach())
+    w = _weights(16, 8, torch.Generator(device=device).manual_seed(0), device)
+    w["w_ap"].requires_grad_(True)  # a weight, not an activation
+    with pytest.raises(RuntimeError, match="forward only"):
+        trimul.project_gated_cm(torch.randn(1, 8, 8, 16, device=device), torch.ones(1, 8, device=device), w)
+    args = list(_ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 16, 0))
+    args[7].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ipa.ipa_attention(*args)

@@ -1,7 +1,7 @@
 """The whole genie2_tpu_torch Denoiser against the genie2_tpu flax Denoiser.
 
-Small dims (the ready config of the JAX package's torch-parity test, with
-triangle attention off). Flax init -> zero-init leaves randomised -> the
+Small dims (the ready config of the JAX package's torch-parity test), with
+triangle attention off and, in a second model, on. Flax init -> zero-init leaves randomised -> the
 weight bridge -> the same frames, timesteps and features; z must agree
 within 1e-4 in fp32 on real residues.
 """
@@ -126,6 +126,67 @@ def test_denoiser_z_matches(models, padded, with_motif):
     np.testing.assert_allclose(z_t, z_j, atol=1e-4)
     pair = real[:, :, None] & real[:, None, :]
     np.testing.assert_allclose(out_t["p"].numpy()[pair], np.asarray(out_j["p"])[pair], atol=2e-4)
+
+
+TRI_ATT_DIMS = dict(DIMS, include_tri_att=True)
+
+
+@pytest.fixture(scope="module")
+def tri_att_models():
+    """The small denoiser with triangle attention in both pair layers."""
+    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **TRI_ATT_DIMS)
+    variables = randomized_variables(flax_model, make_batch(False, False))
+    port = Denoiser(**TRI_ATT_DIMS)
+    port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
+    return flax_model, variables, port.eval()
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("tri_att_chunk", [0, 5])
+def test_denoiser_with_triangle_attention_z_matches(tri_att_models, padded, tri_att_chunk):
+    """Start and end triangle attention in every pair layer; the row chunk
+    (5 does not divide 24) changes no number on either side."""
+    flax_model, variables, port = tri_att_models
+    flax_chunked = FlaxDenoiser(use_pallas=False, remat=False, tri_att_chunk=tri_att_chunk, **TRI_ATT_DIMS)
+    port_chunked = Denoiser(**TRI_ATT_DIMS, tri_att_chunk=tri_att_chunk)
+    port_chunked.load_state_dict(port.state_dict())
+    assert port_chunked.pair_transform_net.net[1].tri_att_end.mha.row_chunk == tri_att_chunk
+    batch = make_batch(padded, True)
+    rng = np.random.default_rng(43)
+    trans_np = (rng.normal(size=batch["atom_positions"].shape) * 3).astype(np.float32)
+    trans_np *= batch["residue_mask"][..., None]
+    out_j, out_t = run_both((flax_chunked, variables, port_chunked.eval()), batch, trans_np, np.array([7, 31], np.int32))
+    real = batch["residue_mask"].astype(bool)
+    z_j, z_t = np.asarray(out_j["z"])[real], out_t["z"].numpy()[real]
+    assert np.abs(z_j).max() > 1e-3
+    np.testing.assert_allclose(z_t, z_j, atol=1e-4)
+    pair = real[:, :, None] & real[:, None, :]
+    np.testing.assert_allclose(out_t["p"].numpy()[pair], np.asarray(out_j["p"])[pair], atol=2e-4)
+    assert out_t["p"].is_contiguous()  # the IPA kernel reads the pair representation in place
+    # Triangle attention moves z: the same weights without it predict something else.
+    without = Denoiser(**DIMS)
+    without.load_state_dict({k: v for k, v in port.state_dict().items() if "tri_att" not in k})
+    tf = to_device(batch, "cpu")
+    tt = torch.tensor(trans_np)
+    with torch.inference_mode():
+        z_off = without.eval()(Rigid(frenet_frames(tt, tf["chain_index"], tf["residue_mask"]), tt),
+                               torch.tensor([7, 31]), tf)["z"].numpy()[real]
+    assert np.abs(z_off - z_t).max() > 1e-3
+
+
+def test_from_config_builds_triangle_attention(tmp_path):
+    from genie2_tpu_torch.config import Config
+
+    path = tmp_path / "configuration"
+    path.write_text(CONFIG_LINES + "includeTriangularAttention True\ntriangularAttentionHiddenDimension 4\n"
+                    "triangularAttentionNumHeads 2\ntriangleAttentionChunk 6\n")
+    model = Denoiser.from_config(Config(str(path)))
+    state = model.state_dict()
+    for name in ("layer_norm.weight", "linear.weight", "mha.linear_q.weight", "mha.linear_g.bias", "mha.linear_o.weight"):
+        assert f"pair_transform_net.net.1.tri_att_end.{name}" in state
+    assert "pair_transform_net.net.0.tri_att_start.linear.bias" not in state
+    assert state["pair_transform_net.net.0.tri_att_start.mha.linear_q.weight"].shape == (8, 16)
+    assert model.pair_transform_net.net[0].tri_att_start.mha.row_chunk == 6
 
 
 def test_state_dict_roundtrip_and_release_layout(models, tmp_path):

@@ -37,7 +37,10 @@ def test_port_has_modules():
                      "genie2_tpu_torch/ops/launch.py", "genie2_tpu_torch/ops/ipa.py",
                      "genie2_tpu_torch/ops/triangle.py", "genie2_tpu_torch/features/motif.py",
                      "genie2_tpu_torch/sampling/dpm_solver.py", "genie2_tpu_torch/sampling/scaffold.py",
-                     "genie2_tpu_torch/cli/common.py", "genie2_tpu_torch/cli/sample_scaffold.py"):
+                     "genie2_tpu_torch/cli/common.py", "genie2_tpu_torch/cli/sample_scaffold.py",
+                     "genie2_tpu_torch/ops/tri_att.py", "genie2_tpu_torch/sampling/resampling.py",
+                     "genie2_tpu_torch/sampling/feynman_kac.py", "genie2_tpu_torch/sampling/sse_guided.py",
+                     "genie2_tpu_torch/features/secstruct.py", "genie2_tpu_torch/cli/sample_sse.py"):
         assert expected in rel
 
 

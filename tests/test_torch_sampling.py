@@ -27,7 +27,7 @@ from genie2_tpu.nn import Denoiser as FlaxDenoiser
 from genie2_tpu.sampling import UnconditionalSampler as JUnconditionalSampler
 from genie2_tpu.sampling import ancestral_sample_injected as j_injected
 from genie2_tpu.sampling.dpm_solver import _dpm_segment as j_dpm_segment
-from genie2_tpu_torch.cli import sample_scaffold, sample_unconditional
+from genie2_tpu_torch.cli import sample_scaffold, sample_sse, sample_unconditional
 from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import batchify, create_empty_features, read_ca_coords, to_device
 from genie2_tpu_torch.nn import Denoiser
@@ -84,6 +84,33 @@ def test_injected_trajectory_matches(models):
     np.testing.assert_allclose(final_t.numpy(), np.asarray(final_j), atol=1e-4)
 
 
+def test_injected_trajectory_with_triangle_attention_matches():
+    """Ten injected-noise steps of the small model with triangle attention
+    in its pair layers, one sample padded."""
+    steps = 10
+    dims = dict(DIMS, n_timestep=steps, include_tri_att=True)
+    batch = batchify([create_empty_features([24]), create_empty_features([19])])
+    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **dims)
+    variables = randomized_variables(flax_model, batch)
+    port = Denoiser(**dims)
+    port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
+    init, noises = _injected_inputs(batch, steps, 3)
+
+    final_j, traj_j = j_injected(
+        flax_model.apply, variables, JSchedule.create(steps), jto_device(batch),
+        jnp.asarray(init), jnp.asarray(noises), jnp.float32(0.6),
+    )
+    feats = to_device(batch, "cpu")
+    with torch.inference_mode():
+        final_t, traj_t = ancestral_sample_injected(
+            lambda frames, t: port.eval()(frames, t, feats)["z"], Schedule.create(steps), feats,
+            torch.tensor(init), torch.tensor(noises), 0.6,
+        )
+    assert traj_t.shape[0] == steps
+    np.testing.assert_allclose(traj_t.numpy(), np.asarray(traj_j), atol=1e-4)
+    np.testing.assert_allclose(final_t.numpy(), np.asarray(final_j), atol=1e-4)
+
+
 def test_noise_streams_are_per_sample():
     a = step_noise(3, [0, 1, 2], 17, 5)
     b = step_noise(3, [2], 17, 5)
@@ -136,9 +163,10 @@ def test_cli_cpu_writes_pdbs(models, tmp_path):
     (sample_unconditional, ["--num_devices", "2"]), (sample_unconditional, ["--num_devices", "-1"]),
     (sample_scaffold, ["--mesh_seq", "2"]), (sample_scaffold, ["--mesh_model", "2"]),
     (sample_scaffold, ["--num_devices", "4"]),
+    (sample_sse, ["--mesh_model", "2"]), (sample_sse, ["--num_devices", "2"]), (sample_sse, ["--num_devices", "-1"]),
 ])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    """Parallelism is not ported: both CLIs refuse its flags."""
+    """Parallelism is not ported: every CLI refuses its flags."""
     cli, flags = flag
     argv = ["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--scale", "1", "--device", "cpu"]
     with pytest.raises(NotImplementedError):

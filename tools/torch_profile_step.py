@@ -5,10 +5,12 @@ Runs the sampler's reverse step (Frenet frames, the full-width denoiser of
 configs/example.configuration with seeded weights, the posterior mean) a
 few times under torch.profiler and prints one JSON line: the wall time per
 step, the device time per step grouped by kernel family (the three TriMul
-kernels, the IPA attention kernel, eigh, matrix products, the rest), the
-device's busy and idle shares, and the top kernels by device time.
+kernels, the IPA attention kernel, the triangle attention kernel, eigh,
+matrix products, the rest), the device's busy and idle shares, and the top
+kernels by device time. `--tri_att` turns triangle attention on in the
+configuration's pair layers.
 
-    python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh
+    python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh [--tri_att]
 
 Needs a CUDA card; imports torch and genie2_tpu_torch only.
 """
@@ -32,6 +34,7 @@ FAMILIES = (
     ("trimul_contract", ("contract_kernel",)),
     ("trimul_epilogue", ("epilogue_kernel",)),
     ("ipa_attention", ("ipa_kernel",)),
+    ("tri_attention", ("tri_att_kernel",)),
     ("triangle_contract", ("tile_kernel", "cfast_kernel")),
     ("eigh", ("syev", "cusolver", "jacobi", "eig")),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "dot")),
@@ -54,6 +57,7 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--quat", choices=("closed", "eigh"), default="eigh")
     parser.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
+    parser.add_argument("--tri_att", action="store_true", help="triangle attention in the pair layers")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -78,7 +82,7 @@ def main(argv=None):
                          capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
     config = Config(os.path.join(REPO, "configs", "example.configuration"),
-                    overrides={"rotToQuatMethod": args.quat})
+                    overrides={"rotToQuatMethod": args.quat, "includeTriangularAttention": args.tri_att})
     torch.manual_seed(args.seed)
     dtype = compute_dtype(args.dtype)
     model = randomize_zero_init(Denoiser.from_config(config), args.seed).to(dev).eval().to(dtype)
@@ -126,7 +130,7 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         "smi": smi, "length": args.length, "padded": n, "batch": args.batch, "quat": args.quat,
-        "dtype": args.dtype, "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "tri_att": args.tri_att, "dtype": args.dtype, "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
         "family_ms_per_step": {k: v / 1e3 / args.steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])},
