@@ -5,7 +5,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
   1. device    print the card's name and power limit, require CUDA, build
-               the kernels from genie2_tpu_torch/csrc with nvcc;
+               the kernels from genie2_tpu_torch/csrc with nvcc, count the
+               tensor-core instructions (HMMA, HGMMA) in each built library
+               (cuobjdump -sass) and require them in the TriMul products;
   2. kernels   each kernel (three TriMul stages, the IPA attention core,
                the three standalone triangle contractions, the triangle
                attention core) against its plain PyTorch version on the
@@ -39,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -50,7 +53,9 @@ if HERE not in sys.path:
     sys.path.insert(0, HERE)
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # non-tensor fp32; dense bf16
+# The tensor cores' dense rates: float32 as three TF32 products (495 / 3
+# TFLOP/s, the kernels' 3xTF32), bf16 989 TFLOP/s.
+PEAK_OPS_PER_S = {"float32": 495e12 / 3, "bfloat16": 989e12}
 SEED = 0
 # Tolerances, relative to max |plain|:
 #   float32 1e-4: the kernels sum in another order than the plain version
@@ -117,6 +122,8 @@ KERNELS = [
     },
 ]
 OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
+# Kernels whose products must run on the tensor cores.
+TENSOR_CORE = ("trimul_contract", "trimul_epilogue")
 
 
 class PhaseFailed(Exception):
@@ -174,6 +181,25 @@ def phase_device(state):
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": time.perf_counter() - t0, "build_s_per_source": per_source,
     })
+    counts = tensor_core_instructions(build)
+    state["sass"] = counts
+    emit({"phase": "device", "tensor_core_instructions": counts})
+    missing = [name for name in TENSOR_CORE if not sum(counts[name].values())]
+    if missing:
+        raise PhaseFailed(f"no HMMA / HGMMA instruction in {missing}")
+
+
+def tensor_core_instructions(build):
+    """{kernel: {"HMMA": n, "HGMMA": m}}: the tensor-core instructions in
+    the built library of each kernel's source (cuobjdump -sass)."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for k in KERNELS:
+        source = os.path.splitext(os.path.basename(k["source"]))[0]
+        sass = subprocess.run([cuobjdump, "-sass", build.library_path(source)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        counts[k["name"]] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+    return counts
 
 
 # ------------------------------------------------------------------ #
@@ -788,6 +814,7 @@ def kernels_line(state):
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
             "library_ms": (sum(r["library_ms"] for r in rs) / len(rs)) if rs[0]["library_ms"] is not None else None,
+            "tensor_core_instructions": state.get("sass", {}).get(name),
             "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else TRI_ATT if name == "tri_attention" else {})},
         }
         if name == "trimul_contract":

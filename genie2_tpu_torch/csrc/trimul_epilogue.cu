@@ -1,5 +1,6 @@
 // trimul_epilogue: LN_out + linear_z folded into one product, times the
-// sigmoid output gate, written row-major for the residual.
+// sigmoid output gate, written row-major for the residual, on the tensor
+// cores.
 //
 // Replaces genie2_tpu/ops/trimul_fused.py:263 epilogue_cm (Pallas kernel
 // _epilogue_kernel, :228). For x [B,H,N,N] channel-major and z [B,N,N,C]:
@@ -8,165 +9,449 @@
 //   lin[d] = r * (x . ws)[d] - r * mu * u[d] + vb[d]
 //   g[d] = (LN_in(z) . W_g)[d] + b_g[d], LN_in recomputed from z
 //   out[b,i,j,d] = lin[d] * sigmoid(g[d])
-// where ws = scale_out * W_z, u = sum_h ws and vb = W_z . bias_out + b_z
-// are computed by the wrapper.
+// where ws = W_z * scale_out rounded to the activation dtype, u = sum_h ws
+// and vb = W_z . bias_out + b_z: LN_out folded into linear_z, computed here
+// while the weights are staged. The weights come in float32 in torch's
+// Linear layout (W_z [D, H], W_g [D, C], k contiguous) and are rounded to
+// the activation dtype as they are staged.
 //
-// Work at the main path's shapes (B=1, N=256, C=H=128): 4.3 GFLOP; reads
-// 67 MB of x and z, writes 33.5 MB in float32. On the H100 the float32
-// version is bound by operations: 4.3 GFLOP at 67 TFLOP/s of non-tensor
-// float32 is 64 us against 30 us for the bytes at 3.35 TB/s.
+// Work at the main path's shapes (B=2, N=256, C=H=D=128): 8.6 GFLOP; reads
+// 134 MB of x and z, writes 67 MB in float32. On the H100 that is 0.060 ms
+// of bytes at 3.35 TB/s against 0.052 ms for three TF32 products at 495
+// TFLOP/s: bound by bytes (bf16: half the bytes, one product at 989).
 //
-// Design: one block of 256 threads per (b, i, 64 consecutive j). The block
-// stages the [H x 64] x tile (coalesced rows of the channel-major x) and
-// the LayerNorm of its 64 z rows in shared memory, takes the LN_out
-// statistics per column, then walks the output channels 32 at a time: each
-// thread owns one output channel (lane) and 8 consecutive j (warp), so the
-// operand reads are shared-memory broadcasts and every store is a
-// coalesced run of 32 channels of one output row. Any N, C, H <= 256 and any
-// output width; edges are masked.
+// Design: persistent blocks of 16 warps, one per SM, walk the tiles (b, i,
+// 32 consecutive j); the 32 rows are the M of both products. What is
+// resident and what streams: the two weight matrices (2 x 66 KB in float32
+// at C=H=D=128, padded) stay in shared memory for every tile a block
+// takes, folded, rounded and staged once; the x tile ([H][32 j], j
+// contiguous as x lies) and the z tile ([32 j][C]) stream through two
+// stages filled by 16-byte cp.async copies. 32 rows is what leaves room for
+// two stages beside the weights (210 KB of 227 at C=H=D=128 in float32;
+// 109 KB in bf16). Where the weights of all D channels do not fit (C or H
+// near 256, or D above 128) the consumers walk the output channels in
+// chunks of 32, 64 or 128 and restage each chunk per tile.
+//
+// The warps split the work by kind, so that the latency-bound per-tile work
+// runs beside the products instead of between them. Eight producer warps
+// stage tile k + 1 in the free stage, normalise its z rows in place (LN_in,
+// float32 statistics, rounded to the activation dtype) and take the LN_out
+// statistics of its 32 columns, while eight consumer warps multiply tile k:
+// each warp 16 rows by DC / 4 channels, mma.sync m16n8k8 TF32 three times
+// over (3xTF32) for float32, m16n8k16 for bf16, with ldmatrix fragment
+// loads (ldmatrix.trans for the m-major x operand in bf16, loads by index
+// for it in float32) from rows padded to distinct banks; they apply the
+// LN_out fold and the gate to the accumulators in registers before the one
+// store. Named barriers hand a stage over: READY from producers to
+// consumers, FREE back. Any N, C and H up to 256 and any D: widths are
+// padded with zeros to the k step, where a row is not a multiple of 16
+// bytes the tiles are staged element by element with plain loads, and
+// nothing past N or D is stored.
 
+#include <limits.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
 #include "trimul_common.cuh"
 
 namespace {
 
 using namespace trimul;
 
-constexpr int TJ = 64;         // j values per block
-constexpr int DC = 32;         // output channels per staged weight chunk
-constexpr int THREADS = 256;   // 8 warps: lane -> output channel, warp -> 8 j
-constexpr int ZS_LD = TJ + 4;  // float4-aligned rows
+constexpr int TJ = 32;         // rows (j) of a tile
+constexpr int THREADS = 512;   // 16 warps
+constexpr int CONSUMERS = 256; // warps 0-7: the products and the store
+constexpr int PRODUCERS = THREADS - CONSUMERS;  // warps 8-15: loads, LN_in, LN_out statistics
+constexpr int PWARPS = PRODUCERS / 32;
+constexpr int STAGES = 2;      // x and z tiles: one consumed, one produced
+constexpr int LDJ = TJ + 8;    // x tile row stride: fragment loads hit banks 8 t + g
+constexpr int DC_MAX = 128;    // output channels of one weight chunk, at most
+constexpr int Q = MAX_CHANNELS / 32;  // values of a row of at most 256 per lane
+// Named barriers (0 is __syncthreads): READY + s, a tile is staged in stage
+// s, normalised and its statistics written; FREE + s, the consumers are done
+// with stage s; then one barrier within each role.
+constexpr int BAR_READY = 1, BAR_FREE = BAR_READY + STAGES, BAR_PRODUCERS = BAR_FREE + STAGES,
+              BAR_CONSUMERS = BAR_PRODUCERS + 1;
+// float32 head: LN_out partial sums and sums of squares [2][PWARPS][TJ], r and
+// r * mu of each stage's rows [2][STAGES][TJ], u, vb, b_g of the chunk [3][DC_MAX]
+constexpr int HEAD_BYTES = (2 * PWARPS * TJ + 2 * STAGES * TJ + 3 * DC_MAX) * (int)sizeof(float);
+constexpr size_t SMEM_LIMIT = 232448;  // per block on the H100
+constexpr int MAX_DEVICES = 64;        // launch attributes are cached per device below this
 
-__host__ __device__ constexpr size_t smem_floats(int C, int H) {
-    return (size_t)H * TJ + (size_t)C * ZS_LD + (size_t)H * DC + (size_t)C * DC;
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The float32 parameters: LN_in scale and bias [C], W_z [D, H], LN_out
+// scale and bias [H], b_z [D], W_g [D, C], b_g [D].
+struct Params {
+    const float *ln_s, *ln_b, *w_z, *lo_s, *lo_b, *b_z, *w_g, *b_g;
+};
+
+// Padded widths and the shared-memory plan of one launch.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z,
-                const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                const float* __restrict__ ws_t, const float* __restrict__ u,
-                const float* __restrict__ vb, const float* __restrict__ wg_t,
-                const float* __restrict__ bg, T* __restrict__ out, int N, int C, int H, int D) {
-    extern __shared__ __align__(16) float smem[];
-    float* xs = smem;             // [H][TJ]    x tile
-    float* zs = xs + H * TJ;      // [C][ZS_LD] LN_in(z) tile
-    float* wzs = zs + C * ZS_LD;  // [H][DC]    folded linear_z chunk
-    float* wgs = wzs + H * DC;    // [C][DC]    gate weight chunk
-    __shared__ float mu_s[TJ], r_s[TJ];
+struct Plan {
+    int Hp, Cp, ldh, ldc, DC;
 
-    const int j0 = blockIdx.x * TJ, i = blockIdx.y, bb = blockIdx.z;
-    const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-    const int n_valid = min(TJ, N - j0);
-
-    for (int idx = tid; idx < H * TJ; idx += THREADS) {
-        const int h = idx / TJ, jj = idx % TJ;
-        xs[idx] = (jj < n_valid) ? load_f(x + (((size_t)bb * H + h) * N + i) * N + j0 + jj) : 0.f;
+    __host__ __device__ Plan(int C, int H, int dc) : DC(dc) {
+        constexpr int K = tc::Mma<T>::KSTEP;
+        constexpr int PAD = 16 / (int)sizeof(T);  // 16 bytes: fragment loads hit 32 distinct banks
+        Hp = (H + K - 1) / K * K;
+        Cp = (C + K - 1) / K * K;
+        ldh = Hp + PAD;
+        ldc = Cp + PAD;
     }
-    layer_norm_rows<T, TJ>(z + (((size_t)bb * N + i) * N + j0) * C, n_valid, C, ln_s, ln_b, zs, ZS_LD);
+    __host__ __device__ int weight_elems() const { return DC * (ldh + ldc); }
+    __host__ __device__ int stage_elems() const { return Hp * LDJ + TJ * ldc; }
+    __host__ __device__ size_t smem() const {
+        return HEAD_BYTES + (size_t)(weight_elems() + STAGES * stage_elems()) * sizeof(T);
+    }
+};
+
+// Channels d0 .. d0 + DC of the weights into shared memory, zero past D, H
+// and C: W_z folded with the LN_out scale and W_g, both rounded to T, and u,
+// vb and b_g. Warps w0, w0 + nw, ... take one channel each, its whole row in
+// registers first. Plain stores: visible after the caller's next barrier.
+template <typename T>
+__device__ void load_weights(const Params& p, int d0, int DC, int D, int H, int C, int Hp, int Cp, int ldh,
+                             int ldc, T* wzs, T* wgs, float* us, float* vbs, float* bgs, int w0, int nw) {
+    const int lane = threadIdx.x & 31;
+    for (int d = w0; d < DC; d += nw) {
+        const bool ok = d0 + d < D;
+        const float* wz = p.w_z + (size_t)(d0 + d) * H;
+        const float* wg = p.w_g + (size_t)(d0 + d) * C;
+        float a[Q], b[Q], s[Q], o[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int k = lane + 32 * q;
+            a[q] = ok && k < H ? wz[k] : 0.f;
+            s[q] = k < H ? p.lo_s[k] : 0.f;
+            o[q] = k < H ? p.lo_b[k] : 0.f;
+            b[q] = ok && k < C ? wg[k] : 0.f;
+        }
+        float su = 0.f, sv = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int k = lane + 32 * q;
+            const T ws = Cvt<T>::from_f(a[q] * s[q]);
+            su += Cvt<T>::to_f(ws);
+            sv += a[q] * o[q];
+            if (k < Hp) wzs[d * ldh + k] = ws;
+            if (k < Cp) wgs[d * ldc + k] = Cvt<T>::from_f(b[q]);
+        }
+        su = warp_sum(su);
+        sv = warp_sum(sv);
+        if (lane == 0) {
+            us[d] = su;
+            vbs[d] = ok ? sv + p.b_z[d0 + d] : 0.f;
+            bgs[d] = ok ? p.b_g[d0 + d] : 0.f;
+        }
+    }
+}
+
+template <typename T, int DC>  // DC: output channels of a weight chunk, 32, 64 or 128
+__global__ void __launch_bounds__(THREADS, 1)
+epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p, T* __restrict__ out,
+                int B, int N, int C, int H, int D, int vec_x, int vec_z, int vec_out) {
+    using M = tc::Mma<T>;
+    constexpr int K = M::KSTEP;
+    constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
+    constexpr int NT = DC / 32;             // mma tiles of 8 channels per consumer warp (4 groups)
+    constexpr int RPW = TJ / PWARPS;        // z rows each producer warp normalises
+    const Plan<T> pl(C, H, DC);
+    const int Hp = pl.Hp, Cp = pl.Cp, ldh = pl.ldh, ldc = pl.ldc;
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* red = reinterpret_cast<float*>(smem_raw);  // [2][PWARPS][TJ]
+    float* rrs = red + 2 * PWARPS * TJ;               // [STAGES][TJ] r
+    float* rmus = rrs + STAGES * TJ;                  // [STAGES][TJ] r * mu
+    float* us = rmus + STAGES * TJ;                   // [DC] u of the chunk
+    float* vbs = us + DC_MAX;                         // [DC] vb
+    float* bgs = vbs + DC_MAX;                        // [DC] b_g
+    T* wzs = reinterpret_cast<T*>(smem_raw + HEAD_BYTES);  // [DC][ldh] folded linear_z chunk
+    T* wgs = wzs + DC * ldh;                               // [DC][ldc] gate weight chunk
+    T* stages = wgs + DC * ldc;                            // STAGES x (x tile [Hp][LDJ], z tile [TJ][ldc])
+
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int JT = (N + TJ - 1) / TJ;
+    const int tiles = B * N * JT;
+    const int G = gridDim.x;
+    const int mine = (tiles - (int)blockIdx.x + G - 1) / G;  // this block's tiles: blockIdx.x + k G
+    const bool resident = D <= DC;
+    const T zero = Cvt<T>::from_f(0.f);
+
+    if (resident) load_weights<T>(p, 0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp, THREADS / 32);
     __syncthreads();
-    if (tid < TJ) {
-        float s = 0.f, s2 = 0.f;
-        for (int h = 0; h < H; ++h) {
-            const float v = xs[h * TJ + tid];
-            s += v;
-            s2 += v * v;
+
+    if (warp >= CONSUMERS / 32) {
+        // Producers: stage tile k in stage k % STAGES once the consumers are
+        // done with it, normalise its z rows in place (LN_in, float32
+        // statistics, rounded to T; channels C..Cp become 0) and take the
+        // LN_out statistics of its 32 columns.
+        const int pt = threadIdx.x - CONSUMERS, pw = warp - CONSUMERS / 32;
+        float lns[Q], lnb[Q];  // this lane's channels of the LN_in scale and bias, c = lane + 32 q
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int c = lane + 32 * q;
+            lns[q] = c < C ? p.ln_s[c] : 0.f;
+            lnb[q] = c < C ? p.ln_b[c] : 0.f;
         }
-        const float mu = s / H;
-        mu_s[tid] = mu;
-        r_s[tid] = rsqrtf(s2 / H - mu * mu + LN_EPS);
+        for (int k = 0; k < mine; ++k) {
+            const int s = k % STAGES, tile = blockIdx.x + k * G;
+            if (k >= STAGES) bar_sync(BAR_FREE + s, THREADS);
+            T* xs = stages + s * pl.stage_elems();
+            T* zs = xs + Hp * LDJ;
+            const int bb = tile / (N * JT), rem = tile % (N * JT), i = rem / JT, j0 = (rem % JT) * TJ;
+            const size_t plane = (size_t)N * N;
+            const T* xt = x + (size_t)bb * H * plane + (size_t)i * N + j0;  // + h * plane + j
+            const T* zt = z + (((size_t)bb * N + i) * N + j0) * C;         // + r * C + c
+            if (vec_x) {
+                for (int idx = pt; idx < Hp * (TJ / V); idx += PRODUCERS) {
+                    const int h = idx / (TJ / V), c = (idx % (TJ / V)) * V;
+                    const bool ok = h < H && j0 + c < N;
+                    tc::cp_async16(xs + h * LDJ + c, ok ? xt + h * plane + c : x, ok ? 16 : 0);
+                }
+            } else {
+                for (int idx = pt; idx < Hp * TJ; idx += PRODUCERS) {
+                    const int h = idx / TJ, c = idx % TJ;
+                    xs[h * LDJ + c] = (h < H && j0 + c < N) ? xt[h * plane + c] : zero;
+                }
+            }
+            if (vec_z) {
+                const int chunks = C / V;
+                for (int idx = pt; idx < TJ * chunks; idx += PRODUCERS) {
+                    const int r = idx / chunks, c = (idx % chunks) * V;
+                    const bool ok = j0 + r < N;
+                    tc::cp_async16(zs + r * ldc + c, ok ? zt + (size_t)r * C + c : z, ok ? 16 : 0);
+                }
+            } else {
+                for (int idx = pt; idx < TJ * C; idx += PRODUCERS) {
+                    const int r = idx / C, c = idx % C;
+                    zs[r * ldc + c] = (j0 + r < N) ? zt[(size_t)r * C + c] : zero;
+                }
+            }
+            tc::cp_async_commit();
+            tc::cp_async_wait<0>();
+            bar_sync(BAR_PRODUCERS, PRODUCERS);  // the tile has landed
+
+            {  // LN_in of this warp's rows, two passes over registers
+                T* rows = zs + pw * RPW * ldc;
+                float v[RPW][Q], mu[RPW], rstd[RPW];
+#pragma unroll
+                for (int r = 0; r < RPW; ++r) {
+                    float sum = 0.f;
+#pragma unroll
+                    for (int q = 0; q < Q; ++q) {
+                        const int c = lane + 32 * q;
+                        v[r][q] = c < C ? Cvt<T>::to_f(rows[r * ldc + c]) : 0.f;
+                        sum += v[r][q];
+                    }
+                    mu[r] = warp_sum(sum) / C;
+                }
+#pragma unroll
+                for (int r = 0; r < RPW; ++r) {
+                    float s2 = 0.f;
+#pragma unroll
+                    for (int q = 0; q < Q; ++q) {
+                        const float d = lane + 32 * q < C ? v[r][q] - mu[r] : 0.f;
+                        s2 += d * d;
+                    }
+                    rstd[r] = rsqrtf(warp_sum(s2) / C + LN_EPS);
+                }
+#pragma unroll
+                for (int r = 0; r < RPW; ++r)
+#pragma unroll
+                    for (int q = 0; q < Q; ++q) {
+                        const int c = lane + 32 * q;
+                        if (c < Cp)
+                            rows[r * ldc + c] = Cvt<T>::from_f((v[r][q] - mu[r]) * rstd[r] * lns[q] + lnb[q]);
+                    }
+            }
+            {  // LN_out partial sums: column j = lane, rows h = pw (mod PWARPS)
+                float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+                for (int h = pw; h < H; h += PWARPS) {
+                    const float v = Cvt<T>::to_f(xs[h * LDJ + lane]);
+                    s1 += v;
+                    s2 += v * v;
+                }
+                red[pw * TJ + lane] = s1;
+                red[(PWARPS + pw) * TJ + lane] = s2;
+            }
+            bar_sync(BAR_PRODUCERS, PRODUCERS);
+            if (pw == 0) {  // row j = lane: r and r * mu
+                float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+                for (int w = 0; w < PWARPS; ++w) {
+                    s1 += red[w * TJ + lane];
+                    s2 += red[(PWARPS + w) * TJ + lane];
+                }
+                const float mean = s1 / H, r = rsqrtf(s2 / H - mean * mean + LN_EPS);
+                rrs[s * TJ + lane] = r;
+                rmus[s * TJ + lane] = r * mean;
+            }
+            bar_arrive(BAR_READY + s, THREADS);
+        }
+        return;
     }
 
-    for (int d0 = 0; d0 < D; d0 += DC) {
-        __syncthreads();  // statistics written / the previous chunk consumed
-        for (int idx = tid; idx < H * DC; idx += THREADS) {
-            const int d = d0 + idx % DC;
-            wzs[idx] = (d < D) ? ws_t[(size_t)(idx / DC) * D + d] : 0.f;
-        }
-        for (int idx = tid; idx < C * DC; idx += THREADS) {
-            const int d = d0 + idx % DC;
-            wgs[idx] = (d < D) ? wg_t[(size_t)(idx / DC) * D + d] : 0.f;
-        }
-        __syncthreads();
+    // Consumers: 2 warps along the rows x 4 groups of NT x 8 channels.
+    const int g = lane >> 2, t = lane & 3;
+    const int wm = (warp & 1) * 16, wn = (warp >> 1) * NT * 8;
+    for (int k = 0; k < mine; ++k) {
+        const int s = k % STAGES, tile = blockIdx.x + k * G;
+        const int bb = tile / (N * JT), rem = tile % (N * JT), i = rem / JT, j0 = (rem % JT) * TJ;
+        const T* xs = stages + s * pl.stage_elems();
+        const T* zs = xs + Hp * LDJ;
+        bar_sync(BAR_READY + s, THREADS);
 
-        float am[8], ag[8];
+        float rr[2], rmu[2];  // r and r * mu of this thread's rows wm + g and wm + g + 8
 #pragma unroll
-        for (int r = 0; r < 8; ++r) am[r] = ag[r] = 0.f;
-        for (int h = 0; h < H; ++h) {
-            const float w = wzs[h * DC + tx];
-            const float4 x0 = *reinterpret_cast<const float4*>(&xs[h * TJ + ty * 8]);
-            const float4 x1 = *reinterpret_cast<const float4*>(&xs[h * TJ + ty * 8 + 4]);
-            am[0] += x0.x * w;
-            am[1] += x0.y * w;
-            am[2] += x0.z * w;
-            am[3] += x0.w * w;
-            am[4] += x1.x * w;
-            am[5] += x1.y * w;
-            am[6] += x1.z * w;
-            am[7] += x1.w * w;
+        for (int half = 0; half < 2; ++half) {
+            rr[half] = rrs[s * TJ + wm + g + 8 * half];
+            rmu[half] = rmus[s * TJ + wm + g + 8 * half];
         }
-        for (int c = 0; c < C; ++c) {
-            const float w = wgs[c * DC + tx];
-            const float4 z0 = *reinterpret_cast<const float4*>(&zs[c * ZS_LD + ty * 8]);
-            const float4 z1 = *reinterpret_cast<const float4*>(&zs[c * ZS_LD + ty * 8 + 4]);
-            ag[0] += z0.x * w;
-            ag[1] += z0.y * w;
-            ag[2] += z0.z * w;
-            ag[3] += z0.w * w;
-            ag[4] += z1.x * w;
-            ag[5] += z1.y * w;
-            ag[6] += z1.z * w;
-            ag[7] += z1.w * w;
-        }
+        const tc::Tile<T, false> tx{xs, LDJ};
+        const tc::Tile<T, true> tz{zs, ldc}, twz{wzs, ldh}, twg{wgs, ldc};
+        for (int d0 = 0; d0 < D; d0 += DC) {
+            if (!resident) {
+                if (k > 0 || d0 > 0) bar_sync(BAR_CONSUMERS, CONSUMERS);  // the previous chunk is consumed
+                load_weights<T>(p, d0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp, CONSUMERS / 32);
+                bar_sync(BAR_CONSUMERS, CONSUMERS);
+            }
+            float am[NT][4], ag[NT][4];
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) am[n][e] = ag[n][e] = 0.f;
 
-        const int d = d0 + tx;
-        if (d < D) {
-            const float ud = u[d], vbd = vb[d], bgd = bg[d];
+#pragma unroll 4
+            for (int k0 = 0; k0 < Hp; k0 += K) {
+                typename M::A fa;
+                M::load_a(fa, tx, wm, k0, lane);
 #pragma unroll
-            for (int r = 0; r < 8; ++r) {
-                const int jj = ty * 8 + r;
-                if (jj < n_valid) {
-                    const float rr = r_s[jj];
-                    const float lin = rr * am[r] - (rr * mu_s[jj]) * ud + vbd;
-                    out[(((size_t)bb * N + i) * N + j0 + jj) * D + d] = Cvt<T>::from_f(lin * sigmoid(ag[r] + bgd));
+                for (int n = 0; n < NT; ++n) {
+                    typename M::B fb;
+                    M::load_b(fb, twz, wn + n * 8, k0, lane);
+                    M::mma(am[n], fa, fb);
+                }
+            }
+#pragma unroll 4
+            for (int k0 = 0; k0 < Cp; k0 += K) {
+                typename M::A fa;
+                M::load_a(fa, tz, wm, k0, lane);
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                    typename M::B fb;
+                    M::load_b(fb, twg, wn + n * 8, k0, lane);
+                    M::mma(ag[n], fa, fb);
+                }
+            }
+
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                const int dd = wn + n * 8 + 2 * t, d = d0 + dd;  // channel in the chunk, in all D
+                if (d >= D) continue;
+                const bool two = d + 1 < D;
+                const float u0 = us[dd], vb0 = vbs[dd], bg0 = bgs[dd];
+                const float u1 = us[dd + 1], vb1 = vbs[dd + 1], bg1 = bgs[dd + 1];
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int row = wm + g + 8 * half;
+                    if (j0 + row >= N) continue;
+                    const float o0 = (rr[half] * am[n][2 * half] - rmu[half] * u0 + vb0) * sigmoid(ag[n][2 * half] + bg0);
+                    const float o1 =
+                        (rr[half] * am[n][2 * half + 1] - rmu[half] * u1 + vb1) * sigmoid(ag[n][2 * half + 1] + bg1);
+                    T* po = out + (((size_t)bb * N + i) * N + j0 + row) * D + d;
+                    if (vec_out) {  // D even: the pair is whole and aligned
+                        tc::store_pair(po, o0, o1);
+                    } else {
+                        po[0] = Cvt<T>::from_f(o0);
+                        if (two) po[1] = Cvt<T>::from_f(o1);
+                    }
                 }
             }
         }
+        // The stage is free for the producers' tile k + STAGES, if there is one
+        // (an arrival nobody waits for would be left at exit).
+        if (k + STAGES < mine) bar_arrive(BAR_FREE + s, THREADS);
     }
 }
 
-template <typename T>
-int launch(const void* x, const void* z, const void* ln_s, const void* ln_b, const void* ws_t,
-           const void* u, const void* vb, const void* wg_t, const void* bg, void* out,
-           int B, int N, int C, int H, int D, cudaStream_t stream) {
-    const size_t smem = smem_floats(C, H) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(epilogue_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int DC>
+int launch_dc(const T* x, const T* z, const Params& p, T* out, int B, int N, int C, int H, int D, bool vec_x,
+              bool vec_z, bool vec_out, cudaStream_t stream) {
+    // The shared-memory allowance and the blocks an SM holds, set and asked
+    // once per device and size: both are host calls the main path would
+    // otherwise pay at every launch.
+    static size_t smem_set[MAX_DEVICES];
+    static int blocks[MAX_DEVICES];
+    const size_t smem = Plan<T>(C, H, DC).smem();
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + TJ - 1) / TJ, N, B);
-    epilogue_kernel<T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(z),
-        static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-        static_cast<const float*>(ws_t), static_cast<const float*>(u),
-        static_cast<const float*>(vb), static_cast<const float*>(wg_t),
-        static_cast<const float*>(bg), static_cast<T*>(out), N, C, H, D);
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (smem_set[dev] != smem) {
+        int per_sm = 0, sms = 0;
+        if ((err = cudaFuncSetAttribute(epilogue_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem)) != cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel<T, DC>, THREADS,
+                                                                 smem)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+            return (int)err;
+        blocks[dev] = sms * (per_sm > 0 ? per_sm : 1);
+        smem_set[dev] = smem;
+    }
+    const long long tiles = (long long)B * N * ((N + TJ - 1) / TJ);
+    const int grid = (int)(tiles < blocks[dev] ? tiles : blocks[dev]);
+    epilogue_kernel<T, DC><<<grid, THREADS, smem, stream>>>(x, z, p, out, B, N, C, H, D, (int)vec_x, (int)vec_z,
+                                                            (int)vec_out);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* z, const Params& p, void* out, int B, int N, int C, int H, int D,
+           cudaStream_t stream) {
+    // The output chunk: all D channels where they fit (the weights then stay
+    // for every tile), else the widest of 128, 64 and 32 channels that does.
+    int dc = 0;
+    for (int c = 32; c <= DC_MAX; c *= 2) {
+        if (Plan<T>(C, H, c).smem() > SMEM_LIMIT) break;
+        dc = c;
+        if (c >= D) break;
+    }
+    if (dc == 0 || (long long)B * N * ((N + TJ - 1) / TJ) > INT_MAX) return (int)cudaErrorInvalidValue;
+    const bool vec_x = (uintptr_t)x % 16 == 0 && (N * sizeof(T)) % 16 == 0;
+    const bool vec_z = (uintptr_t)z % 16 == 0 && (C * sizeof(T)) % 16 == 0;
+    const bool vec_out = (uintptr_t)out % 16 == 0 && D % 2 == 0;
+    const T* px = static_cast<const T*>(x);
+    const T* pz = static_cast<const T*>(z);
+    T* po = static_cast<T*>(out);
+    if (dc == 32) return launch_dc<T, 32>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
+    if (dc == 64) return launch_dc<T, 64>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
+    return launch_dc<T, 128>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, z, out); every other pointer is float32.
+// x [B,H,N,N], z [B,N,N,C] and out [B,N,N,D] of dtype 0 = float32 or 1 =
+// bfloat16; the eight parameters are float32 (see Params).
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int trimul_epilogue(const void* x, const void* z, const void* ln_s, const void* ln_b,
-                               const void* ws_t, const void* u, const void* vb, const void* wg_t,
-                               const void* bg, void* out, int B, int N, int C, int H, int D,
-                               int dtype, void* stream) {
-    if (B < 1 || B > 65535 || N < 1 || N > 65535 || C < 1 || C > MAX_CHANNELS || H < 1 ||
-        H > MAX_CHANNELS || D < 1)
+extern "C" int trimul_epilogue(const void* x, const void* z, const void* ln_in_scale, const void* ln_in_bias,
+                               const void* w_z, const void* ln_out_scale, const void* ln_out_bias,
+                               const void* b_z, const void* w_g, const void* b_g, void* out, int B, int N,
+                               int C, int H, int D, int dtype, void* stream) {
+    if (B < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || H > MAX_CHANNELS || D < 1)
         return (int)cudaErrorInvalidValue;
+    const Params p{static_cast<const float*>(ln_in_scale), static_cast<const float*>(ln_in_bias),
+                   static_cast<const float*>(w_z),         static_cast<const float*>(ln_out_scale),
+                   static_cast<const float*>(ln_out_bias), static_cast<const float*>(b_z),
+                   static_cast<const float*>(w_g),         static_cast<const float*>(b_g)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(x, z, ln_s, ln_b, ws_t, u, vb, wg_t, bg, out, B, N, C, H, D, s);
-    if (dtype == 1)
-        return launch<__nv_bfloat16>(x, z, ln_s, ln_b, ws_t, u, vb, wg_t, bg, out, B, N, C, H, D, s);
+    if (dtype == 0) return launch<float>(x, z, p, out, B, N, C, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(x, z, p, out, B, N, C, H, D, s);
     return (int)cudaErrorInvalidValue;
 }

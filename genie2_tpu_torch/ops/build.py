@@ -47,8 +47,9 @@ def find_nvcc() -> str:
     return found
 
 
-def _target(name: str) -> str:
-    """Library path keyed by the source, the shared headers and the flags."""
+def library_path(name: str) -> str:
+    """The path of csrc/<name>.cu's library, keyed by the source, the
+    shared headers and the flags."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
@@ -60,7 +61,7 @@ def _target(name: str) -> str:
 def build_all(verbose: bool = False) -> Dict[str, float]:
     """Compile every source that has no up-to-date library, all at once.
     Returns {name: seconds} for the sources compiled in this call."""
-    pending = {name: _target(name) for name in SOURCES if not os.path.isfile(_target(name))}
+    pending = {name: library_path(name) for name in SOURCES if not os.path.isfile(library_path(name))}
     if not pending:
         return {}
     nvcc = find_nvcc()
@@ -87,12 +88,23 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
     return seconds
 
 
+def override(name: str, path):
+    """Take csrc/<name>.cu's entry points from the library at `path` (a
+    variant built elsewhere, tools/torch_kernel_variants.py), or with None
+    from the built one again."""
+    with _lock:
+        if path is None:
+            _libs.pop(name, None)
+        else:
+            _libs[name] = ctypes.CDLL(path)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(_target(name))
+            lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib

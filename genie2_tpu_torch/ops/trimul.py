@@ -141,8 +141,11 @@ def _wt(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
 _ARGTYPES = {
     "trimul_project": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5,
     "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
-    "trimul_epilogue": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
+    "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
 }
+
+# The epilogue's float32 parameters, in the order of its C entry point.
+_EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
 
 
 def _launch(name: str, device, *args):
@@ -234,18 +237,16 @@ def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     D = w["w_z"].shape[0]
     if (
         tuple(z.shape) != (B, N, N, C) or z.dtype != x.dtype or z.device != x.device
-        or tuple(w["w_g"].shape) != (D, C) or H > _MAX_CHANNELS or C > _MAX_CHANNELS
+        or tuple(w["w_z"].shape) != (D, H) or tuple(w["w_g"].shape) != (D, C) or H > _MAX_CHANNELS
+        or C > _MAX_CHANNELS
     ):
         raise ValueError(f"epilogue: x {tuple(x.shape)}, z {tuple(z.shape)}, C_out={D}")
     dev = x.device
-    ws, u, vb = fold_ln_out({k: _f32(w[k], dev) for k in ("w_z", "ln_out_scale", "ln_out_bias", "b_z")}, x.dtype)
-    ws_t = ws.t().contiguous()  # [H, C_out], k-major
-    wg_t = _wt(w["w_g"], z.dtype, dev).t().contiguous()  # [C, C_out]
     out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
-    _launch(
-        "trimul_epilogue", dev, x, z, _f32(w["ln_in_scale"], dev), _f32(w["ln_in_bias"], dev),
-        ws_t, u, vb, wg_t, _f32(w["b_g"], dev), out, B, N, C, H, D, _DTYPE_CODES[x.dtype],
-    )
+    # The kernel folds LN_out into linear_z (fold_ln_out) and rounds the
+    # product weights to the activation dtype itself, as it stages them.
+    params = [_f32(w[k], dev) for k in _EPILOGUE_PARAMS]
+    _launch("trimul_epilogue", dev, x, z, *params, out, B, N, C, H, D, _DTYPE_CODES[x.dtype])
     LAUNCHES["trimul_epilogue"] += 1
     return out
 

@@ -25,7 +25,10 @@ def device():
     return torch.device("cuda")
 
 
-def _weights(C, H, gen, device):
+def _weights(C, H, gen, device, D=None):
+    """TriMul weights in torch layout; D is the output width (C unless given)."""
+    D = C if D is None else D
+
     def r(*shape, scale=1.0, offset=0.0):
         return offset + scale * torch.randn(*shape, generator=gen, device=device)
 
@@ -33,7 +36,7 @@ def _weights(C, H, gen, device):
     w.update({f"b_{k}": r(H, scale=0.1) for k in ("ap", "ag", "bp", "bg")})
     w.update(ln_in_scale=r(C, scale=0.1, offset=1.0), ln_in_bias=r(C, scale=0.1),
              ln_out_scale=r(H, scale=0.1, offset=1.0), ln_out_bias=r(H, scale=0.1),
-             w_z=r(C, H, scale=H ** -0.5), b_z=r(C, scale=0.1), w_g=r(C, C, scale=C ** -0.5), b_g=r(C, scale=0.1))
+             w_z=r(D, H, scale=H ** -0.5), b_z=r(D, scale=0.1), w_g=r(D, C, scale=C ** -0.5), b_g=r(D, scale=0.1))
     return w
 
 
@@ -44,13 +47,19 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype,weight_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                                                 (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("n,c,h", [(96, 32, 32), (70, 48, 40)])
+@pytest.mark.parametrize("n,c,h,d", [
+    (96, 32, 32, 32), (70, 48, 40, 48),
+    # the tensor-core tiles' edges: N off the 128-wide contraction tile, the
+    # 32-row epilogue tile and (70) 16 bytes; widths off the k step; D != C,
+    # D above one 128-channel chunk (the epilogue restages its weights)
+    (200, 128, 128, 128), (224, 256, 256, 256), (70, 40, 48, 24), (224, 48, 256, 200), (200, 256, 40, 72),
+])
 @pytest.mark.parametrize("outgoing", [True, False])
-def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, outgoing):
+def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
     """bf16 weights (the bf16 policy) make the wrappers convert every weight
-    to a float32 temporary, which must live until its kernel has read it."""
-    gen = torch.Generator(device=device).manual_seed(n + c)
-    w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device).items()}
+    to a temporary, which must live until its kernel has read it."""
+    gen = torch.Generator(device=device).manual_seed(n + c + d)
+    w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device, d).items()}
     z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
     res_mask = (torch.arange(n, device=device) < n - 5).float().expand(2, n).contiguous()
     trimul.reset_launch_counts()

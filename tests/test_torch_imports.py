@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX and nothing of genie2_tpu.
 
-An AST scan of every module of genie2_tpu_torch and of chip_smoke.py (a
-sys.modules check cannot work: the test process has JAX loaded already).
+An AST scan of every module of genie2_tpu_torch, of chip_smoke.py and of
+the port's tools (a sys.modules check cannot work: the test process has
+JAX loaded already).
 """
 
 import ast
@@ -14,7 +15,8 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "genie2_tpu"}
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "torch_profile_step.py"),
+             os.path.join(REPO, "tools", "torch_kernel_variants.py")]
     for root, _, names in os.walk(os.path.join(REPO, "genie2_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)

@@ -114,3 +114,89 @@ def test_wrappers_refuse_other_devices(setup):
     z = torch.zeros(1, 4, 4, C, device="meta")
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         trimul.project_gated_cm(z, torch.zeros(1, 4, device="meta"), tw)
+
+
+# --------------------------------------------------------------------- #
+# The float32 arithmetic of the tensor-core kernels: three TF32 products
+# --------------------------------------------------------------------- #
+
+
+def _tf32_nearest(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+    one TF32 product's operand."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x with its low 13 mantissa bits cleared, as the tensor cores read a
+    TF32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """csrc/tensor_core.cuh split_tf32: hi = x cut to TF32, lo = the exact
+    rest x - hi, cut to TF32 by the tensor cores."""
+    hi = _tf32_cut(x)
+    return hi, _tf32_cut(x - hi)
+
+
+def _three_products(product, a, b):
+    """a.b as the kernels take it in float32: the small terms first, then
+    hi.hi, all summed in float32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return product(al, bh) + product(ah, bl) + product(ah, bh)
+
+
+def _errors(product, a, b):
+    """Largest error of three TF32 products and of one, relative to the
+    largest |a.b|, against the float64 product."""
+    want = product(a.double(), b.double())
+    scale = want.abs().max().item()
+    three = (_three_products(product, a, b).double() - want).abs().max().item() / scale
+    one = (product(_tf32_nearest(a), _tf32_nearest(b)).double() - want).abs().max().item() / scale
+    return three, one
+
+
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_contraction_needs_three_tf32_products(outgoing):
+    """trimul_contract.cu's float32 arithmetic at the main path's length
+    (K = N = 256): three TF32 products stay within 1e-5 of max |x| of the
+    float64 product, inside the kernels' 1e-4 float32 tolerance; one TF32
+    product does not."""
+    rng = np.random.default_rng(11)
+    a, b = (torch.tensor(rng.normal(size=(1, 4, 256, 256)).astype(np.float32)) for _ in range(2))
+    three, one = _errors(lambda p, q: trimul.contract_cm_plain(p, q, outgoing), a, b)
+    assert three <= 1e-5 < 1e-4 < one, (three, one)
+
+
+def test_epilogue_product_needs_three_tf32_products():
+    """trimul_epilogue.cu's main product, x . ws over H = 128 with LN_out
+    folded into ws (fold_ln_out): the same holds."""
+    rng = np.random.default_rng(12)
+    H = 128
+    x = torch.tensor(rng.normal(size=(2, H, 48, 48)).astype(np.float32))
+    w = {
+        "w_z": torch.tensor(rng.normal(size=(H, H)).astype(np.float32) * H ** -0.5),
+        "ln_out_scale": torch.tensor(1.0 + 0.1 * rng.normal(size=H).astype(np.float32)),
+        "ln_out_bias": torch.zeros(H), "b_z": torch.zeros(H),
+    }
+    ws, _, _ = trimul.fold_ln_out(w, torch.float32)
+    three, one = _errors(lambda p, q: torch.matmul(p.permute(0, 2, 3, 1), q.t()), x, ws)
+    assert three <= 1e-5 < 1e-4 < one, (three, one)
+
+
+def test_smoke_script_bounds_use_tensor_core_rates():
+    """chip_smoke.py bounds the TriMul products by the tensor cores' rates
+    (float32 as three TF32 products): at the main path's shapes both the
+    contraction and the epilogue are bound by bytes, 0.060 ms in float32
+    and 0.030 ms in bf16."""
+    import chip_smoke
+
+    assert chip_smoke.PEAK_OPS_PER_S == {"float32": 495e12 / 3, "bfloat16": 989e12}
+    for name in ("trimul_contract", "trimul_epilogue"):
+        for dtype, esize, want_ms in (("float32", 4, 0.060), ("bfloat16", 2, 0.030)):
+            bytes_, ops = chip_smoke.kernel_bytes_ops(name, 2, 256, 128, 128, esize)
+            assert ops == 2 * 2 * 128 * 256 ** 3
+            bytes_ms, ops_ms = bytes_ / chip_smoke.PEAK_BYTES_PER_S * 1e3, ops / chip_smoke.PEAK_OPS_PER_S[dtype] * 1e3
+            assert bytes_ms > ops_ms and abs(bytes_ms - want_ms) < 2e-3, (name, dtype, bytes_ms, ops_ms)
