@@ -123,7 +123,7 @@ KERNELS = [
 ]
 OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
 # Kernels whose products must run on the tensor cores.
-TENSOR_CORE = ("trimul_contract", "trimul_epilogue")
+TENSOR_CORE = ("trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention")
 
 
 class PhaseFailed(Exception):
@@ -316,6 +316,9 @@ def phase_kernels(state):
             # The bf16 policy casts the weights too (nn/policy.py).
             w = {k: v.to(dtype) for k, v in w32.items()}
             a_p, b_p = trimul.project_gated_cm_plain(z, res_mask, w)
+            # A yardstick only: the projection's bare product [B N N, C] x [C, 4H].
+            w4 = torch.cat([w[k] for k in ("w_ap", "w_ag", "w_bp", "w_bg")]).t().contiguous()
+            bare_matmul = lambda: torch.matmul(z.reshape(-1, C_P), w4)  # noqa: E731
             cases = [
                 ("trimul_project", None, lambda: trimul.project_gated_cm(z, res_mask, w),
                  lambda: trimul.project_gated_cm_plain(z, res_mask, w), None),
@@ -377,6 +380,8 @@ def phase_kernels(state):
                     "bound_ms": max(bound_bytes, bound_ops),
                     "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                 }
+                if name == "trimul_project":
+                    rec["bare_matmul_ms"] = cuda_time_ms(bare_matmul)
                 emit({"phase": "kernels", **rec})
                 if not ok:
                     failed.append(f"{name} N={N} {dname} outgoing={outgoing}: rel {rel:.3g}")
@@ -817,6 +822,8 @@ def kernels_line(state):
             "tensor_core_instructions": state.get("sass", {}).get(name),
             "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else TRI_ATT if name == "tri_attention" else {})},
         }
+        if name == "trimul_project":
+            entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
         if name == "trimul_contract":
             entry["launches_out"] = launches.get("trimul_contract_out", 0)
             entry["launches_in"] = launches.get("trimul_contract_in", 0)

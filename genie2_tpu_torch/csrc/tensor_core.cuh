@@ -1,5 +1,5 @@
-// Tensor-core and asynchronous-copy helpers of the TriMul product kernels:
-// 16-byte cp.async copies that zero-fill what lies past an edge, mma.sync
+// Tensor-core and asynchronous-copy helpers of the product kernels: 16- and
+// 4-byte cp.async copies that zero-fill what lies past an edge, mma.sync
 // tiles with float32 accumulators (m16n8k8 TF32, m16n8k16 bf16), and the
 // fragment loads of both from shared-memory tiles stored either way round.
 //
@@ -26,6 +26,12 @@ namespace tc {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes into shared memory, the same way (src_bytes 0 or 4).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }

@@ -1,6 +1,7 @@
 // tri_att_flash: the attention core of triangle attention (AF2 Algorithms
 // 13/14) with an online softmax, so the [B, I, H, J, J] logits are never
-// written. Per sample b, triangle row i, head h and query position j:
+// written, on the tensor cores. Per sample b, triangle row i, head h and
+// query position j:
 //
 //   s[k]   = (q[b,i,j,h,:] . k[b,i,k,h,:]) / sqrt(c) + tb[b,h,j,k]
 //            + inf (mask[b,i,k] - 1)
@@ -8,252 +9,430 @@
 //
 // Replaces genie2_tpu/ops/tri_att_flash.py:126 flash_tri_attention (Pallas
 // body _flash_kernel, :75). What is kept: float32 logits, softmax statistics
-// and accumulator whatever the activation type, the probabilities kept in
-// float32 for p.v, the running max starting at -1e30, the denominator
-// clamped at 1e-20. What is not carried over: the sequential 4-d grid with
-// scratch between grid steps, the head-major transposes around the call,
-// the divisibility asserts and one sample per call.
+// and accumulator whatever the activation type, the running max starting
+// at -1e30, the denominator clamped at 1e-20, p kept in float32 for p.v in
+// float32. What is not carried over: the sequential 4-d grid with scratch
+// between grid steps, the head-major transposes around the call, the
+// divisibility asserts and one sample per call; in bf16 p goes to the
+// tensor cores rounded to bf16 (one term: tests/test_torch_tri_att.py
+// emulates it within 1e-3 of max |o| at J=256, the bf16 tolerance is 3e-2).
 //
-// Work at the full-width shapes (B=2, I=J=256, H=4, c=32, float32):
-// 4 B I J^2 H c = 17.2 GFLOP; q, k, v, o are 268 MB, tb 2 MB, the mask
-// 0.5 MB. On the H100 the float32 version is bound by operations: 17.2 GFLOP
-// at 67 TFLOP/s of non-tensor float32 is 0.256 ms against 0.081 ms for the
-// bytes at 3.35 TB/s.
+// Work at the full-width shapes (B=2, I=J=256, H=4, c=32): 4 B I J^2 H c =
+// 17.2 GFLOP; q, k, v, o are 268 MB in float32, tb 2 MB, the mask 0.5 MB.
+// On the H100 the float32 version is bound by operations: 17.2 GFLOP as
+// three TF32 products at 495 TFLOP/s is 0.104 ms against 0.081 ms for the
+// bytes at 3.35 TB/s; bf16 (one product at 989 TFLOP/s) is bound by its
+// 134 MB of bytes, 0.040 ms.
 //
-// Design: no shared memory and no barrier; every warp works alone. Two
-// neighbouring lanes share RQ queries (RQ = 4 for c <= 32, else 2) and each
-// owns one half of the head width: its halves of the RQ q rows and of the RQ
-// accumulators live in registers, the running maxima and denominators in
-// both lanes. A block is one warp and covers 16 RQ query positions of one
-// (b, i) and head (one warp per block was the fastest of 1, 2 and 4: 0.82,
-// 0.86 and 0.91 ms at the full-width shapes, and at 255 registers a thread
-// it is what keeps 8 warps on an SM whatever J is). The keys go 8 at a time: the lane reads its queries' 8 triangle biases (one
-// 32-byte sector per query) and the 8 mask values, then for each key its
-// half of the k row straight from device memory through L1 (all lanes of a
-// half read the same address), adds the two half dot products with one shuffle, rescales the
-// softmax once per 8 keys, and accumulates p.v from its half of the v rows.
-// Tensors are read in place in their [B, I, J, H, c] layout: one
-// (position, head) is one run of c values, a half of it 64 bytes. Sharing
-// queries between lanes is what the float32 rate needs: a 16-byte load of k
-// or v feeds 4 RQ multiply-adds. Earlier versions of this kernel staged k,
-// v and the bias tile in shared memory between barriers, one query per
-// thread and then as here; both took 1.32-1.34 ms at the full-width shapes
-// (NVIDIA H100 80GB HBM3, 700 W), of which the staging alone, which nothing
-// overlapped, was 0.77 ms. Loads are 16 bytes wide where c is a compiled
-// width (16, 32, 64) and J a multiple of 8; any other c <= 64 and any J
-// take element-wise loads with the edges masked (slower, same numbers).
-// A key past J has probability zero and takes no part in the maximum. A key
-// masked by `mask` keeps its logit s - inf as the reference does, so a row
-// whose keys are all masked attends uniformly over all J keys. wgmma, TMA
-// and cp.async pipelines are left for a later version.
+// Design: persistent blocks of 4 warps walk units of one (b, i, h) and 64
+// queries, 16 rows a warp, in key tiles of 64 (two blocks an SM in
+// float32, four in bf16); a block takes a contiguous
+// run of units ordered with i fastest, so the blocks at work together share
+// their bias tiles and k / v rows in L2. Each step (unit, key tile) moves
+// the k and v tiles ([64 keys][c], a key's head a run of c values at
+// stride H c in place), the bias tile tb[b, h, 64 queries, 64 keys], the
+// mask of the 64 keys and, with a unit's first key tile, its q tile into
+// one of two shared-memory stages by cp.async copies, issued one step
+// ahead under the products of the other stage; tile rows are padded so
+// that fragment loads hit distinct banks. At a unit's first key tile each
+// warp loads its q rows as mma A fragments (ldmatrix; float32 split into
+// TF32 hi and lo once) and keeps them in registers. q.k is mma.sync m16n8k8
+// TF32 three times over (3xTF32) for float32, m16n8k16 for bf16, with
+// ldmatrix fragments of k. The online softmax runs on the accumulators:
+// row maxima and sums over the four lanes of a quad. p.v takes p from the
+// accumulators without a trip through shared memory: in float32 a lane's
+// accumulator columns (2t, 2t+1) serve as the TF32 A fragment's k columns
+// (t, t+4), which holds because the sum over keys is order-free and the B
+// fragment reads v rows 2t and 2t+1 to match (loads by index), three TF32
+// products again; in bf16 two adjacent n8 accumulator tiles pack into the
+// m16n8k16 A fragment, v fragments through ldmatrix.trans. One TF32
+// product for either q.k or p.v errs by 3-6e-4 of max |o| at J=256 and
+// fails the 1e-4 float32 tolerance (tests/test_torch_tri_att.py emulates
+// each scheme). A key past J has probability zero and takes no part in the
+// maximum; a key masked by `mask` keeps its logit s - inf as the reference
+// does, so a row whose keys are all masked attends uniformly over all J
+// keys. Any J and any c <= 64: c is padded with zeros to 16, 32 or 64;
+// where a row of q, k, v or tb is not a multiple of 16 bytes it is staged
+// element by element with plain loads; queries past J store nothing.
 
 #include <stdint.h>
 
+#include "tensor_core.cuh"
 #include "trimul_common.cuh"
 
 namespace {
 
 using namespace trimul;
 
-constexpr int THREADS = 32;         // one warp a block
-constexpr int PAIRS = THREADS / 2;  // lane pairs: queries are shared two lanes at a time
-constexpr int KC = 8;               // keys per softmax rescale
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TQ = 16 * WARPS;  // queries per block
+constexpr int TK = 64;          // keys per tile
+constexpr int NT = TK / 8;      // n8 tiles of s per key tile
+constexpr int STAGES = 2;
+// Blocks an SM should hold: the register budget of a thread follows
+// (float32 keeps its q fragments split in hi and lo).
+template <typename T>
+constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 2 : 4;
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_DEVICES = 64;
 
-// dst[0..8) = p[0..8) as floats. FAST: p is 16-byte aligned and all eight
-// exist; else the first n (which may be <= 0) are read, the rest are zero.
-template <bool FAST>
-__device__ __forceinline__ void load8(const float* __restrict__ p, int n, float* dst) {
-    if constexpr (FAST) {
-        const float4 a = *reinterpret_cast<const float4*>(p);
-        const float4 b = *reinterpret_cast<const float4*>(p + 4);
-        dst[0] = a.x, dst[1] = a.y, dst[2] = a.z, dst[3] = a.w;
-        dst[4] = b.x, dst[5] = b.y, dst[6] = b.z, dst[7] = b.w;
-    } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = e < n ? p[e] : 0.f;
-    }
+// One stage of the ring in shared memory: the q tile [TQ queries][LD] (used
+// by the first key tile of a unit), the k and v tiles [TK keys][LD] (c
+// contiguous), the triangle bias tile [TQ queries][LDT] and the mask of the
+// TK keys. LD * size is an odd multiple of 16 bytes (ldmatrix rows in
+// distinct banks); LDT = TK + 8 puts a quad's pair loads of eight rows in
+// distinct banks.
+template <typename T, int CP>
+struct Layout {
+    static constexpr int LD = CP + 16 / (int)sizeof(T);
+    static constexpr int LDT = TK + 8;
+    static constexpr int QTILE = TQ * LD, TILE = TK * LD;  // elements of the q tile, of one of k, v
+    static constexpr size_t TB = (size_t)(QTILE + 2 * TILE) * sizeof(T);  // byte offsets within a stage
+    static constexpr size_t MASK = TB + (size_t)TQ * LDT * sizeof(T);
+    static constexpr size_t STAGE = MASK + TK * sizeof(float);
+    static constexpr size_t SMEM = STAGES * STAGE;
+};
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// Two bf16 values packed as an mma operand register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <bool FAST>
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, int n, float* dst) {
-    if constexpr (FAST) {
-        const uint4 u = *reinterpret_cast<const uint4*>(p);
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+// The pair p[0], p[1] in shared memory (aligned to the pair) as floats.
+__device__ __forceinline__ float2 pair_f(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Positions row0 .. row0 + ROWS of one head of q, k or v (rows at stride hc
+// from src) into dst[ROWS][LD], channels below c; rows past J are zero.
+// mode 2: 16-byte cp.async copies with c == CP; 1: 16-byte copies (c * size
+// a multiple of 16, src aligned); 0: plain loads.
+template <typename T, int LD, int ROWS, int CP>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int J, int c, size_t hc, int mode) {
+    constexpr int V = 16 / (int)sizeof(T);
+    if (mode == 2) {
+        constexpr int CHUNKS = CP / V, COPIES = ROWS * CHUNKS;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            dst[2 * e] = __uint_as_float(w[e] << 16);
-            dst[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+        for (int e = 0; e < (COPIES + THREADS - 1) / THREADS; ++e) {
+            const int idx = threadIdx.x + e * THREADS;
+            if (COPIES % THREADS != 0 && idx >= COPIES) break;
+            const int r = idx / CHUNKS, col = (idx % CHUNKS) * V;
+            const bool ok = row0 + r < J;
+            tc::cp_async16(dst + r * LD + col, ok ? src + (size_t)(row0 + r) * hc + col : src, ok ? 16 : 0);
+        }
+    } else if (mode == 1) {
+        const int chunks = c / V;
+        for (int idx = threadIdx.x; idx < ROWS * chunks; idx += THREADS) {
+            const int r = idx / chunks, col = (idx - r * chunks) * V;
+            const bool ok = row0 + r < J;
+            tc::cp_async16(dst + r * LD + col, ok ? src + (size_t)(row0 + r) * hc + col : src, ok ? 16 : 0);
         }
     } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = e < n ? __bfloat162float(p[e]) : 0.f;
-    }
-}
-
-template <bool FAST>
-__device__ __forceinline__ void store8(float* __restrict__ p, int n, const float* src) {
-    if constexpr (FAST) {
-        *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-        *reinterpret_cast<float4*>(p + 4) = make_float4(src[4], src[5], src[6], src[7]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-            if (e < n) p[e] = src[e];
-    }
-}
-
-template <bool FAST>
-__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p, int n, const float* src) {
-    if constexpr (FAST) {
-        uint32_t w[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const __nv_bfloat162 t = __floats2bfloat162_rn(src[2 * e], src[2 * e + 1]);
-            w[e] = *reinterpret_cast<const uint32_t*>(&t);
+        for (int idx = threadIdx.x; idx < ROWS * c; idx += THREADS) {
+            const int r = idx / c, col = idx - r * c;
+            dst[r * LD + col] = row0 + r < J ? src[(size_t)(row0 + r) * hc + col] : Cvt<T>::from_f(0.f);
         }
-        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-            if (e < n) p[e] = __float2bfloat16(src[e]);
     }
 }
 
-// C is the head width rounded up to a compiled size, c <= C the real one;
-// RQ the queries a lane pair owns; FAST as in load8 (c == C, J % 8 == 0).
-template <typename T, int C, int RQ, bool FAST>
-__global__ void __launch_bounds__(THREADS)
+// The triangle bias tb[q0 .. q0 + TQ, key0 .. key0 + TK] of one (b, h) into
+// dst[TQ][LDT], zero past J. vec: 16-byte copies (J * size a multiple of
+// 16, tb aligned); else plain loads.
+template <typename T, int LDT>
+__device__ __forceinline__ void stage_bias(T* dst, const T* tb_bh, int q0, int key0, int J, bool vec) {
+    if (vec) {
+        constexpr int V = 16 / (int)sizeof(T), CHUNKS = TK / V;
+#pragma unroll
+        for (int e = 0; e < TQ * CHUNKS / THREADS; ++e) {
+            const int idx = threadIdx.x + e * THREADS;
+            const int r = idx / CHUNKS, col = (idx % CHUNKS) * V;
+            const bool ok = q0 + r < J && key0 + col < J;
+            tc::cp_async16(dst + r * LDT + col, ok ? tb_bh + (size_t)(q0 + r) * J + key0 + col : tb_bh, ok ? 16 : 0);
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < TQ * TK; idx += THREADS) {
+            const int r = idx / TK, col = idx % TK;
+            const bool ok = q0 + r < J && key0 + col < J;
+            dst[r * LDT + col] = ok ? tb_bh[(size_t)(q0 + r) * J + key0 + col] : Cvt<T>::from_f(0.f);
+        }
+    }
+}
+
+// CP: the head width padded to the k step, 16, 32 or 64; c <= CP the real one.
+// A unit is one (b, i, h) and TQ queries; U units in all, ordered (b, h,
+// query tile, i) with i fastest, and each block takes a contiguous run of
+// them: the blocks at work at one time read the bias tiles of few (b, h)
+// and the k and v rows of few (b, i), while L2 holds them.
+template <typename T, int CP>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
 tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ tb, const float* __restrict__ mask, T* __restrict__ out,
-               int I, int J, int H, int c, float scale, float inf) {
-    constexpr int TQ = PAIRS * RQ;  // queries per block
-    constexpr int CH = C / 2;       // the half of the head width a lane owns
-    static_assert(CH % 8 == 0, "a lane reads its half row eight values at a time");
+               int I, int J, int H, int c, int U, float scale, float inf, int mode, int vec_tb) {
+    using L = Layout<T, CP>;
+    using M = tc::Mma<T>;
+    constexpr bool F32 = sizeof(T) == 4;
+    constexpr int KS = M::KSTEP;
+    constexpr int QK = CP / KS;  // k steps of q.k
+    constexpr int CT = CP / 8;   // n8 tiles of o
+    extern __shared__ __align__(16) unsigned char smem_raw[];
 
-    const int bi = blockIdx.x;  // b * I + i
-    const int b = bi / I;
-    const int h = blockIdx.z;
-    const int j_first = blockIdx.y * TQ + (threadIdx.x >> 1) * RQ;  // this lane's queries: j_first + r
-    const int c0 = (threadIdx.x & 1) * CH;       // first channel of this lane's half
-    const int nc = FAST ? CH : min(CH, c - c0);  // channels of the half that exist (may be <= 0)
-    const size_t row = (size_t)bi * J;           // position (b, i, 0) in units of [H, c] runs
+    const int QT = (J + TQ - 1) / TQ;
+    const int KT = (J + TK - 1) / TK;
+    const int u0 = (int)((long long)blockIdx.x * U / gridDim.x);
+    const int steps = ((int)((long long)(blockIdx.x + 1) * U / gridDim.x) - u0) * KT;  // (unit u0 + n, key tile kt): step n KT + kt
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = warp * 16;  // the warp's first row in the unit's queries
     const size_t hc = (size_t)H * c;
-    const size_t head = (size_t)h * c + c0;
 
-    float qr[RQ][CH], acc[RQ][CH], m[RQ], l[RQ];
-    int jq[RQ];  // a query past J reads the last one's inputs and stores nothing
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-        jq[r] = min(j_first + r, J - 1);
-#pragma unroll
-        for (int c8 = 0; c8 < CH; c8 += 8) load8<FAST>(q + (row + jq[r]) * hc + head + c8, nc - c8, &qr[r][c8]);
-#pragma unroll
-        for (int cc = 0; cc < CH; ++cc) acc[r][cc] = 0.f;
-        m[r] = NEG_INF;
-        l[r] = 0.f;
-    }
+    // Where the block's unit n starts: q, k, v at (b, i, 0, h, 0), tb at (b,
+    // h), the mask at (b, i); its first query.
+    struct Unit {
+        size_t head;
+        const T* tb_bh;
+        const float* mrow;
+        int q0;
+    };
+    auto unit = [&](int n) {
+        const int u = u0 + n, group = u / I, i = u - group * I;
+        const int bh = group / QT, h = bh % H, b = bh / H, bi = b * I + i;
+        return Unit{(size_t)bi * J * hc + (size_t)h * c, tb + ((size_t)b * H + h) * J * J, mask + (size_t)bi * J,
+                    (group - bh * QT) * TQ};
+    };
 
-    const float* mask_row = mask + row;
-    const T* tb_h = tb + ((size_t)b * H + h) * J * J;
-    const T* k_row = k + row * hc + head;
-    const T* v_row = v + row * hc + head;
+    // Channels c .. CP of every q, k and v tile are zero for good; the
+    // copies never write them.
+    constexpr int ROWS = TQ + 2 * TK;  // rows of the q, k and v tiles of a stage
+    if (c < CP)
+        for (int idx = threadIdx.x; idx < STAGES * ROWS * (CP - c); idx += THREADS) {
+            const int r = idx / (CP - c), st = r / ROWS;
+            T* tile = reinterpret_cast<T*>(smem_raw + st * L::STAGE) + (r - st * ROWS) * L::LD;
+            tile[c + idx - r * (CP - c)] = Cvt<T>::from_f(0.f);
+        }
 
-    for (int key0 = 0; key0 < J; key0 += KC) {
-        const int nk = FAST ? KC : min(KC, J - key0);  // keys of this chunk that exist
-        // s starts as the triangle bias, mb as the mask.
-        float s[RQ][KC], mb[KC];
+    // Step st into stage s: its key tile of k, v, tb and the mask, and the
+    // unit's q tile with its first key tile.
+    auto stage = [&](int s, int st) {
+        const int n = st / KT, kt = st - n * KT, key0 = kt * TK;
+        const Unit un = unit(n);
+        unsigned char* base = smem_raw + s * L::STAGE;
+        T* qs = reinterpret_cast<T*>(base);
+        if (kt == 0) stage_rows<T, L::LD, TQ, CP>(qs, q + un.head, un.q0, J, c, hc, mode);
+        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE, k + un.head, key0, J, c, hc, mode);
+        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE + L::TILE, v + un.head, key0, J, c, hc, mode);
+        stage_bias<T, L::LDT>(reinterpret_cast<T*>(base + L::TB), un.tb_bh, un.q0, key0, J, vec_tb);
+        if (threadIdx.x < TK) {
+            const bool ok = key0 + (int)threadIdx.x < J;
+            tc::cp_async4(reinterpret_cast<float*>(base + L::MASK) + threadIdx.x,
+                          ok ? un.mrow + key0 + threadIdx.x : un.mrow, ok ? 4 : 0);
+        }
+    };
+    if (steps > 0) stage(0, 0);
+    tc::cp_async_commit();
+
+    typename M::A qa[QK];
+    float o[CT][4], m_run[2], l_run[2];
+    Unit un{};
+    for (int st = 0, nu = 0, kt = 0; st < steps; ++st) {
+        const int key0 = kt * TK;
+        tc::cp_async_wait<0>();  // step st has landed (this thread's copies)
+        __syncthreads();         // ... everyone's, and step st - 1 is consumed
+        if (st + 1 < steps) stage((st + 1) % STAGES, st + 1);
+        tc::cp_async_commit();
+        const unsigned char* base = smem_raw + (st % STAGES) * L::STAGE;
+        const T* qs = reinterpret_cast<const T*>(base);
+        const T* ks = qs + L::QTILE;
+        const T* vs = ks + L::TILE;
+        const T* tbs = reinterpret_cast<const T*>(base + L::TB) + (wr + g) * L::LDT;
+        const float* ms = reinterpret_cast<const float*>(base + L::MASK);
+
+        if (kt == 0) {  // a new unit: its q fragments (float32: split once), a fresh softmax
+            un = unit(nu);
+            const tc::Tile<T, true> tq{qs, L::LD};
 #pragma unroll
-        for (int r = 0; r < RQ; ++r) load8<FAST>(tb_h + (size_t)jq[r] * J + key0, nk, s[r]);
-        load8<FAST>(mask_row + key0, nk, mb);
+            for (int kk = 0; kk < QK; ++kk) M::load_a(qa[kk], tq, wr, kk * KS, lane);
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk) {
-            float kf[CH], d[RQ];
+            for (int nn = 0; nn < CT; ++nn)
 #pragma unroll
-            for (int c8 = 0; c8 < CH; c8 += 8)
-                load8<FAST>(k_row + (size_t)(key0 + kk) * hc + c8, kk < nk ? nc - c8 : 0, &kf[c8]);
+                for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+            m_run[0] = m_run[1] = NEG_INF;
+            l_run[0] = l_run[1] = 0.f;
+        }
+
+        float s[NT][4];
 #pragma unroll
-            for (int r = 0; r < RQ; ++r) {
-                d[r] = 0.f;
+        for (int n = 0; n < NT; ++n) {
 #pragma unroll
-                for (int cc = 0; cc < CH; ++cc) d[r] += qr[r][cc] * kf[cc];
-            }
-            const float bias = inf * (mb[kk] - 1.f);
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+            const tc::Tile<T, true> tk{ks, L::LD};
 #pragma unroll
-            for (int r = 0; r < RQ; ++r) {
-                // Both halves of q.k, then the biases in the reference's order.
-                float sv = (d[r] + __shfl_xor_sync(0xffffffffu, d[r], 1)) * scale + s[r][kk];
-                sv += bias;
-                s[r][kk] = (FAST || kk < nk) ? sv : NEG_INF;
+            for (int kk = 0; kk < QK; ++kk) {
+                typename M::B fb;
+                M::load_b(fb, tk, 8 * n, kk * KS, lane);
+                M::mma(s[n], qa[kk], fb);
             }
         }
-        // A chunk holds at least one key that exists, so every new maximum is finite.
-        float m_new[RQ];
+
+        // The logits in the reference's order (q.k / sqrt(c) + tb + inf (mask
+        // - 1); -1e30 past J), then the online softmax over the quad that
+        // holds each row.
+        float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-        for (int r = 0; r < RQ; ++r) {
-            float mt = s[r][0];
+        for (int n = 0; n < NT; ++n) {
+            const int col = 8 * n + 2 * t;
+            const float2 b0 = pair_f(tbs + col), b1 = pair_f(tbs + 8 * L::LDT + col), mk = pair_f(ms + col);
+            const float mb0 = key0 + col < J ? inf * (mk.x - 1.f) : NEG_INF;
+            const float mb1 = key0 + col + 1 < J ? inf * (mk.y - 1.f) : NEG_INF;
+            s[n][0] = (s[n][0] * scale + b0.x) + mb0;
+            s[n][1] = (s[n][1] * scale + b0.y) + mb1;
+            s[n][2] = (s[n][2] * scale + b1.x) + mb0;
+            s[n][3] = (s[n][3] * scale + b1.y) + mb1;
+            mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+            mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+        }
+        float alpha[2];
 #pragma unroll
-            for (int kk = 1; kk < KC; ++kk) mt = fmaxf(mt, s[r][kk]);
-            m_new[r] = fmaxf(m[r], mt);
-            const float alpha = __expf(m[r] - m_new[r]);
-            l[r] *= alpha;
-#pragma unroll
-            for (int cc = 0; cc < CH; ++cc) acc[r][cc] *= alpha;
-            m[r] = m_new[r];
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            alpha[r] = __expf(m_run[r] - mx[r]);
+            m_run[r] = mx[r];
+            l_run[r] *= alpha[r];
         }
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk) {
-            float vf[CH], p[RQ];
+        for (int n = 0; n < CT; ++n)
 #pragma unroll
-            for (int c8 = 0; c8 < CH; c8 += 8)
-                load8<FAST>(v_row + (size_t)(key0 + kk) * hc + c8, kk < nk ? nc - c8 : 0, &vf[c8]);
+            for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
 #pragma unroll
-            for (int r = 0; r < RQ; ++r) {
-                p[r] = (FAST || kk < nk) ? __expf(s[r][kk] - m_new[r]) : 0.f;
-                l[r] += p[r];
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-                for (int cc = 0; cc < CH; ++cc) acc[r][cc] += p[r] * vf[cc];
+            for (int e = 0; e < 4; ++e) {
+                s[n][e] = __expf(s[n][e] - mx[e >> 1]);
+                l_run[e >> 1] += s[n][e];
+            }
+
+        if constexpr (F32) {
+            // Key step kk is s tile kk: accumulator columns (2t, 2t + 1) are the
+            // A fragment's k columns (t, t + 4), v rows 2t and 2t + 1 the B
+            // fragment's.
+#pragma unroll
+            for (int kk = 0; kk < NT; ++kk) {
+                typename M::A pa;
+                const float pf[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) tc::split_tf32(bits(pf[e]), pa.hi[e], pa.lo[e]);
+                const T* v0 = vs + (8 * kk + 2 * t) * L::LD + g;
+#pragma unroll
+                for (int n = 0; n < CT; ++n) {
+                    typename M::B fb;
+                    tc::split_tf32(bits(v0[8 * n]), fb.hi[0], fb.lo[0]);
+                    tc::split_tf32(bits(v0[L::LD + 8 * n]), fb.hi[1], fb.lo[1]);
+                    M::mma(o[n], pa, fb);
+                }
+            }
+        } else {
+            const tc::Tile<T, false> tv{vs, L::LD};
+#pragma unroll
+            for (int kk = 0; kk < TK / 16; ++kk) {
+                typename M::A pa;
+                pa.r[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+                pa.r[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+                pa.r[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+                pa.r[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+                for (int n = 0; n < CT; ++n) {
+                    typename M::B fb;
+                    M::load_b(fb, tv, 8 * n, 16 * kk, lane);
+                    M::mma(o[n], pa, fb);
+                }
             }
         }
+        if (kt + 1 < KT) {
+            ++kt;
+            continue;
+        }
+        // The unit's last key tile: normalise and store its queries.
+        float norm[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+            l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+            norm[r] = 1.f / fmaxf(l_run[r], 1e-20f);
+        }
+        const bool pair_out = (c & 1) == 0;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = un.q0 + wr + g + 8 * half;
+            if (row >= J) continue;
+            T* po = out + un.head + (size_t)row * hc;
+#pragma unroll
+            for (int nn = 0; nn < CT; ++nn) {
+                const int col = 8 * nn + 2 * t;
+                const float x0 = o[nn][2 * half] * norm[half], x1 = o[nn][2 * half + 1] * norm[half];
+                if (pair_out) {  // c even: the pair is whole and aligned
+                    if (col < c) tc::store_pair(po + col, x0, x1);
+                } else {
+                    if (col < c) po[col] = Cvt<T>::from_f(x0);
+                    if (col + 1 < c) po[col + 1] = Cvt<T>::from_f(x1);
+                }
+            }
+        }
+        kt = 0;
+        ++nu;
     }
-
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-        if (j_first + r >= J) continue;
-        const float norm = 1.f / fmaxf(l[r], 1e-20f);
-#pragma unroll
-        for (int cc = 0; cc < CH; ++cc) acc[r][cc] *= norm;
-#pragma unroll
-        for (int c8 = 0; c8 < CH; c8 += 8)
-            store8<FAST>(out + (row + j_first + r) * hc + head + c8, nc - c8, &acc[r][c8]);
-    }
+    tc::cp_async_wait<0>();
 }
 
-template <typename T, int C, int RQ>
-int launch_c(const T* q, const T* k, const T* v, const T* tb, const float* mask, T* out,
-             int B, int I, int J, int H, int c, float scale, float inf, cudaStream_t stream) {
-    constexpr int TQ = PAIRS * RQ;
-    const dim3 grid(B * I, (J + TQ - 1) / TQ, H);
-    if (c == C && J % 8 == 0)
-        tri_att_kernel<T, C, RQ, true><<<grid, THREADS, 0, stream>>>(q, k, v, tb, mask, out, I, J, H, c, scale, inf);
-    else
-        tri_att_kernel<T, C, RQ, false><<<grid, THREADS, 0, stream>>>(q, k, v, tb, mask, out, I, J, H, c, scale, inf);
+template <typename T, int CP>
+int launch_c(const T* q, const T* k, const T* v, const T* tb, const float* mask, T* out, int B, int I, int J,
+             int H, int c, float scale, float inf, cudaStream_t stream) {
+    // The shared-memory allowance and the blocks an SM holds, set and asked
+    // once per device: host calls the main path would otherwise pay at every
+    // launch.
+    static int blocks[MAX_DEVICES];
+    auto kernel = tri_att_kernel<T, CP>;
+    const size_t smem = Layout<T, CP>::SMEM;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!blocks[dev]) {
+        int per_sm = 0, sms = 0;
+        if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+                cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+            return (int)err;
+        blocks[dev] = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    const long long units = (long long)B * I * H * ((J + TQ - 1) / TQ);
+    if (units * ((J + TK - 1) / TK) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int grid = (int)(units < blocks[dev] ? units : blocks[dev]);
+    const bool vec = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0 && (c * sizeof(T)) % 16 == 0;
+    const int mode = vec ? (c == CP ? 2 : 1) : 0;
+    const bool vec_tb = (uintptr_t)tb % 16 == 0 && (J * sizeof(T)) % 16 == 0;
+    kernel<<<grid, THREADS, smem, stream>>>(q, k, v, tb, mask, out, I, J, H, c, (int)units, scale, inf, mode,
+                                            (int)vec_tb);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* tb, const void* mask, void* out,
-           int B, int I, int J, int H, int c, float scale, float inf, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* tb, const void* mask, void* out, int B, int I,
+           int J, int H, int c, float scale, float inf, cudaStream_t stream) {
     const T* pq = static_cast<const T*>(q);
     const T* pk = static_cast<const T*>(k);
     const T* pv = static_cast<const T*>(v);
     const T* pt = static_cast<const T*>(tb);
     const float* pm = static_cast<const float*>(mask);
     T* po = static_cast<T*>(out);
-    // Four queries a lane pair where the registers allow it, else two.
-    if (c <= 16) return launch_c<T, 16, 4>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
-    if (c <= 32) return launch_c<T, 32, 4>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
-    return launch_c<T, 64, 2>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
+    if (c <= 16) return launch_c<T, 16>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
+    if (c <= 32) return launch_c<T, 32>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
+    return launch_c<T, 64>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
 }
 
 }  // namespace
@@ -264,8 +443,7 @@ int launch(const void* q, const void* k, const void* v, const void* tb, const vo
 extern "C" int tri_att_flash(const void* q, const void* k, const void* v, const void* tb, const void* mask,
                              void* out, int B, int I, int J, int H, int c, float scale, float inf, int dtype,
                              void* stream) {
-    if (B < 1 || I < 1 || J < 1 || H < 1 || H > 65535 || c < 1 || c > 64) return (int)cudaErrorInvalidValue;
-    if (J > 65535 * 2 * PAIRS) return (int)cudaErrorInvalidValue;
+    if (B < 1 || I < 1 || J < 1 || H < 1 || c < 1 || c > 64) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return launch<float>(q, k, v, tb, mask, out, B, I, J, H, c, scale, inf, st);
     if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, tb, mask, out, B, I, J, H, c, scale, inf, st);

@@ -124,27 +124,28 @@ def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Ten
 # --------------------------------------------------------------------- #
 
 
-def _f32(t: torch.Tensor, device) -> torch.Tensor:
-    """A weight as a contiguous float32 tensor on `device` (a no-op for
-    float32 parameters)."""
+def _as(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
+    """A weight as a contiguous tensor of `dtype` on `device` (a no-op for a
+    contiguous parameter of that dtype)."""
     if t.device != device:
         raise ValueError(f"weight on {t.device}, activations on {device}")
-    return t.float().contiguous()
+    return t.to(dtype).contiguous()
 
 
-def _wt(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
-    """A product weight rounded to the activation dtype, as float32, the
-    way the plain versions round it."""
-    return _f32(t.to(dtype), device)
+def _f32(t: torch.Tensor, device) -> torch.Tensor:
+    """A weight as a contiguous float32 tensor on `device`."""
+    return _as(t, torch.float32, device)
 
 
 _ARGTYPES = {
-    "trimul_project": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5,
+    "trimul_project": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6,
     "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
     "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
 }
 
-# The epilogue's float32 parameters, in the order of its C entry point.
+# The parameters of the projection (float32 or bfloat16) and of the epilogue
+# (float32), in the order of their C entry points.
+_PROJECT_PARAMS = ("ln_in_scale", "ln_in_bias", "w_ap", "w_ag", "w_bp", "w_bg", "b_ap", "b_ag", "b_bp", "b_bg")
 _EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
 
 
@@ -177,21 +178,20 @@ def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
     _check_activation("project z", z, 4)
     B, N, N2, C = z.shape
     H = w["w_ap"].shape[0]
-    if N2 != N or tuple(res_mask.shape) != (B, N) or C > _MAX_CHANNELS or H < 1:
+    shapes_ok = all(tuple(w[f"w_{k}"].shape) == (H, C) and tuple(w[f"b_{k}"].shape) == (H,)
+                    for k in ("ap", "ag", "bp", "bg"))
+    if N2 != N or tuple(res_mask.shape) != (B, N) or C > _MAX_CHANNELS or H < 1 or not shapes_ok:
         raise ValueError(f"project: z {tuple(z.shape)}, res_mask {tuple(res_mask.shape)}, H={H}")
     dev = z.device
-    # Pack the four projections k-major, [C, 4, H], so each block streams
-    # one contiguous slab per hidden chunk.
-    w_cat = torch.stack([_wt(w[k], z.dtype, dev) for k in ("w_ap", "w_ag", "w_bp", "w_bg")], 0)
-    w_cat = w_cat.permute(2, 0, 1).contiguous()
-    b_cat = torch.stack([_f32(w[k], dev) for k in ("b_ap", "b_ag", "b_bp", "b_bg")], 0)
-    mask = _f32(res_mask, dev)
     a = torch.empty((B, H, N, N), dtype=z.dtype, device=dev)
     b = torch.empty_like(a)
-    _launch(
-        "trimul_project", dev, z, mask, _f32(w["ln_in_scale"], dev), _f32(w["ln_in_bias"], dev),
-        w_cat, b_cat, a, b, B, N, C, H, _DTYPE_CODES[z.dtype],
-    )
+    # The kernel rounds the product weights to the activation dtype and
+    # orders them itself, as it stages them; it reads the parameters in
+    # float32 or bfloat16, all in W_ap's dtype.
+    pdt = w["w_ap"].dtype if w["w_ap"].dtype in _DTYPE_CODES else torch.float32
+    params = [_as(w[k], pdt, dev) for k in _PROJECT_PARAMS]
+    _launch("trimul_project", dev, z, _f32(res_mask, dev), *params, a, b, B, N, C, H, _DTYPE_CODES[z.dtype],
+            _DTYPE_CODES[pdt])
     LAUNCHES["trimul_project"] += 1
     return a, b
 

@@ -53,6 +53,9 @@ def _close(got, want, dtype):
     # 32-row epilogue tile and (70) 16 bytes; widths off the k step; D != C,
     # D above one 128-channel chunk (the epilogue restages its weights)
     (200, 128, 128, 128), (224, 256, 256, 256), (70, 40, 48, 24), (224, 48, 256, 200), (200, 256, 40, 72),
+    # the projection's tiles: N of 1, 17 and 130 (off its 32- and 64-row
+    # tiles), hidden chunks of 32-128 channels with H off them, C up to 256
+    (1, 32, 32, 32), (17, 64, 256, 64), (130, 256, 32, 128), (130, 128, 200, 96),
 ])
 @pytest.mark.parametrize("outgoing", [True, False])
 def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
@@ -156,12 +159,16 @@ def _tri_att_inputs(device, dtype, B, I, J, H, c, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("i,j", [(70, 70), (24, 150), (130, 33)])
+@pytest.mark.parametrize("i,j", [(70, 70), (24, 150), (130, 33),
+                                 # the tensor-core tiles' edges: J off the 16-row
+                                 # fragments and the 64-key tiles, one key
+                                 (5, 1), (17, 15), (9, 65), (33, 130)])
 @pytest.mark.parametrize("h,c", [(4, 32), (3, 8), (2, 20), (1, 64)])
 def test_tri_attention_matches_plain(device, dtype, i, j, h, c):
     """Ragged query and key tiles, I != J, every compiled head width and
-    widths between them, fully padded rows (uniform attention): all rows
-    are compared."""
+    widths between them (c of 8, 20: padded with zeros, staged element by
+    element), fully padded rows (uniform attention): all rows are
+    compared."""
     args = _tri_att_inputs(device, dtype, 2, i, j, h, c)
     trimul.reset_launch_counts()
     got = tri_att.tri_attention(*args, row_chunk=7)

@@ -104,6 +104,125 @@ def test_batched_samples_are_independent():
 
 
 # ------------------------------------------------------------------ #
+# The tensor-core kernel's arithmetic, emulated on the CPU
+# ------------------------------------------------------------------ #
+
+
+def _tf32_cut(x):
+    """x with its low 13 mantissa bits cleared, as the tensor cores read a
+    TF32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_nearest(x):
+    """x rounded to TF32 to nearest: one TF32 product's operand."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as csrc/tensor_core.cuh takes float32: hi = x cut to TF32, lo =
+    the rest cut again; lo.hi + hi.lo + hi.hi summed in float32."""
+    ah, bh = _tf32_cut(a), _tf32_cut(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _one_tf32(a, b):
+    return _tf32_nearest(a) @ _tf32_nearest(b)
+
+
+def _bf16_terms(p, terms):
+    """p as the bf16 kernel hands it to the tensor cores: p_hi, or p_hi + p_lo."""
+    hi = p.bfloat16().float()
+    return hi if terms == 1 else hi + (p - hi).bfloat16().float()
+
+
+def _emulated_kernel(q, k, v, tb, mask, qk, pv, inf=1e9, tile=64):
+    """csrc/tri_att_flash.cu in torch: per key tile of 64, s = qk(q, k^T) /
+    sqrt(c) + tb + inf (mask - 1), the online softmax (running max from
+    -1e30), o += pv(p, v); o / max(l, 1e-20). Arguments as
+    tri_attention_plain, float32."""
+    n_b, n_i, n_j, n_h, c = q.shape
+    qh, kh, vh = (t.permute(0, 1, 3, 2, 4) for t in (q, k, v))  # [B, I, H, J, c]
+    m = torch.full(qh.shape[:-1], -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for k0 in range(0, n_j, tile):
+        s = qk(qh, kh[..., k0:k0 + tile, :].transpose(-1, -2)) * (1.0 / np.sqrt(c))
+        s = s + tb[:, None, :, :, k0:k0 + tile]
+        s = s + inf * (mask[:, :, None, None, k0:k0 + tile] - 1.0)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + pv(p, vh[..., k0:k0 + tile, :])
+        m = m_new
+    return (o / l.clamp_min(1e-20)[..., None]).permute(0, 1, 3, 2, 4)
+
+
+def _full_width_inputs(dtype=torch.float32):
+    """One sample at the configuration's widths (J = 256, 4 heads of 32), 8
+    rows, a padded tail of 24 keys; rounded to `dtype`, returned as float32."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 8, 256, 4, 32)).astype(np.float32)) for _ in range(3))
+    tb = torch.tensor(rng.normal(size=(1, 4, 256, 256)).astype(np.float32))
+    mask = torch.ones(1, 8, 256)
+    mask[..., 256 - 24:] = 0.0
+    return [t.to(dtype).float() for t in (q, k, v, tb)] + [mask]
+
+
+def test_float32_products_need_three_tf32_products():
+    """At J = 256, c = 32 the kernel's float32 scheme, three TF32 products
+    for q.k and for p.v, holds the 1e-4 tolerance against
+    tri_attention_plain (within 1e-5); one TF32 product for either q.k or
+    p.v does not."""
+    args = _full_width_inputs()
+    want = tri_attention_plain(*args).double()
+    scale = want.abs().max().item()
+
+    def rel(qk, pv):
+        return (_emulated_kernel(*args, qk, pv).double() - want).abs().max().item() / scale
+
+    three, one_qk, one_pv = rel(_three_tf32, _three_tf32), rel(_one_tf32, _three_tf32), rel(_three_tf32, _one_tf32)
+    assert three <= 1e-5 and one_qk > 1e-4 and one_pv > 1e-4, (three, one_qk, one_pv)
+
+
+def test_bf16_probabilities_as_one_bf16_term():
+    """bf16 inputs (their products exact in float32): the kernel hands p to
+    the tensor cores rounded to bf16, one term. Before o is rounded that
+    stays within 3e-3 of float32 p at J = 256, ten times inside the 3e-2
+    bf16 tolerance; two terms, p_hi + p_lo, would keep it within 1e-5."""
+    args = _full_width_inputs(torch.bfloat16)
+    exact = lambda a, b: a @ b  # noqa: E731
+    want = _emulated_kernel(*args, exact, exact).double()
+    scale = want.abs().max().item()
+    one, two = (
+        (_emulated_kernel(*args, exact, lambda p, v, n=n: _bf16_terms(p, n) @ v).double() - want).abs().max().item()
+        / scale for n in (1, 2)
+    )
+    assert two <= 1e-5 and 100 * two < one <= 3e-3, (one, two)
+
+
+def test_pv_fragment_key_order_gives_p_dot_v():
+    """The float32 p.v of the kernel: lane (g, t) holds the s accumulators
+    (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) of an 8-key tile and hands
+    them on as its A fragment a0..a3 = (g, t), (g+8, t), (g, t+4), (g+8,
+    t+4), while its B fragment reads v rows 2t and 2t+1 at column g (b0 =
+    (k t, n g), b1 = (k t+4, n g)). The product over the permuted k index is
+    p.v."""
+    rng = np.random.default_rng(5)
+    p, v = rng.uniform(size=(16, 8)), rng.normal(size=(8, 8))
+    a, b = np.full((16, 8), np.nan), np.full((8, 8), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        acc = (p[g, 2 * t], p[g, 2 * t + 1], p[g + 8, 2 * t], p[g + 8, 2 * t + 1])
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = acc[0], acc[2], acc[1], acc[3]
+        b[t, g], b[t + 4, g] = v[2 * t, g], v[2 * t + 1, g]
+    assert not np.isnan(a).any() and not np.isnan(b).any()
+    np.testing.assert_allclose(a @ b, p @ v, rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------------------------ #
 # The modules
 # ------------------------------------------------------------------ #
 

@@ -186,17 +186,118 @@ def test_epilogue_product_needs_three_tf32_products():
     assert three <= 1e-5 < 1e-4 < one, (three, one)
 
 
+def test_projection_needs_three_tf32_products():
+    """trimul_project.cu's float32 arithmetic: the projection and its gate,
+    [rows, C] x [C, H] with K = C = 128, gated as the kernel gates them:
+    with three TF32 products a stays within 1e-5 of max |a| of the float64
+    product, with one it misses the kernels' 1e-4 float32 tolerance."""
+    rng = np.random.default_rng(13)
+    C = H = 128
+    z = torch.tensor(rng.normal(size=(1, 48, 48, C)).astype(np.float32))
+    w = {k: torch.tensor((rng.normal(size=(H, C)) * C ** -0.5).astype(np.float32)) for k in ("w_ap", "w_ag")}
+    w.update({k: torch.tensor((0.1 * rng.normal(size=H)).astype(np.float32)) for k in ("b_ap", "b_ag")})
+    zn = trimul._ln_lane(z, torch.ones(C), torch.zeros(C))
+
+    def gated(product):
+        return (product(zn, w["w_ap"].t()) + w["b_ap"]) * torch.sigmoid(product(zn, w["w_ag"].t()) + w["b_ag"])
+
+    want = gated(lambda a, b: a.double() @ b.double())
+    scale = want.abs().max().item()
+    three = (gated(lambda a, b: _three_products(torch.matmul, a, b)).double() - want).abs().max().item() / scale
+    one = (gated(lambda a, b: _tf32_nearest(a) @ _tf32_nearest(b)).double() - want).abs().max().item() / scale
+    assert three <= 1e-5 < 1e-4 < one, (three, one)
+
+
+def _kernel_weight_rows(H, hc):
+    """trimul_project.cu weight_row: for each chunk of hc hidden channels, its
+    4 hc weight rows as (which, h), which 0-3 = w_ap, w_ag, w_bp, w_bg; an
+    m16 tile holds the projections of eight channels in rows 0-7 and their
+    gates in rows 8-15, a first, then b."""
+    rows = []
+    for h0 in range(0, H, hc):
+        groups = hc // 8
+        for r in range(4 * hc):
+            mt, within = divmod(r, 16)
+            rows.append((2 * (mt // groups) + within // 8, h0 + 8 * (mt % groups) + within % 8))
+    return rows
+
+
+@pytest.mark.parametrize("H,hc", [(128, 64), (128, 128), (40, 32)])
+def test_projection_row_order_gives_the_plain_result(H, hc):
+    """The kernel takes W . zn^T with the weight rows reordered so that a
+    lane's accumulators c0, c1 (row g) and c2, c3 (row g + 8) are the
+    projection and the gate of one (h, j): emulated in torch, that order
+    and pairing give project_gated_cm_plain's a and b, every channel once;
+    channels past H (H = 40 in chunks of 32) are zero rows, never stored."""
+    rng = np.random.default_rng(H + hc)
+    Bn, n, C = 2, 12, 32
+    z = torch.tensor(rng.normal(size=(Bn, n, n, C)).astype(np.float32))
+    res_mask = torch.tensor((rng.uniform(size=(Bn, n)) > 0.2).astype(np.float32))
+    w = {f"w_{k}": torch.tensor((rng.normal(size=(H, C)) * C ** -0.5).astype(np.float32)) for k in ("ap", "ag", "bp", "bg")}
+    w.update({f"b_{k}": torch.tensor((0.1 * rng.normal(size=H)).astype(np.float32)) for k in ("ap", "ag", "bp", "bg")})
+    w.update(ln_in_scale=torch.tensor((1 + 0.1 * rng.normal(size=C)).astype(np.float32)),
+             ln_in_bias=torch.tensor((0.1 * rng.normal(size=C)).astype(np.float32)))
+    names = ("ap", "ag", "bp", "bg")
+    rows = _kernel_weight_rows(H, hc)
+    weight = torch.stack([w[f"w_{names[k]}"][h] if h < H else torch.zeros(C) for k, h in rows])
+    bias = torch.stack([w[f"b_{names[k]}"][h] if h < H else torch.zeros(()) for k, h in rows])
+    zn = trimul._ln_lane(z, w["ln_in_scale"], w["ln_in_bias"]).reshape(-1, C)
+    acc = weight @ zn.t() + bias[:, None]  # [channel rows, (b, i, j)]: the accumulators, j along a row
+    mask = (res_mask[:, :, None] * res_mask[:, None, :]).reshape(-1)
+    out = {0: torch.full((Bn, H, n, n), float("nan")), 1: torch.full((Bn, H, n, n), float("nan"))}
+    for m0 in range(0, len(rows), 16):
+        for g in range(8):
+            (kp, h), (kg, h_gate) = rows[m0 + g], rows[m0 + 8 + g]
+            assert kg == kp + 1 and kp % 2 == 0 and h_gate == h
+            if h < H:
+                assert torch.isnan(out[kp // 2][:, h]).all()  # each channel once
+                gated = acc[m0 + g] * torch.sigmoid(acc[m0 + 8 + g]) * mask
+                out[kp // 2][:, h] = gated.reshape(Bn, n, n)
+    a, b = trimul.project_gated_cm_plain(z, res_mask, w)
+    np.testing.assert_allclose(out[0].numpy(), a.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out[1].numpy(), b.numpy(), atol=1e-5, rtol=0)
+
+
 def test_smoke_script_bounds_use_tensor_core_rates():
-    """chip_smoke.py bounds the TriMul products by the tensor cores' rates
+    """chip_smoke.py bounds the kernels' products by the tensor cores' rates
     (float32 as three TF32 products): at the main path's shapes both the
     contraction and the epilogue are bound by bytes, 0.060 ms in float32
-    and 0.030 ms in bf16."""
+    and 0.030 ms in bf16; the projection by operations in float32 (0.104
+    ms) and by bytes in bf16 (0.030 ms)."""
     import chip_smoke
 
     assert chip_smoke.PEAK_OPS_PER_S == {"float32": 495e12 / 3, "bfloat16": 989e12}
+    # Every kernel whose products run on the tensor cores must show HMMA or
+    # HGMMA in its library, or the device phase fails.
+    assert set(chip_smoke.TENSOR_CORE) == {"trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention"}
+    assert set(chip_smoke.TENSOR_CORE) <= {k["name"] for k in chip_smoke.KERNELS}
     for name in ("trimul_contract", "trimul_epilogue"):
         for dtype, esize, want_ms in (("float32", 4, 0.060), ("bfloat16", 2, 0.030)):
             bytes_, ops = chip_smoke.kernel_bytes_ops(name, 2, 256, 128, 128, esize)
             assert ops == 2 * 2 * 128 * 256 ** 3
             bytes_ms, ops_ms = bytes_ / chip_smoke.PEAK_BYTES_PER_S * 1e3, ops / chip_smoke.PEAK_OPS_PER_S[dtype] * 1e3
             assert bytes_ms > ops_ms and abs(bytes_ms - want_ms) < 2e-3, (name, dtype, bytes_ms, ops_ms)
+    for dtype, esize, want_ms, by_ops in (("float32", 4, 0.104, True), ("bfloat16", 2, 0.030, False)):
+        bytes_, ops = chip_smoke.kernel_bytes_ops("trimul_project", 2, 256, 128, 128, esize)
+        assert ops == 2 * 2 * 256 * 256 * 128 * 4 * 128
+        bytes_ms, ops_ms = bytes_ / chip_smoke.PEAK_BYTES_PER_S * 1e3, ops / chip_smoke.PEAK_OPS_PER_S[dtype] * 1e3
+        assert (ops_ms > bytes_ms) == by_ops and abs(max(bytes_ms, ops_ms) - want_ms) < 2e-3, (dtype, bytes_ms, ops_ms)
+
+
+def test_kernel_variants_apply_to_the_sources():
+    """Every text substitution of tools/torch_kernel_variants.json occurs
+    exactly once in its source, as the tool requires, so each variant
+    builds from the sources as they stand."""
+    import json
+    import os
+
+    import tools.torch_kernel_variants as tool
+    from genie2_tpu_torch.ops import build
+
+    with open(os.path.join(tool.REPO, "tools", "torch_kernel_variants.json")) as fh:
+        variants = {k: v for k, v in json.load(fh).items() if not k.startswith("_")}
+    assert {v["source"] for v in variants.values()} == set(tool.KERNEL_NAME)
+    for name, v in variants.items():
+        for fname, old, _ in v.get("subs", []):
+            with open(os.path.join(build.CSRC_DIR, fname)) as fh:
+                assert fh.read().count(old) == 1, (name, fname, old[:60])

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time variants of genie2_tpu_torch's TriMul tensor-core kernels on the card.
+"""Time variants of genie2_tpu_torch's tensor-core kernels on the card.
 
 Each variant is a copy of genie2_tpu_torch/csrc with text substitutions,
 built with the port's own nvcc flags into build/variants/<name>/ and
 swapped in for the wrapper's library. For float32 and bf16 at the main
-path's shapes (B=2, N=256, C=H=128) it prints one JSON line per variant:
+path's shapes (B=2, N=256, C=H=128; triangle attention H=4, c=32) it
+prints one JSON line per variant:
 the error against the plain version relative to max |plain|, the kernel's
 device time per launch (torch.profiler) and the wrapper's time between CUDA
 events, the HMMA count of the library and, for a variant marked "phases"
-(whose substitutions make block 0 write clock64() phase totals to
-out[0:9]), those cycle counts. A variant that changes what the
-kernel computes is a measurement, not a candidate: its error says so.
+(whose substitutions make block 0 write clock64() phase totals to the
+first values of its (first) output), those cycle counts. A variant that
+changes what the kernel computes is a measurement, not a candidate: its
+error says so.
 
     python3 tools/torch_kernel_variants.py tools/torch_kernel_variants.json
 
@@ -29,7 +31,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-KERNEL_NAME = {"trimul_contract": "contract_kernel", "trimul_epilogue": "epilogue_kernel"}
+# The kernel function of each source, as the profiler names it.
+KERNEL_NAME = {"trimul_project": "project_kernel", "trimul_contract": "contract_kernel",
+               "trimul_epilogue": "epilogue_kernel", "tri_att_flash": "tri_att_kernel"}
 
 
 def build_variants(variants, build):
@@ -69,7 +73,7 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from genie2_tpu_torch.ops import build, trimul
+    from genie2_tpu_torch.ops import build, tri_att, trimul
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -119,7 +123,22 @@ def main(argv=None):
     for dtype in (torch.float32, torch.bfloat16):
         z = z32.to(dtype)
         a, b = trimul.project_gated_cm_plain(z, mask, w)
-        data[dtype] = (z, a, b, trimul.contract_cm_plain(a, b, True))
+        # Triangle attention: a padded tail of keys, as the sampler's buckets have.
+        qkv = [r(B, N, N, 4, 32).to(dtype) for _ in range(3)]
+        att = (*qkv, r(B, 4, N, N).to(dtype), mask[:, :, None] * mask[:, None, :])
+        data[dtype] = (z, a, b, trimul.contract_cm_plain(a, b, True), att)
+
+    def cases(source, dname, z, a, b, x, att):
+        """{case: (kernel, plain)} of one source and dtype."""
+        if source == "trimul_project":
+            return {dname: (lambda: trimul.project_gated_cm(z, mask, w), lambda: trimul.project_gated_cm_plain(z, mask, w))}
+        if source == "trimul_contract":
+            return {f"{dname}_{'out' if o else 'in'}": (lambda o=o: trimul.contract_cm(a, b, o),
+                                                         lambda o=o: trimul.contract_cm_plain(a, b, o))
+                    for o in (True, False)}
+        if source == "trimul_epilogue":
+            return {dname: (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_cm_plain(x, z, w))}
+        return {dname: (lambda: tri_att.tri_attention(*att), lambda: tri_att.tri_attention_plain(*att))}
 
     for name, lib in libs.items():
         v = variants[name]
@@ -127,21 +146,19 @@ def main(argv=None):
         build.override(source, lib)
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
         rec = {"variant": name, "HMMA": sass.count("HMMA")}
-        for dtype, (z, a, b, x) in data.items():
+        for dtype, inputs in data.items():
             dname = str(dtype).split(".")[-1]
-            cases = ({f"{dname}_{'out' if o else 'in'}": (lambda o=o: trimul.contract_cm(a, b, o),
-                                                           lambda o=o: trimul.contract_cm_plain(a, b, o))
-                      for o in (True, False)} if source == "trimul_contract" else
-                     {dname: (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_cm_plain(x, z, w))})
-            for key, (kern, plain) in cases.items():
+            for key, (kern, plain) in cases(source, dname, *inputs).items():
                 try:
                     got, want = kern(), plain()
                     torch.cuda.synchronize()
-                    rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+                    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                    rel = max(((g.float() - p.float()).abs().max() / p.float().abs().max()).item()
+                              for g, p in zip(got, want))
                     rec[key] = {"rel_err": rel, "device_ms": device_ms(kern, KERNEL_NAME[source]),
                                 "wrapper_ms": event_ms(kern)}
                     if v.get("phases"):
-                        rec[key]["phase_cycles"] = got.flatten()[:9].float().tolist()
+                        rec[key]["phase_cycles"] = got[0].flatten()[:9].float().tolist()
                 except RuntimeError as exc:
                     rec[key] = {"failed": str(exc)}
         build.override(source, None)
