@@ -4,7 +4,8 @@
 Each variant is a copy of genie2_tpu_torch/csrc with text substitutions,
 built with the port's own nvcc flags into build/variants/<name>/ and
 swapped in for the wrapper's library. For float32 and bf16 at the main
-path's shapes (B=2, N=256, C=H=128; triangle attention H=4, c=32) it
+path's shapes (B=2, N=256, C=H=128; triangle attention H=4, c=32; the
+IPA core H=12, C=16, Pq=4, Pv=8, Cz=128) it
 prints one JSON line per variant:
 the error against the plain version relative to max |plain|, the kernel's
 device time per launch (torch.profiler) and the wrapper's time between CUDA
@@ -33,7 +34,8 @@ if REPO not in sys.path:
 
 # The kernel function of each source, as the profiler names it.
 KERNEL_NAME = {"trimul_project": "project_kernel", "trimul_contract": "contract_kernel",
-               "trimul_epilogue": "epilogue_kernel", "tri_att_flash": "tri_att_kernel"}
+               "trimul_epilogue": "epilogue_kernel", "tri_att_flash": "tri_att_kernel",
+               "ipa_attention": "ipa_kernel", "triangle_contract": "tri_contract"}
 
 
 def build_variants(variants, build):
@@ -73,7 +75,7 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from genie2_tpu_torch.ops import build, tri_att, trimul
+    from genie2_tpu_torch.ops import build, ipa, tri_att, triangle, trimul
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -126,9 +128,17 @@ def main(argv=None):
         # Triangle attention: a padded tail of keys, as the sampler's buckets have.
         qkv = [r(B, N, N, 4, 32).to(dtype) for _ in range(3)]
         att = (*qkv, r(B, 4, N, N).to(dtype), mask[:, :, None] * mask[:, None, :])
-        data[dtype] = (z, a, b, trimul.contract_cm_plain(a, b, True), att)
+        # The IPA core at full width (H=12, C=16, Pq=4, Pv=8, Cz=128), k and
+        # v as strided halves of one projection and the points as views, as
+        # nn/structure.py passes them.
+        kv = r(B, N, 12, 32).to(dtype)
+        kv_pts = (3 * r(B, N, 12, 12, 3)).to(dtype)
+        ipa_args = (r(B, N, 12, 16).to(dtype), kv[..., :16], kv[..., 16:], (3 * r(B, N, 12, 4, 3)).to(dtype),
+                    kv_pts[..., :4, :], kv_pts[..., 4:, :], r(B, N, N, 12).to(dtype), z,
+                    r(12).abs() + 0.5, mask)
+        data[dtype] = (z, a, b, trimul.contract_cm_plain(a, b, True), att, ipa_args)
 
-    def cases(source, dname, z, a, b, x, att):
+    def cases(source, dname, z, a, b, x, att, ipa_args):
         """{case: (kernel, plain)} of one source and dtype."""
         if source == "trimul_project":
             return {dname: (lambda: trimul.project_gated_cm(z, mask, w), lambda: trimul.project_gated_cm_plain(z, mask, w))}
@@ -138,6 +148,16 @@ def main(argv=None):
                     for o in (True, False)}
         if source == "trimul_epilogue":
             return {dname: (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_cm_plain(x, z, w))}
+        if source == "ipa_attention":
+            return {dname: (lambda: ipa.ipa_attention(*ipa_args), lambda: ipa.ipa_attention_plain(*ipa_args))}
+        if source == "triangle_contract":
+            ta, tb = 0.3 * z, (0.3 * z).flip(1).contiguous()
+            out = {f"{dname}_{lay}_{'out' if o else 'in'}": (
+                lambda o=o, lay=lay: triangle.triangle_multiply(ta, tb, o, lay),
+                lambda o=o: triangle.triangle_multiply_reference(ta, tb, o))
+                for lay in triangle.LAYOUTS for o in (True, False)}
+            out[f"{dname}_km"] = (lambda: trimul.contract_cm_km(a, b), lambda: trimul.contract_cm_km_plain(a, b))
+            return out
         return {dname: (lambda: tri_att.tri_attention(*att), lambda: tri_att.tri_attention_plain(*att))}
 
     for name, lib in libs.items():
