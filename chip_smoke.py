@@ -7,12 +7,14 @@ Phases, in order; any failure exits non-zero:
   1. device    print the card's name and power limit, require CUDA, build
                the kernels from genie2_tpu_torch/csrc with nvcc, count the
                tensor-core instructions (HMMA, HGMMA) in each built library
-               (cuobjdump -sass) and require them in the TriMul products;
-  2. kernels   each kernel (three TriMul stages, the IPA attention core,
-               the three standalone triangle contractions, the triangle
-               attention core) against its plain PyTorch version on the
-               card, float32 and bfloat16, at N=256 and the ragged N=224;
-               times of the kernel, the plain version and a library call;
+               (cuobjdump -sass) and require them in every product kernel
+               (TENSOR_CORE);
+  2. kernels   each kernel (three TriMul stages, the IPA attention core on
+               strided inputs as nn/structure.py passes them, the three
+               standalone triangle contractions, the triangle attention
+               core) against its plain PyTorch version on the card, float32
+               and bfloat16, at N=256 and the ragged N=224; times of the
+               kernel, the plain version and a library call;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
                with the plain versions swapped in, compared on z; once for
                configs/example.configuration and once for the same
@@ -122,8 +124,9 @@ KERNELS = [
     },
 ]
 OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
-# Kernels whose products must run on the tensor cores.
-TENSOR_CORE = ("trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention")
+# Kernels whose products must run on the tensor cores: all eight (the IPA
+# core's o_pair product among them).
+TENSOR_CORE = tuple(k["name"] for k in KERNELS)
 
 
 class PhaseFailed(Exception):
@@ -227,7 +230,9 @@ def random_trimul_weights(C: int, H: int, gen, device):
 
 
 def random_ipa_inputs(B, N, z, res_mask, gen):
-    """The IPA core's arguments at full width (ops/ipa.py), in z's dtype."""
+    """The IPA core's arguments at full width (ops/ipa.py), in z's dtype, as
+    nn/structure.py hands them over: k and v the halves of one projection,
+    the k and v points the parts of one tensor."""
     import torch
 
     h, c, pq, pv = IPA["H"], IPA["C"], IPA["PQ"], IPA["PV"]
@@ -237,8 +242,9 @@ def random_ipa_inputs(B, N, z, res_mask, gen):
         return (scale * torch.randn(*shape, generator=gen, device=dev)).to(dt)
 
     head_weights = torch.randn(h, generator=gen, device=dev).abs() + 0.5
-    return (r(B, N, h, c), r(B, N, h, c), r(B, N, h, c), r(B, N, h, pq, 3, scale=3.0), r(B, N, h, pq, 3, scale=3.0),
-            r(B, N, h, pv, 3, scale=3.0), r(B, N, N, h), z, head_weights, res_mask)
+    kv, kv_pts = r(B, N, h, 2 * c), r(B, N, h, pq + pv, 3, scale=3.0)
+    return (r(B, N, h, c), kv[..., :c], kv[..., c:], r(B, N, h, pq, 3, scale=3.0), kv_pts[..., :pq, :],
+            kv_pts[..., pq:, :], r(B, N, N, h), z, head_weights, res_mask)
 
 
 def random_tri_att_inputs(B, N, dtype, gen, device):

@@ -32,13 +32,13 @@ def run(args):
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import batchify, create_empty_features, save_features_to_pdb, to_device
     from genie2_tpu_torch.features.secstruct import sec_struct_frac
-    from genie2_tpu_torch.nn.policy import apply_denoiser, compute_dtype
+    from genie2_tpu_torch.nn.policy import apply_denoiser, cast_model, compute_dtype
     from genie2_tpu_torch.sampling import soft_sse_fraction, sse_guided_sample
 
     model, config = load_model(args)
     device = next(model.parameters()).device
     dtype = compute_dtype(config.tpu.get("compute_dtype", "fp32"))
-    model = model.to(dtype)
+    model = cast_model(model, dtype)
     schedule = Schedule.create(config.diffusion["n_timestep"], config.diffusion["schedule"], device=device)
     feats = to_device(batchify([create_empty_features([args.length]) for _ in range(args.num_particles)]), device)
 

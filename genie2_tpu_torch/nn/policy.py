@@ -9,6 +9,7 @@ float32 so coordinate error does not compound over the trajectory.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict
 
 import torch
@@ -22,6 +23,17 @@ def compute_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"unknown compute_dtype: {name}")
     return DTYPES[name]
+
+
+def cast_model(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """The model with its floating parameters and buffers in `dtype`: the
+    model itself where they already are, else a cast copy, so the caller's
+    model keeps its weights (genie2_tpu's samplers cast a copy of the
+    parameter tree, `cast_floating`)."""
+    tensors = [*model.parameters(), *model.buffers()]
+    if all(t.dtype == dtype for t in tensors if t.is_floating_point()):
+        return model
+    return copy.deepcopy(model).to(dtype)
 
 
 def apply_denoiser(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],

@@ -31,19 +31,24 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, check_activation, launch, on_cpu
+from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, launch, on_cpu
 
-# Limits of csrc/ipa_attention.cu (THREADS * ITEMS accumulator items a block).
+# Limits and tiles of csrc/ipa_attention.cu: CONSUMERS * ITEMS o / o_pt
+# items a block, CONSUMER_WARPS * UNITS o_pair tiles of 8 channels, TJ keys a
+# tile, STAGES tiles in its ring, PAS floats a (row, key) of p.
 MAX_HEADS = 16
-_MAX_ITEMS = 512
+_MAX_ITEMS = 960
+_MAX_TILES = 120
 _MAX_SMEM_BYTES = 232448
-_TJ, _TI_MAX = 32, 2
+_TJ, _STAGES, _TI_MAX, _PAS = 16, 2, 4, 24
+# The mask's dtype codes of the kernel.
+MASK_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2, torch.int64: 3, torch.bool: 4, torch.uint8: 4}
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -53,9 +58,13 @@ def scale_points(q_pts: torch.Tensor, k_pts: torch.Tensor, head_weights: torch.T
     -0.5 s w_h sum d^2 == -0.5 sum (sqrt(s w_h) d)^2. [.., H, Pq, 3] each,
     returned flat as [.., H, 3 Pq] in the points' dtype."""
     pq = q_pts.shape[-2]
-    s_pt = math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
-    f = torch.sqrt(head_weights.float() * s_pt)[:, None, None]
+    f = torch.sqrt(head_weights.float() * point_scale(pq))[:, None, None]
     return tuple((p.float() * f).to(p.dtype).flatten(-2) for p in (q_pts, k_pts))
+
+
+def point_scale(pq: int) -> float:
+    """s_pt = sqrt(1 / (3 Pq 9/2)), the points' share of the logit."""
+    return math.sqrt(1.0 / (3 * (pq * 9.0 / 2)))
 
 
 def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf: float = 1e5) -> Outputs:
@@ -79,18 +88,86 @@ def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mas
     return o.to(dt), o_pt.to(dt), o_pair.to(dt)
 
 
-def rows_per_block(c_z: int) -> int:
-    """Query rows one block of the kernel owns: as many (at most 2) as keep
-    rows x c_z within its accumulator items."""
-    return max(1, min(_TI_MAX, _MAX_ITEMS // c_z))
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def kernel_layout(H: int, C: int, PQ: int, PV: int, CZ: int, N: int, esize: int) -> Dict[str, int]:
+    """The kernel's padded widths (csrc/ipa_attention.cu `launch`), in
+    elements of the activation dtype (CQ and QS in floats): a staged key
+    row of the slot layout is [k CP][k points QP][v CP][v points VP], KVS
+    apart (the bulk layout takes the same room and 16 bytes a key); a query
+    row is [q CQ][points], QS apart; HB is the heads rounded to 4."""
+    v16 = 16 // esize
+    lay = dict(HB=4 * ((H + 3) // 4), CP=_round_up(C, v16), QP=_round_up(3 * PQ, v16), VP=_round_up(3 * PV, v16),
+               CQ=_round_up(C, 4), N=N, H=H, CZ=CZ, esize=esize)
+    kvs = 2 * lay["CP"] + lay["QP"] + lay["VP"]
+    lay["KVS"] = kvs + v16 if (kvs // v16) % 2 == 0 else kvs
+    lay["QS"] = lay["CQ"] + _round_up(3 * PQ, 4)
+    return lay
+
+
+def smem_bytes(lay: Dict[str, int], ti: int) -> int:
+    """Shared memory of one block with `ti` query rows (the kernel's Smem)."""
+    es, H, HB = lay["esize"], lay["H"], lay["HB"]
+    stage = _round_up(_TJ * (H * lay["KVS"] * es + 16), 16) + _round_up(ti * _TJ * lay["CZ"] * es, 16)
+    stage += _round_up(ti * _TJ * H * es, 16)
+    probs = HB * _TJ * _TI_MAX * 4 + ti * _TJ * _PAS * 4  # p by rows (o, o_pt) and by heads (o_pair)
+    head = _STAGES * stage + ti * H * lay["QS"] * 4 + probs + 2 * ti * HB * 4 + HB * 4
+    return _round_up(head, 8) + 2 * _STAGES * 8 + (lay["N"] + 3) // 4 * 16
+
+
+def rows_per_block(c_z: int, lay: Dict[str, int] = None) -> int:
+    """Query rows one block of the kernel owns: the most (at most 4) that
+    keep its o_pair tiles (rows x c_z / 8) within its consumer warps' and,
+    given the layout, the block within shared memory."""
+    ti = _TI_MAX
+    while ti > 1 and (ti * -(-c_z // 8) > _MAX_TILES or (lay is not None and smem_bytes(lay, ti) > _MAX_SMEM_BYTES)):
+        ti //= 2
+    return ti
+
+
+def _run_strides(name: str, t: torch.Tensor, points: bool):
+    """(batch, row, head, element) element strides of q / k / v [B,N,H,C]
+    or of a point set [B,N,H,P,3], whose 3 P values of a head must lie at
+    one stride (a view of a contiguous [.., P', 3] tensor does)."""
+    if not points:
+        return list(t.stride())
+    sb, sn, sh, sp, sx = t.stride()
+    if t.shape[-2] > 1 and sp != 3 * sx:
+        raise ValueError(f"ipa {name}: the points' strides {tuple(t.stride())} do not make one run of 3 P values")
+    return [sb, sn, sh, sx]
+
+
+def kernel_arguments(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask):
+    """The tensors and the element strides the kernel reads, as
+    `ipa_attention` hands them over: (inputs, strides, dims); strides holds
+    four values a tensor for q, k, v, the three point sets, bias and z,
+    then the mask's two."""
+    B, N, _, CZ = z.shape
+    H, C = q.shape[-2:]
+    PQ, PV = q_pts.shape[-2], v_pts.shape[-2]
+    strides = []
+    for name, t, pts in (("q", q, False), ("k", k, False), ("v", v, False), ("q_pts", q_pts, True),
+                         ("k_pts", k_pts, True), ("v_pts", v_pts, True), ("bias", bias, False), ("z", z, False)):
+        strides += _run_strides(name, t, pts)
+    strides += list(mask.stride())
+    inputs = [q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask]
+    return inputs, strides, (B, N, H, C, PQ, PV, CZ)
 
 
 def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf: float = 1e5) -> Outputs:
     """The kernel for tensors on the card, the plain version for tensors
-    on the CPU; arguments and results as `ipa_attention_plain`."""
+    on the CPU; arguments and results as `ipa_attention_plain`. The kernel
+    reads every argument through its strides (k and v may be strided
+    halves of one projection, the points views) and the mask in its own
+    dtype: one launch, nothing else."""
     if on_cpu(z):
         return ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf)
-    check_activation("ipa z", z, 4)
+    if z.dtype not in DTYPE_CODES:
+        raise TypeError(f"ipa z: dtype {z.dtype} not supported (float32 or bfloat16)")
+    if z.dim() != 4:
+        raise ValueError(f"ipa z: expected [B, N, N, Cz], got {tuple(z.shape)}")
     B, N, N2, CZ = z.shape
     H, C = q.shape[-2:]
     PQ, PV = q_pts.shape[-2], v_pts.shape[-2]
@@ -104,24 +181,31 @@ def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf
             raise ValueError(f"ipa {name}: {tuple(t.shape)} {t.dtype} on {t.device}, expected {shape} {z.dtype} on {z.device}")
     if N2 != N or tuple(mask.shape) != (B, N) or tuple(head_weights.shape) != (H,):
         raise ValueError(f"ipa: z {tuple(z.shape)}, mask {tuple(mask.shape)}, head_weights {tuple(head_weights.shape)}")
-    ti = rows_per_block(CZ)
-    hb = 4 * ((H + 3) // 4)
-    smem = 4 * (_TI_MAX * _TJ * hb + 3 * _TI_MAX * hb + (ti + _TJ) * H * ((C + 3 * PQ) | 1))
-    if H > MAX_HEADS or CZ > _MAX_ITEMS or H * (C + 3 * PV + 1) > _MAX_ITEMS or smem > _MAX_SMEM_BYTES:
+    if head_weights.dtype not in DTYPE_CODES or mask.dtype not in MASK_DTYPES or (H > 1 and head_weights.stride(0) != 1) \
+            or head_weights.device != z.device or mask.device != z.device:
+        raise ValueError(f"ipa: head_weights {head_weights.dtype} on {head_weights.device} "
+                         f"mask {mask.dtype} on {mask.device}")
+    lay = kernel_layout(H, C, PQ, PV, CZ, N, z.element_size())
+    if H > MAX_HEADS or CZ > _MAX_ITEMS or H * (C + 3 * PV + 1) > _MAX_ITEMS \
+            or smem_bytes(lay, rows_per_block(CZ, lay)) > _MAX_SMEM_BYTES:
         raise ValueError(
-            f"ipa: H={H} C={C} Pq={PQ} Pv={PV} Cz={CZ} beyond the kernel's limits "
+            f"ipa: H={H} C={C} Pq={PQ} Pv={PV} Cz={CZ} N={N} beyond the kernel's limits "
             f"(H <= {MAX_HEADS}, Cz <= {_MAX_ITEMS}, H (C + 3 Pv + 1) <= {_MAX_ITEMS}, "
-            f"{smem} <= {_MAX_SMEM_BYTES} bytes of shared memory)"
+            f"{_MAX_SMEM_BYTES} bytes of shared memory)"
         )
-    # The kernel reads a tile of keys as one contiguous run: [q | points].
-    qp, kp = scale_points(q_pts, k_pts, head_weights)
-    qc, kc, vc = torch.cat([q, qp], -1), torch.cat([k, kp], -1), torch.cat([v, v_pts.flatten(-2)], -1)
-    oc = torch.empty_like(vc)
+    inputs, strides, dims = kernel_arguments(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask)
+    o = torch.empty((B, N, H, C), dtype=z.dtype, device=z.device)
+    o_pt = torch.empty((B, N, H, PV, 3), dtype=z.dtype, device=z.device)
     o_pair = torch.empty((B, N, H, CZ), dtype=z.dtype, device=z.device)
+    tensors = [*inputs, o, o_pt, o_pair]
+    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    # `tensors` rides along so that the launch holds every argument.
     launch(
         "ipa_attention", "ipa_attention", _ARGTYPES, z.device,
-        qc, kc, vc, bias.contiguous(), z, mask.float().contiguous(), oc, o_pair,
-        B, N, H, C, PQ, PV, CZ, ti, float(inf), DTYPE_CODES[z.dtype],
+        ptrs, c_strides, c_dims, float(inf), point_scale(PQ), DTYPE_CODES[z.dtype], MASK_DTYPES[mask.dtype],
+        DTYPE_CODES[head_weights.dtype], tensors=tensors,
     )
     LAUNCHES["ipa_attention"] += 1
-    return oc[..., :C], oc[..., C:].unflatten(-1, (PV, 3)), o_pair
+    return o, o_pt, o_pair

@@ -71,15 +71,16 @@ def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor =
         raise ValueError(f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on {like.device}")
 
 
-def launch(source: str, entry: str, argtypes: Sequence, device, *args):
+def launch(source: str, entry: str, argtypes: Sequence, device, *args, tensors: Sequence[torch.Tensor] = ()):
     """Call the C entry point `entry` of csrc/<source>.cu (built first if
     needed) for `device`, on its current stream, and raise on a launch
     error or where a tensor among `args` would need a gradient. `argtypes` are the ctypes of `args`; the stream is appended.
-    Tensors go in as pointers; `args` keeps every tensor (temporaries
-    included) referenced until the launch is enqueued, after which the
-    caching allocator only hands their memory to later work on the same
-    stream."""
-    check_no_grad(entry, [a for a in args if isinstance(a, torch.Tensor)])
+    Tensors go in as pointers; `args` and `tensors` (the tensors behind
+    pointers packed into a ctypes array among `args`) keep every tensor
+    (temporaries included) referenced until the launch is enqueued, after
+    which the caching allocator only hands their memory to later work on
+    the same stream."""
+    check_no_grad(entry, [a for a in args if isinstance(a, torch.Tensor)] + list(tensors))
     fn = getattr(build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, ctypes.c_void_p]

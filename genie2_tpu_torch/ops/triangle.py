@@ -9,8 +9,8 @@ ops/triangle.py does, with two layouts of the work on the card:
   "cm"       the operands are first copied channel-major ([B, C, N, N], k
              last), the kernel runs with unit k stride, and the result is
              copied back to the model layout;
-  "nlayout"  no copy: the kernel reads and writes the model layout, its
-             lanes along the contiguous channel axis.
+  "nlayout"  no copy: the kernel reads and writes the model layout,
+             16-byte groups of the contiguous channel axis at a time.
 
 Both run csrc/triangle_contract.cu. No module of the denoiser calls this
 function (the pair stack runs ops/trimul.py, which keeps its activations
@@ -57,6 +57,9 @@ def triangle_multiply(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True, l
 
     perm = (0, 3, 1, 2) if outgoing else (0, 3, 2, 1)  # -> [b, c, row, k]
     a_cm, b_cm = a.permute(perm).contiguous(), b.permute(perm).contiguous()
+    # The result is written channel-major and copied back: written straight
+    # into the model layout through its strides, a block of one channel
+    # would store 4 bytes to every 32-byte sector it touches.
     out_cm = torch.empty_like(a_cm)
     launch_triangle_contract(a_cm, b_cm, out_cm, (B, C, N), a_cm.stride(), b_cm.stride(), out_cm.stride(), variant=0)
     LAUNCHES["triangle_multiply_cm"] += 1

@@ -19,7 +19,7 @@ import torch
 
 from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import batchify, debatchify, save_coords_to_pdb, to_device, to_host
-from genie2_tpu_torch.nn.policy import apply_denoiser, compute_dtype
+from genie2_tpu_torch.nn.policy import apply_denoiser, cast_model, compute_dtype
 from genie2_tpu_torch.sampling.ddpm import (
     ModelFn,
     ancestral_sample,
@@ -58,7 +58,7 @@ class BaseSampler(ABC):
         self.config = config
         self.device = next(model.parameters()).device
         self.dtype = compute_dtype(dtype or config.tpu.get("compute_dtype", "fp32"))
-        self.model = model.to(self.dtype)
+        self.model = cast_model(model, self.dtype)  # the caller's model stays as it is
         self.schedule = Schedule.create(
             config.diffusion["n_timestep"], config.diffusion["schedule"], device=self.device
         )

@@ -97,13 +97,32 @@ def _ipa_inputs(device, dtype, B, N, H, C, PQ, PV, CZ, tail):
     return (*(t.to(dtype) for t in (q, k, v, *pts, bias, z)), r(H).abs() + 0.5, mask)
 
 
+def _strided(args):
+    """The same inputs as nn/structure.py hands them over: k and v the
+    halves of one projection, the k and v points the parts of one tensor,
+    the mask as int32 (the kernel reads it in its own dtype)."""
+    q, k, v, q_pts, k_pts, v_pts, bias, z, hw, mask = args
+    kv = torch.cat([k, v], -1)
+    kv_pts = torch.cat([k_pts, v_pts], -2)
+    c, pq = k.shape[-1], k_pts.shape[-2]
+    return (q, kv[..., :c], kv[..., c:], q_pts, kv_pts[..., :pq, :], kv_pts[..., pq:, :], bias, z, hw,
+            mask.to(torch.int32))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,tail", [(70, 6), (96, 0)])
-@pytest.mark.parametrize("h,c,pq,pv,cz", [(5, 8, 3, 5, 24), (12, 16, 4, 8, 128), (16, 8, 2, 4, 300)])
-def test_ipa_attention_matches_plain(device, dtype, n, tail, h, c, pq, pv, cz):
-    """Ragged N, odd widths, every head bucket and both row counts per
-    block; the plain version follows the kernel on padded rows too."""
+@pytest.mark.parametrize("n,tail", [(70, 6), (96, 0), (1, 0), (9, 2)])
+@pytest.mark.parametrize("h,c,pq,pv,cz", [(5, 8, 3, 5, 24), (12, 16, 4, 8, 128), (16, 8, 2, 4, 300),
+                                          (3, 5, 1, 1, 7)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ipa_attention_matches_plain(device, dtype, n, tail, h, c, pq, pv, cz, strided):
+    """Ragged N (off the 8-key tiles, one key), odd widths (runs copied 16,
+    8 or 4 bytes or element by element), every head bucket and row count
+    per block, and strided inputs as nn/structure.py passes them; the
+    plain version follows the kernel on padded rows too. One launch."""
     args = _ipa_inputs(device, dtype, 2, n, h, c, pq, pv, cz, tail)
+    if strided:
+        args = _strided(args)
+        assert not args[1].is_contiguous() and not args[5].is_contiguous()
     trimul.reset_launch_counts()
     got = ipa.ipa_attention(*args)
     torch.cuda.synchronize()
@@ -116,7 +135,7 @@ def test_ipa_attention_matches_plain(device, dtype, n, tail, h, c, pq, pv, cz):
 def test_ipa_attention_rejects_bad_input(device):
     args = list(_ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 16, 0))
     with pytest.raises(ValueError, match="limits"):
-        wide = _ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 600, 0)
+        wide = _ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 1100, 0)
         ipa.ipa_attention(*wide)
     with pytest.raises(ValueError, match="limits"):
         ipa.ipa_attention(*_ipa_inputs(device, torch.float32, 1, 16, 17, 8, 2, 2, 16, 0))
@@ -127,7 +146,10 @@ def test_ipa_attention_rejects_bad_input(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(70, 24), (96, 40)])
+@pytest.mark.parametrize("n,c", [(70, 24), (96, 40),
+                                 # the tiles' edges: N off 16 and off 128, one row; C off
+                                 # the 16-byte channel group (4 float32, 8 bf16)
+                                 (1, 8), (17, 5), (130, 12), (200, 36), (256, 128)])
 def test_triangle_contractions_match_plain(device, dtype, n, c):
     gen = torch.Generator(device=device).manual_seed(n)
     a = (torch.randn(2, n, n, c, generator=gen, device=device) * 0.3).to(dtype)
@@ -144,8 +166,9 @@ def test_triangle_contractions_match_plain(device, dtype, n, c):
     torch.cuda.synchronize()
     counts = trimul.LAUNCHES
     assert (counts["triangle_multiply_cm"], counts["triangle_multiply_nlayout"], counts["contract_cm_km"]) == (2, 2, 1)
-    with pytest.raises(ValueError):
-        triangle.triangle_multiply(a.permute(0, 2, 1, 3), b)
+    if n > 1:  # a transposed view (at N = 1 it is contiguous)
+        with pytest.raises(ValueError):
+            triangle.triangle_multiply(a.permute(0, 2, 1, 3), b)
 
 
 def _tri_att_inputs(device, dtype, B, I, J, H, c, seed=0):

@@ -269,7 +269,9 @@ def test_smoke_script_bounds_use_tensor_core_rates():
     assert chip_smoke.PEAK_OPS_PER_S == {"float32": 495e12 / 3, "bfloat16": 989e12}
     # Every kernel whose products run on the tensor cores must show HMMA or
     # HGMMA in its library, or the device phase fails.
-    assert set(chip_smoke.TENSOR_CORE) == {"trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention"}
+    assert set(chip_smoke.TENSOR_CORE) == {"trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention",
+                                           "triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km",
+                                           "ipa_attention"}
     assert set(chip_smoke.TENSOR_CORE) <= {k["name"] for k in chip_smoke.KERNELS}
     for name in ("trimul_contract", "trimul_epilogue"):
         for dtype, esize, want_ms in (("float32", 4, 0.060), ("bfloat16", 2, 0.030)):

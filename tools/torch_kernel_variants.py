@@ -35,7 +35,7 @@ if REPO not in sys.path:
 # The kernel function of each source, as the profiler names it.
 KERNEL_NAME = {"trimul_project": "project_kernel", "trimul_contract": "contract_kernel",
                "trimul_epilogue": "epilogue_kernel", "tri_att_flash": "tri_att_kernel",
-               "ipa_attention": "ipa_kernel", "triangle_contract": "tri_contract"}
+               "ipa_attention": "ipa_kernel", "triangle_contract": "contract_kernel"}
 
 
 def build_variants(variants, build):

@@ -31,11 +31,13 @@ if REPO not in sys.path:
 
 FAMILIES = (
     ("trimul_project", ("project_kernel",)),
+    # The standalone model-layout contraction; its channel-major variants
+    # share the TriMul contraction's tile kernel and name.
+    ("triangle_contract", ("chan_contract_kernel",)),
     ("trimul_contract", ("contract_kernel",)),
     ("trimul_epilogue", ("epilogue_kernel",)),
     ("ipa_attention", ("ipa_kernel",)),
     ("tri_attention", ("tri_att_kernel",)),
-    ("triangle_contract", ("tile_kernel", "cfast_kernel")),
     ("eigh", ("syev", "cusolver", "jacobi", "eig")),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "dot")),
     ("softmax", ("softmax",)),
