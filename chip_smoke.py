@@ -13,12 +13,19 @@ Phases, in order; any failure exits non-zero:
                strided inputs as nn/structure.py passes them, the three
                standalone triangle contractions, the triangle attention
                core) against its plain PyTorch version on the card, float32
-               and bfloat16, at N=256 and the ragged N=224; times of the
-               kernel, the plain version and a library call;
+               and bfloat16, at N=256 and the ragged N=224 with B=2 and at
+               the tds phase's N=75 with B=4; times of the
+               kernel, the plain version and a library call; then each
+               autograd Function's gradients (every input, one seeded
+               cotangent) against autograd of the plain version, and the
+               time of each backward beside its forward;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
-               with the plain versions swapped in, compared on z; once for
-               configs/example.configuration and once for the same
+               with the plain versions swapped in, compared on z; then the
+               gradient of sum(z . r) with respect to the translations
+               (Frenet frames, eigh quaternions), kernels against plain;
+               once for configs/example.configuration and once for the same
                configuration with triangle attention in its pair layers;
+               and how often eigh's own backward meets a tied eigenvalue;
   4. main      the unconditional sampling CLI from a seeded Lightning-style
                checkpoint: 1000 steps at L=256 and L=200, PDBs checked,
                kernel launches counted;
@@ -33,6 +40,18 @@ Phases, in order; any failure exits non-zero:
                L=256, and the SSE-guided particle CLI, 8 particles of
                length 128, 1000 steps; PDBs, the ESS trace, the printed
                fractions and kernel launches checked;
+  7. tds       TDS/SMC motif scaffolding with unknown placement through
+               cli/sample_motif_smc on a MotifBench-style target written
+               here (segments of 10 and 8 residues of an ideal helix,
+               length 75): 4 particles, 1000 steps, up to 1000 placements,
+               the gradient through the denoiser's kernels at every
+               twisted step, the score proposal with its soft cap (see
+               phase_tds), after single twisted steps of both proposals
+               (the posterior one at step T, where its gain is largest)
+               held kernels against plain; then with the rotation term and trajectory
+               dumps on a 200-step copy of the release; PDBs, placement,
+               manifests, the per-step trace and kernel launches (backward
+               ones included) checked;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -69,6 +88,7 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # calls where the configuration has them and eight IPA layers carry the
 # kernels' float32 summation-order differences forward.
 DENOISER_TOL = 1e-3
+TDS_LENGTH, TDS_PARTICLES, TDS_SEGMENTS = 75, 4, (10, 8)  # the tds phase's problem
 C_P = 128  # configs/example.configuration pairFeatureDimension
 H_MUL = 128  # triangularMultiplicativeHiddenDimension (default)
 # IPA widths of configs/example.configuration: heads, hidden, qk and v points.
@@ -123,7 +143,17 @@ KERNELS = [
         "replaces": "genie2_tpu/ops/tri_att_flash.py:162",
     },
 ]
-OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km")
+OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout")
+# Kernels whose work is a per-channel contraction of [B, C, N, N] operands.
+CONTRACTIONS = (*OFF_PATH, "contract_cm_km")
+# How each kernel wrapper's autograd Function takes its backward (ops/).
+BACKWARD_ROUTE = {
+    "trimul_project": "gradient of the plain version, recomputed",
+    "trimul_contract": "CUDA: contract_cm_km and trimul_contract (four contractions)",
+    "trimul_epilogue": "gradient of the plain version, recomputed",
+    "ipa_attention": "gradient of the plain version, recomputed",
+    "tri_attention": "gradient of the plain version, recomputed",
+}
 # Kernels whose products must run on the tensor cores: all eight (the IPA
 # core's o_pair product among them).
 TENSOR_CORE = tuple(k["name"] for k in KERNELS)
@@ -282,7 +312,7 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
         return pair * C * esize + B * N * 4 + w + 2 * pair * H * esize, 2 * pair * C * 4 * H
     if name == "trimul_contract":
         return 3 * B * H * N * N * esize, 2 * B * H * N ** 3
-    if name in OFF_PATH:  # a, b read, out written: [B, C, N, N] each
+    if name in CONTRACTIONS:  # a, b read, out written: [B, C, N, N] each
         return 3 * B * C * N * N * esize, 2 * B * C * N ** 3
     if name == "ipa_attention":
         h, c, pq, pv = IPA["H"], IPA["C"], IPA["PQ"], IPA["PV"]
@@ -300,6 +330,11 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
     return pair * H * esize + pair * C * esize + w + pair * C * esize, 2 * pair * (H * C + C * C)
 
 
+# (N, B) of the kernels phase: the unconditional path's bucket, a ragged one,
+# and the TDS phase's length and particles (partial tiles in every kernel).
+KERNEL_SHAPES = ((256, 2), (224, 2), (TDS_LENGTH, TDS_PARTICLES))
+
+
 def phase_kernels(state):
     import torch
 
@@ -310,10 +345,11 @@ def phase_kernels(state):
     results = {k["name"]: {} for k in KERNELS}
     failed = []
     trimul.reset_launch_counts()
-    for N in (256, 224):
-        B = 2
+    for N, B in KERNEL_SHAPES:
         w32 = random_trimul_weights(C_P, H_MUL, gen, dev)
-        n_real = N - 24  # a padded tail, as the sampler's buckets have
+        # A padded tail, as the sampler's buckets have; TDS particles are
+        # real rows of the problem's length.
+        n_real = N if N == TDS_LENGTH else N - 24
         res_mask = (torch.arange(N, device=dev) < n_real).float().expand(B, N).contiguous()
         z32 = torch.randn(B, N, N, C_P, generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
@@ -393,10 +429,102 @@ def phase_kernels(state):
                     failed.append(f"{name} N={N} {dname} outgoing={outgoing}: rel {rel:.3g}")
                 if N == 256 and dtype == torch.float32:
                     results[name][outgoing] = rec
+            grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen)
+            for rec in check_gradients(grad_cases, dname, N, B):
+                emit({"phase": "kernels", "gradient": True, **rec})
+                if not rec["ok"]:
+                    failed.append(f"{rec['kernel']} gradient N={N} {dname} outgoing={rec['outgoing']}: "
+                                  f"rel {rec['rel_err']:.3g}")
+                if N == 256 and dtype == torch.float32:
+                    results[rec["kernel"]][rec["outgoing"]]["backward"] = rec
     state["kernel_main"] = results
     state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
     if failed:
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen):
+    """Each autograd Function of ops/ at the kernels phase's shapes, as
+    (kernel, outgoing, kernel forward, plain forward, inputs, activations,
+    cotangents): both forwards are functions of `inputs`, leaves that
+    require grad (every floating input); `activations` are those that
+    depend on x_t in the TDS gradient, on which the backward is timed."""
+    import torch
+
+    from genie2_tpu_torch.ops import ipa, tri_att, trimul
+
+    def cot(t):
+        return torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+
+    zg, wg = _leaf(z), {k: _leaf(v) for k, v in w.items()}
+    ag, bg, xg = _leaf(a_p), _leaf(b_p), _leaf(x_p)
+    project_w, epilogue_w = [wg[k] for k in trimul.PROJECT_PARAMS], [wg[k] for k in trimul.EPILOGUE_PARAMS]
+    cases = [("trimul_project", None, lambda: trimul.project_gated_cm(zg, res_mask, wg),
+              lambda: trimul.project_gated_cm_plain(zg, res_mask, wg), [zg, *project_w], [zg], (cot(a_p), cot(b_p)))]
+    for outgoing in (True, False):
+        cases.append(("trimul_contract", outgoing, lambda o=outgoing: trimul.contract_cm(ag, bg, o),
+                      lambda o=outgoing: trimul.contract_cm_plain(ag, bg, o), [ag, bg], [ag, bg], (cot(a_p),)))
+    cases.append(("trimul_epilogue", None, lambda: trimul.epilogue_cm(xg, zg, wg),
+                  lambda: trimul.epilogue_cm_plain(xg, zg, wg), [xg, zg, *epilogue_w], [xg, zg], (cot(z),)))
+    # The IPA core on k / v and points strided as nn/structure.py passes them.
+    q, k, v, q_pts, k_pts, v_pts, bias, zz, hw, mask = ipa_args
+    kv, kv_pts = _leaf(torch.cat([k, v], -1)), _leaf(torch.cat([k_pts, v_pts], -2))
+    qg, qpg, biasg, zzg, hwg = (_leaf(t) for t in (q, q_pts, bias, zz, hw))
+    c, pq = k.shape[-1], k_pts.shape[-2]
+    args = (qg, kv[..., :c], kv[..., c:], qpg, kv_pts[..., :pq, :], kv_pts[..., pq:, :], biasg, zzg, hwg, mask)
+    cases.append(("ipa_attention", None, lambda: ipa.ipa_attention(*args), lambda: ipa.ipa_attention_plain(*args),
+                  [qg, kv, qpg, kv_pts, biasg, zzg, hwg], [qg, kv, qpg, kv_pts, biasg, zzg],
+                  tuple(cot(o) for o in ipa.ipa_attention_plain(*args))))
+    tq, tk, tv, ttb, tmask = ta_args
+    tq, tk, tv, ttb = (_leaf(t) for t in (tq, tk, tv, ttb))
+    cases.append(("tri_attention", None, lambda: tri_att.tri_attention(tq, tk, tv, ttb, tmask),
+                  lambda: tri_att.tri_attention_plain(tq, tk, tv, ttb, tmask), [tq, tk, tv, ttb],
+                  [tq, tk, tv, ttb], (cot(tq),)))
+    return cases
+
+
+def check_gradients(cases, dname, N, B):
+    """Gradients of every input through the kernel wrapper (its autograd
+    Function) against autograd of the plain version, each relative to max
+    |plain gradient| of that input; then, with the weights no longer
+    requiring grad (as in the TDS gradient), the forward under autograd and
+    the backward timed for both."""
+    import torch
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    recs = []
+    for name, outgoing, kern, plain, inputs, acts, cots in cases:
+        for t in inputs:  # cases share leaves (z and the weights)
+            t.requires_grad_(True)
+        got = torch.autograd.grad(as_tuple(kern()), inputs, cots)
+        want = torch.autograd.grad(as_tuple(plain()), inputs, cots)
+        torch.cuda.synchronize()
+        errs = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
+        scales = [p.float().abs().max().item() for p in want]
+        rel = max(e / max(sc, 1e-30) for e, sc in zip(errs, scales))
+        finite = all(torch.isfinite(g.float()).all().item() for g in got)
+        for t in inputs:
+            if not any(t is a for a in acts):
+                t.requires_grad_(False)
+        out_k, out_p = as_tuple(kern()), as_tuple(plain())
+        recs.append({
+            "kernel": name, "N": N, "B": B, "dtype": dname, "outgoing": outgoing, "max_abs_err": max(errs),
+            "rel_err": rel, "tol": TOL[dname], "ok": finite and rel <= TOL[dname], "finite": finite,
+            "backward_route": BACKWARD_ROUTE[name],
+            "forward_ms": cuda_time_ms(kern, iters=10, warmup=2),
+            "backward_ms": cuda_time_ms(lambda: torch.autograd.grad(out_k, acts, cots, retain_graph=True),
+                                        iters=10, warmup=2),
+            "plain_forward_ms": cuda_time_ms(plain, iters=10, warmup=2),
+            "plain_backward_ms": cuda_time_ms(lambda: torch.autograd.grad(out_p, acts, cots, retain_graph=True),
+                                              iters=10, warmup=2),
+        })
+    return recs
 
 
 # ------------------------------------------------------------------ #
@@ -426,11 +554,12 @@ def plain_kernels():
 
 
 def example_config(tri_att: bool = False):
-    """configs/example.configuration; with `tri_att`, the same file with
+    """configs/example.configuration with eigh quaternions, as its seeded
+    checkpoints load (utils/model_io.py); with `tri_att`, the same file with
     triangle attention on (4 heads of 32, the configuration's defaults)."""
     from genie2_tpu_torch.config import Config
 
-    overrides = {"includeTriangularAttention": True} if tri_att else None
+    overrides = {"rotToQuatMethod": "eigh", "includeTriangularAttention": tri_att}
     return Config(os.path.join(HERE, "configs", "example.configuration"), overrides=overrides)
 
 
@@ -444,7 +573,9 @@ def seeded_denoiser(config, device):
 
     torch.manual_seed(SEED)
     model = randomize_zero_init(Denoiser.from_config(config), SEED)
-    return model.to(device).eval()
+    # No weight gradients: the denoiser phase differentiates with respect
+    # to the translations only, as TDS does.
+    return model.to(device).eval().requires_grad_(False)
 
 
 def expected_launches(config, denoiser_calls: int):
@@ -464,6 +595,23 @@ def expected_launches(config, denoiser_calls: int):
     return want
 
 
+def backward_launches(config, twisted_calls: int):
+    """The launches one backward pass of the denoiser adds, times
+    `twisted_calls`: each pair layer's outgoing contraction takes
+    contract_cm_km and an incoming contraction, its incoming one an
+    outgoing contraction and contract_cm_km (ops/trimul.py); the other
+    Functions recompute their plain versions and launch nothing."""
+    pair = config.model["n_pair_transform_layer"] * twisted_calls
+    return {"contract_cm_km": 2 * pair, "trimul_contract_out": pair, "trimul_contract_in": pair}
+
+
+def with_backward(config, calls: int, twisted_calls: int):
+    want = expected_launches(config, calls)
+    for k, v in backward_launches(config, twisted_calls).items():
+        want[k] += v
+    return want
+
+
 def phase_denoiser(state):
     import torch
 
@@ -473,6 +621,98 @@ def phase_denoiser(state):
         model = seeded_denoiser(config, dev)
         state["model_triatt" if tri_att else "model"] = model
         compare_denoiser(config, model, tri_att)
+        compare_denoiser_gradient(config, model, tri_att)
+    for L, B in ((256, 2), (75, 4)):
+        eigh_tie_probe(L, B)
+
+
+def seeded_walk(B, L, device):
+    """[B, L, 3] seeded random-walk translations (8 A steps, as a noisy x_t)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    return torch.as_tensor(rng.normal(size=(B, L, 3)).astype(np.float32) * 8.0, device=device)
+
+
+def compare_denoiser_gradient(config, model, tri_att):
+    """d/dx sum(z . r) at L=256, batch 2, through the Frenet frames, the
+    eigh quaternions and the denoiser: the kernels' Functions against every
+    plain version swapped in; launches of one forward and backward counted,
+    both timed, peak memory read."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.geometry import Rigid, frenet_frames
+    from genie2_tpu_torch.ops import trimul
+
+    dev = torch.device("cuda")
+    L, B = 256, 2
+    feats = to_device(batchify([create_empty_features([L]) for _ in range(B)]), dev)
+    trans = seeded_walk(B, L, dev)
+    r = torch.as_tensor(np.random.default_rng(SEED + 1).normal(size=(B, L, 3)).astype(np.float32), device=dev)
+    t = torch.tensor([500, 20], dtype=torch.int32, device=dev)
+
+    def grad():
+        x = trans.clone().requires_grad_(True)
+        z = model(Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x), t, feats)["z"]
+        return torch.autograd.grad((z * r).sum(), x)[0]
+
+    trimul.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    g_k = grad()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(trimul.LAUNCHES)
+    ms_k = cuda_time_ms(grad, iters=3, warmup=1)
+    with plain_kernels():
+        g_p = grad()
+        ms_p = cuda_time_ms(grad, iters=3, warmup=1)
+    err, scale = (g_k - g_p).abs().max().item(), g_p.abs().max().item()
+    rec = {
+        "phase": "denoiser", "gradient": "d sum(z.r) / d translations", "triangle_attention": tri_att, "L": L,
+        "B": B, "quat": config.tpu.get("rot_to_quat_method", "closed"), "max_abs_err": err, "max_abs_grad": scale,
+        "rel_err": err / max(scale, 1e-30), "tol": DENOISER_TOL, "finite": bool(torch.isfinite(g_k).all().item()),
+        "plain_finite": bool(torch.isfinite(g_p).all().item()), "ms_forward_backward_kernels": ms_k,
+        "ms_forward_backward_plain": ms_p, "peak_memory_bytes": peak, "launches_forward_backward": launches,
+    }
+    emit(rec)
+    if not rec["finite"] or rec["rel_err"] > DENOISER_TOL:
+        raise PhaseFailed(f"denoiser gradient disagrees or is not finite: rel {rec['rel_err']:.3g}")
+    want = with_backward(config, 1, 1)
+    if launches != want:
+        raise PhaseFailed(f"denoiser gradient launches {launches}, expected {want}")
+
+
+def eigh_tie_probe(L, B):
+    """How often float32 eigh on the card returns two of the K-matrix's
+    triple eigenvalue exactly equal, for the pair rotations of seeded
+    Frenet frames, and what that does to the gradient with respect to the
+    translations: through eigh's own backward and through the port's
+    `TopEigenvector` (geometry/quat.py), which must stay finite."""
+    import torch
+
+    from genie2_tpu_torch.geometry import frenet_frames
+    from genie2_tpu_torch.geometry.quat import _EIGH_BATCH, TopEigenvector, _k_matrix
+
+    dev = torch.device("cuda")
+    x = seeded_walk(B, L, dev).requires_grad_(True)
+    mask = torch.ones(B, L, device=dev)
+    rots = frenet_frames(x, torch.zeros(B, L, dtype=torch.long, device=dev), mask)
+    k = _k_matrix(torch.matmul(rots[:, None], rots[:, :, None])).reshape(-1, 4, 4)
+    w = torch.cat([torch.linalg.eigvalsh(c) for c in k.detach().split(_EIGH_BATCH)])
+    ties = int(((w[:, 1:3] - w[:, 0:2]) == 0).any(-1).sum().item())
+    cot = torch.randn(k.shape[0], 4, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    own = torch.cat([torch.linalg.eigh(c)[1][..., -1] for c in k.split(_EIGH_BATCH)])
+    (g_own,) = torch.autograd.grad((own * cot).sum(), x, retain_graph=True)
+    (g_top,) = torch.autograd.grad((TopEigenvector.apply(k) * cot).sum(), x)
+    rec = {"phase": "denoiser", "eigh_ties": True, "L": L, "B": B, "pair_matrices": k.shape[0],
+           "matrices_with_a_tie": ties, "eigh_backward_nan_entries": int(torch.isnan(g_own).sum().item()),
+           "top_eigenvector_backward_nan_entries": int(torch.isnan(g_top).sum().item()), "entries": g_top.numel()}
+    emit(rec)
+    if rec["top_eigenvector_backward_nan_entries"]:
+        raise PhaseFailed(f"TopEigenvector's gradient is not finite at L={L}, B={B}")
 
 
 def compare_denoiser(config, model, tri_att):
@@ -792,6 +1032,242 @@ def phase_triatt(state):
 
 
 # ------------------------------------------------------------------ #
+# Phase 7
+# ------------------------------------------------------------------ #
+
+UNTWIST_BELOW = 50  # sampling/smc.py SMCSampler: no twisting (and no backward) below this step
+
+
+def write_tds_target(path):
+    """A MotifBench-style target: segments of 10 and 8 residues of one
+    ideal helix (radius 2.3 A, rise 1.5 A, 100 degrees a residue), centred,
+    separated by TER records, the scaffold length on line 3."""
+    import numpy as np
+
+    turn = np.radians(100.0) * np.arange(30)
+    helix = np.stack([2.3 * np.cos(turn), 2.3 * np.sin(turn), 1.5 * np.arange(30)], axis=-1)
+    segments = [(2, helix[2:2 + TDS_SEGMENTS[0]]), (18, helix[18:18 + TDS_SEGMENTS[1]])]
+    centre = np.concatenate([seg for _, seg in segments]).mean(0)
+    lines = ["HEADER    smoke motif\n", "TITLE     helix segments\n", f"REMARK    smoke : {TDS_LENGTH}\n"]
+    serial = 1
+    for first, seg in segments:
+        for i, xyz in enumerate(seg - centre):
+            lines.append(f"ATOM  {serial:5d}  CA  ALA A{first + i + 1:4d}    "
+                         f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00           C  \n")
+            serial += 1
+        lines.append("TER\n")
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+
+
+def release_copy(state, steps: int):
+    """The seeded release directory as a second one whose configuration
+    has `steps` diffusion steps. Returns its name."""
+    work, rootdir, name = release_dir(state)
+    copy = f"{name}_t{steps}"
+    if not os.path.isdir(os.path.join(rootdir, copy)):
+        shutil.copytree(os.path.join(rootdir, name), os.path.join(rootdir, copy))
+        path = os.path.join(rootdir, copy, "configuration")
+        with open(path) as fh:
+            text = re.sub(r"(?m)^numTimesteps .*$", f"numTimesteps {steps}", fh.read())
+        with open(path, "w") as fh:
+            fh.write(text)
+    return copy
+
+
+def posterior_gain(config, grad_alpha: float = 0.012, tausq: float = 0.012) -> float:
+    """coef1 a / (var abar) at t = T: how many times |x_t| the posterior
+    proposal's twist adds when x0 = (x_t - sqrt(1 - abar) eps) / sqrt(abar)
+    is dominated by x_t (a noise prediction that does not follow x_t) and
+    the gradient of the log-likelihood by (x0 - y) / (var sqrt(abar))."""
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.sampling import xstart_variance
+
+    s = Schedule.create(config.diffusion["n_timestep"])
+    t = s.n_timestep
+    coef1 = s.sqrt_alphas_cumprod_prev[t] * s.betas[t] / s.one_minus_alphas_cumprod[t]
+    return float(coef1 * grad_alpha / (xstart_variance(s.alphas_cumprod[t], tausq) * s.alphas_cumprod[t]))
+
+
+# (proposal, score_grad_cap, twist_rotations, step; None: the first, T)
+TDS_STEP_CASES = (
+    ("posterior", 0.0, False, None),
+    ("posterior", 0.0, True, UNTWIST_BELOW),
+    ("score", 10.0, False, None),
+    ("score", 10.0, True, UNTWIST_BELOW),
+)
+
+
+def compare_tds_steps(config, model, motif_dir):
+    """One twisted step of sampling/smc.py:tds_sample_injected at L=75, 4
+    particles, full width, eigh quaternions, on the tds phase's target with
+    its 1000 placements, for each of TDS_STEP_CASES: the step with the
+    kernels' Functions (forward and backward), then with every plain version
+    swapped in. No resampling (ess_frac 0), so the step's result is the
+    proposal; its twist, the twisted step's result less the untwisted one's
+    on the same noise, is the shift of the mean that the gradient with
+    respect to x_t makes (a multiple of it), held kernels against plain at
+    DENOISER_TOL of its max, finite. The posterior proposal runs here at
+    step T, where its gain is largest. Launches of the kernels' twisted step
+    are counted: one forward and one backward."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.nn.policy import apply_denoiser
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.sampling import (
+        enumerate_motif_placements,
+        load_motif_target,
+        motif_frame_rotations,
+        placements_to_positions,
+        tds_sample_injected,
+    )
+
+    dev = torch.device("cuda")
+    L, P = TDS_LENGTH, TDS_PARTICLES
+    segments, length = load_motif_target(0, motif_dir)
+    placements = enumerate_motif_placements(length, [len(x) for x in segments], max_offsets=1000,
+                                            rng=np.random.default_rng(0))
+    positions = torch.as_tensor(placements_to_positions(placements), device=dev)
+    target = torch.as_tensor(np.concatenate(segments), device=dev)
+    rots, rot_mask = (torch.as_tensor(a, device=dev) for a in motif_frame_rotations(segments))
+    features = to_device(batchify([create_empty_features([L]) for _ in range(P)]), dev)
+    schedule = Schedule.create(config.diffusion["n_timestep"], device=dev)
+    with torch.no_grad():
+        static_bias = model.pair_feature_net.static_bias(features, torch.float32)
+
+    def model_fn(frames, t_vec):
+        return apply_denoiser(model, frames, t_vec, features, static_bias)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = torch.randn(1, P, L, 3, generator=gen, device=dev)
+    x_first = torch.randn(P, L, 3, generator=gen, device=dev)
+    for proposal, cap, rotations, step in TDS_STEP_CASES:
+        t = step or schedule.n_timestep
+        x = x_first if step is None else seeded_walk(P, L, dev)
+        kw = dict(first_step=t, ess_frac=0.0, proposal=proposal, score_grad_cap=cap,
+                  motif_rots=rots if rotations else None, rot_mask=rot_mask if rotations else None)
+
+        def run(twisted):
+            trans, _, trace, _ = tds_sample_injected(model_fn, schedule, features, positions, target, x, noise,
+                                                     torch.zeros(1, device=dev), untwist_below=t if twisted else t + 1,
+                                                     **kw)
+            return trans, trace
+
+        trimul.reset_launch_counts()
+        twisted_k, trace_k = run(True)
+        torch.cuda.synchronize()
+        launches = dict(trimul.LAUNCHES)
+        twist_k = twisted_k - run(False)[0]
+        ms_k = cuda_time_ms(lambda: run(True), iters=3, warmup=1)
+        with plain_kernels():
+            twisted_p, trace_p = run(True)
+            twist_p = twisted_p - run(False)[0]
+            ms_p = cuda_time_ms(lambda: run(True), iters=3, warmup=1)
+        err, scale = (twist_k - twist_p).abs().max().item(), twist_p.abs().max().item()
+        rec = {
+            "phase": "tds", "step_check": proposal, "score_grad_cap": cap, "twist_rotations": rotations, "t": t,
+            "length": L, "particles": P, "placements": len(placements), "max_abs_err": err, "max_abs_twist": scale,
+            "max_abs_x": x.abs().max().item(), "rel_err": err / max(scale, 1e-30), "tol": DENOISER_TOL,
+            "finite": bool(torch.isfinite(twisted_k).all().item()),
+            "ess_kernels": trace_k.ess.item(), "ess_plain": trace_p.ess.item(),
+            "best_placement_kernels": trace_k.best_placement.item(),
+            "best_placement_plain": trace_p.best_placement.item(),
+            "ms_twisted_step_kernels": ms_k, "ms_twisted_step_plain": ms_p, "launches": launches,
+        }
+        emit(rec)
+        if not rec["finite"] or rec["rel_err"] > DENOISER_TOL:
+            raise PhaseFailed(f"tds step {proposal} t={t} rotations={rotations}: the twist disagrees or is not "
+                              f"finite: rel {rec['rel_err']:.3g}")
+        if launches != with_backward(config, 1, 1):
+            raise PhaseFailed(f"tds step launches {launches}, expected {with_backward(config, 1, 1)}")
+
+
+def phase_tds(state):
+    """TDS/SMC motif scaffolding through its CLI at full width."""
+    import json as json_
+
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import sample_motif_smc
+
+    config = example_config()
+    work, rootdir, name = release_dir(state)
+    motif_dir = os.path.join(work, "tds_motifs")
+    os.makedirs(motif_dir)
+    write_tds_target(os.path.join(motif_dir, "0_smoke.pdb"))
+    compare_tds_steps(config, state["model"], motif_dir)
+    dump_every = 50
+    # The production ("posterior") proposal twists the mean by
+    # coef1 g a|g|/(a + |g|), about coef1 a g for a large gradient, which
+    # no norm bounds: with seeded random weights, whose noise prediction
+    # does not follow x_t, its first twisted step multiplies x_t by about
+    # the gain below and the trajectory overflows. So the card takes the
+    # score proposal with its soft cap, the same step up to that formula;
+    # the posterior's arithmetic is held against genie2_tpu on the CPU.
+    emit({"phase": "tds", "posterior_gain_at_T": posterior_gain(config)})
+    runs = {
+        # name -> (release, steps, flags)
+        "score_capped": (name, config.diffusion["n_timestep"], ["--proposal", "score", "--score_grad_cap", "10"]),
+        "score_rotations": (release_copy(state, 200), 200, [
+            "--twist_rotations", "--proposal", "score", "--score_grad_cap", "10",
+            "--dump_trajectory_every", str(dump_every)]),
+    }
+    for run, (release, steps, flags) in runs.items():
+        outdir = os.path.join(work, f"tds_{run}")
+        argv = ["--name", release, "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--seed", str(SEED),
+                "--device", "cuda", "--motif_index", "0", "--motif_dir", motif_dir,
+                "--num_particles", str(TDS_PARTICLES), "--scale", "1.0", "--max_offsets", "1000", *flags]
+        torch.cuda.reset_peak_memory_stats()
+        result, seconds, launches = drive(sample_motif_smc.main, argv)
+        peak = torch.cuda.max_memory_allocated()
+        for i in range(TDS_PARTICLES):
+            check_ca_file(os.path.join(outdir, "pdbs", f"0_{i}.pdb"), TDS_LENGTH)
+        with open(os.path.join(outdir, "motif_location.txt")) as fh:
+            placed = [tuple(int(v) for v in ln.split("\t")) for ln in fh.read().split("\n") if ln]
+        if [e - s + 1 for s, e in placed] != list(TDS_SEGMENTS) or not (
+                0 <= placed[0][0] and placed[0][1] < placed[1][0] and placed[1][1] < TDS_LENGTH):
+            raise PhaseFailed(f"tds {run}: motif_location.txt {placed}")
+        for manifest in ("scaffold_info.csv", "motif_info.csv"):
+            with open(os.path.join(outdir, manifest)) as fh:
+                if len(fh.read().strip().split("\n")) != 1 + TDS_PARTICLES:
+                    raise PhaseFailed(f"tds {run}: {manifest} has not one line a particle")
+        with open(os.path.join(outdir, "logs", "metrics.jsonl")) as fh:
+            records = [json_.loads(ln) for ln in fh]
+        # A gradient that is not finite at a twisted step makes that step's
+        # proposal, and every later x0 and motif distance, NaN.
+        trace_ok = (len(records) == steps and [r["t"] for r in records] == list(range(steps, 0, -1))
+                    and all(1.0 - 1e-4 <= r["ess"] <= TDS_PARTICLES + 1e-4 for r in records)
+                    and all(np.isfinite(r["motif_dist"]) for r in records))
+        snapshots = list(range(steps, 0, -1))[::dump_every] if "--dump_trajectory_every" in flags else []
+        for step in snapshots:
+            for tag in ("x0", "xt"):
+                check_ca_file(os.path.join(outdir, "test", f"{tag}_predicted_test_{step}.pdb"), TDS_LENGTH)
+        twisted = steps - UNTWIST_BELOW + 1
+        want = with_backward(config, steps, twisted)
+        rec = {
+            "phase": "tds", "run": run, "flags": flags, "length": TDS_LENGTH, "particles": TDS_PARTICLES,
+            "steps": steps, "twisted_steps": twisted, "placements": result["n_placements"],
+            "placement": result["placement"], "seconds": result["seconds"], "seconds_with_load": seconds,
+            "ms_per_step": result["seconds"] / steps * 1e3, "peak_memory_bytes": peak,
+            "ess_min": result["ess_min"], "ess_mean": result["ess_mean"], "resamples": result["resamples"],
+            "trace_ok": trace_ok, "snapshot_steps": snapshots, "launches": launches, "smi": state["smi"],
+            "note": "seeded random weights: the placement and the ESS say nothing about quality",
+        }
+        emit(rec)
+        state.setdefault("launches_tds", {})[run] = launches
+        if not trace_ok:
+            raise PhaseFailed(f"tds {run}: the trace has not {steps} finite records with ESS in [1, {TDS_PARTICLES}]")
+        if result["n_placements"] != 1000:
+            raise PhaseFailed(f"tds {run}: {result['n_placements']} placements, expected 1000")
+        if launches != want:
+            raise PhaseFailed(f"tds {run}: launch counts {launches}, expected {want}")
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
@@ -799,6 +1275,7 @@ def kernels_line(state):
     triatt = state.get("launches_triatt", {})
     scaffold = state.get("launches_scaffold", {})
     kernel_phase = state.get("kernel_phase_launches", {})
+    tds = state.get("launches_tds", {})
     out = []
     for k in KERNELS:
         name = k["name"]
@@ -812,14 +1289,16 @@ def kernels_line(state):
             **k, "route": "cuda",
             # On the main path: the unconditional sweep's count. On the
             # path of the triangle attention configuration only: that
-            # configuration's 1000-step run. Off every path: the launches
-            # of the kernels phase (comparisons and timings).
+            # configuration's 1000-step run. In the TDS gradient only
+            # (contract_cm_km): the 1000-step TDS run. Off every path: the
+            # launches of the kernels phase (comparisons and timings).
             "launches": count(kernel_phase) if name in OFF_PATH else count(triatt) if name == "tri_attention"
-            else count(launches),
+            else count(tds.get("score_capped", {})) if name == "contract_cm_km" else count(launches),
             "launches_from": "kernels phase" if name in OFF_PATH else "triatt phase, unconditional"
-            if name == "tri_attention" else "main phase",
+            if name == "tri_attention" else "tds phase, score_capped" if name == "contract_cm_km" else "main phase",
             "launches_scaffold": {run: count(table) for run, table in scaffold.items()},
             "launches_triatt": {"unconditional": count(triatt), "sse": count(state.get("launches_sse", {}))},
+            "launches_tds": {run: count(table) for run, table in tds.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
@@ -835,12 +1314,22 @@ def kernels_line(state):
             entry["launches_in"] = launches.get("trimul_contract_in", 0)
         if len(recs) == 2:
             entry["ms_out"], entry["ms_in"] = recs[True]["ms"], recs[False]["ms"]
+        backward = [r["backward"] for r in rs if "backward" in r]
+        if backward:
+            entry["backward"] = {
+                "route": backward[0]["backward_route"],
+                "ms": sum(b["backward_ms"] for b in backward) / len(backward),
+                "plain_ms": sum(b["plain_backward_ms"] for b in backward) / len(backward),
+                "forward_under_autograd_ms": sum(b["forward_ms"] for b in backward) / len(backward),
+                "max_abs_err": max(b["max_abs_err"] for b in backward),
+                "rel_err": max(b["rel_err"] for b in backward),
+            }
         out.append(entry)
     return {"kernels": out}
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
-          "scaffold": phase_scaffold, "triatt": phase_triatt}
+          "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds}
 
 
 def main() -> int:

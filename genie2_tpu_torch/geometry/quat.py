@@ -3,7 +3,9 @@
 `rot_to_quat` has two methods:
   * "eigh"   — top eigenvector of the 4x4 Davenport K-matrix, the
                reference algorithm. The eigenvector sign is up to the
-               solver, so results may differ by a sign per matrix.
+               solver, so results may differ by a sign per matrix. Its
+               gradient is that of the top eigenvector alone
+               (`TopEigenvector`).
   * "closed" — branchless Shepperd extraction with a canonical sign
                (largest-|component| positive), purely elementwise.
 """
@@ -45,6 +47,38 @@ def _k_matrix(rot: torch.Tensor) -> torch.Tensor:
     return k / 3.0
 
 
+class TopEigenvector(torch.autograd.Function):
+    """The eigenvector of the largest eigenvalue of symmetric [B, 4, 4]
+    matrices, [B, 4], from `torch.linalg.eigh` in chunks.
+
+    The K-matrix of a rotation has eigenvalues 1 and, three times, -1/3:
+    the top one is simple, so its eigenvector has a well-defined derivative,
+    dv = sum_{i != top} v_i (v_i . dK v) / (l_top - l_i). eigh's own
+    backward (torch's and jax's alike) differentiates the whole
+    decomposition and divides by every pair's eigenvalue gap; where the
+    solver returns two of the triple exactly equal, as it does for about a
+    third of these matrices in float32, it computes 0 / 0 in a block that
+    carries no cotangent, and the gradient is NaN. This backward computes
+    the top eigenvector's term only: the same numbers wherever eigh's own
+    backward is finite."""
+
+    @staticmethod
+    def forward(ctx, k):
+        w, v = zip(*(torch.linalg.eigh(chunk) for chunk in k.split(_EIGH_BATCH)))
+        w, v = torch.cat(w), torch.cat(v)
+        ctx.save_for_backward(w, v)
+        return v[..., -1]
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v = ctx.saved_tensors
+        top, rest = v[..., -1], v[..., :-1]
+        c = (rest * g[..., :, None]).sum(-2) / (w[..., -1:] - w[..., :-1])  # [B, 3]
+        d = (rest * c[..., None, :]).sum(-1)  # sum_i c_i v_i, [B, 4]
+        gk = d[..., :, None] * top[..., None, :]
+        return 0.5 * (gk + gk.transpose(-1, -2))
+
+
 def _first_max_onehot(x: torch.Tensor) -> torch.Tensor:
     """One-hot of the first maximum along the last axis."""
     is_best = x >= x.amax(dim=-1, keepdim=True)
@@ -56,8 +90,7 @@ def rot_to_quat(rot: torch.Tensor, method: str = "closed") -> torch.Tensor:
     if method == "eigh":
         # The solvers take fp32/fp64 only; a bf16 policy rounds afterwards.
         k = _k_matrix(rot.float()).reshape(-1, 4, 4)
-        top = torch.cat([torch.linalg.eigh(chunk)[1][..., -1] for chunk in k.split(_EIGH_BATCH)])
-        return top.reshape(*rot.shape[:-2], 4).to(rot.dtype)
+        return TopEigenvector.apply(k).reshape(*rot.shape[:-2], 4).to(rot.dtype)
     if method != "closed":
         raise ValueError(f"unknown rot_to_quat method: {method}")
 

@@ -36,6 +36,16 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     return copy.deepcopy(model).to(dtype)
 
 
+def without_grad(model: torch.nn.Module) -> torch.nn.Module:
+    """The model with parameters that do not require grad: the model itself
+    where none does, else a copy with `requires_grad` off. A sampler that
+    differentiates with respect to its inputs (TDS) evaluates this one, so
+    no weight gradient is computed and the caller's model keeps its flags."""
+    if not any(p.requires_grad for p in model.parameters()):
+        return model
+    return copy.deepcopy(model).requires_grad_(False)
+
+
 def apply_denoiser(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
                    static_pair_bias=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The model's noise prediction z in float32, with the frames and the

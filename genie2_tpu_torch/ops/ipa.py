@@ -25,17 +25,21 @@ in plain torch, with the kernel's rounding points:
   attends over the real keys. Padded rows are dead downstream;
 - logits, softmax statistics and all three sums are float32; in bfloat16
   the probabilities are rounded to bfloat16 before they multiply z.
+
+Under autograd the wrapper goes through `Recomputed` (ops/launch.py): the
+kernel forward and the gradient of `ipa_attention_plain`, recomputed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 
-from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, launch, on_cpu
+from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, Recomputed, launch, on_cpu, records_grad
 
 # Limits and tiles of csrc/ipa_attention.cu: CONSUMERS * ITEMS o / o_pt
 # items a block, CONSUMER_WARPS * UNITS o_pair tiles of 8 channels, TJ keys a
@@ -162,6 +166,16 @@ def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf
     reads every argument through its strides (k and v may be strided
     halves of one projection, the points views) and the mask in its own
     dtype: one launch, nothing else."""
+    args = (q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask)
+    if records_grad(args) and not on_cpu(z):
+        return Recomputed.apply(functools.partial(_ipa_attention_forward, inf=inf),
+                                functools.partial(ipa_attention_plain, inf=inf), *args)
+    return _ipa_attention_forward(*args, inf)
+
+
+def _ipa_attention_forward(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf: float) -> Outputs:
+    """The kernel for tensors on the card (no graph), the plain version for
+    tensors on the CPU."""
     if on_cpu(z):
         return ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf)
     if z.dtype not in DTYPE_CODES:
@@ -209,3 +223,4 @@ def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf
     )
     LAUNCHES["ipa_attention"] += 1
     return o, o_pt, o_pair
+

@@ -1,20 +1,25 @@
 """What the kernel wrappers of `ops/` share: the launch counters, the
-device rule, the activation checks, the gradient rule and the ctypes launch
+device rule, the activation checks, the gradient rules and the ctypes launch
 itself.
 
 A wrapper takes its plain version for a tensor on the CPU and launches its
 kernel for a tensor on the card; anything else raises. It adds one to its
-entry of `LAUNCHES` where it launches, and nowhere else. The kernels are
-forward only: a launch whose inputs would need a gradient raises
-(`check_no_grad`); the plain versions on the CPU are differentiable.
+entry of `LAUNCHES` where it launches, and nowhere else. Where autograd
+records (grad mode on and an input that requires grad), a wrapper on the
+card goes through its `torch.autograd.Function`: the forward is the same
+launch, the backward either kernels (the TriMul contraction) or the
+gradient of the plain version, recomputed (`Recomputed`). A raw
+`launch` whose inputs would need a gradient raises (`check_no_grad`): the
+kernels themselves return tensors without a graph.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from genie2_tpu_torch.ops import build
 
@@ -47,17 +52,62 @@ def on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def records_grad(tensors: Sequence) -> bool:
+    """Whether autograd would record an op on `tensors`: grad mode is on and
+    one of them requires grad."""
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def check_no_grad(entry: str, tensors: Sequence[torch.Tensor]):
-    """Raise where autograd would record through a kernel: grad mode is on
-    and one of `tensors` (an activation, a weight or a temporary made from
-    one) requires grad. A kernel returns a tensor without a graph, so the
-    gradient would be silently missing. Under `torch.no_grad()` or
-    `torch.inference_mode()` every tensor passes."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """Raise where autograd would record through a raw launch: grad mode is
+    on and one of `tensors` (an activation, a weight or a temporary made
+    from one) requires grad. A kernel returns a tensor without a graph, so
+    the gradient would be silently missing; the wrappers launch inside
+    their Functions' forward, where grad mode is off."""
+    if records_grad(tensors):
         raise RuntimeError(
-            f"{entry}: the CUDA kernels are forward only, but an input requires grad with grad mode on; "
-            "call under torch.inference_mode() / torch.no_grad(), or detach the inputs"
+            f"{entry}: a raw kernel launch is forward only, but an input requires grad with grad mode on; "
+            "call the wrapper (ops/), which records the launch through its autograd Function"
         )
+
+
+def recompute_backward(plain: Callable, inputs: Sequence, needs_input_grad: Sequence[bool],
+                       grad_outputs: Sequence[Optional[torch.Tensor]]) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward of a kernel whose forward computes `plain(*inputs)`:
+    the plain version is run again under grad mode on detached inputs, and
+    `torch.autograd.grad` gives the gradients of the inputs whose
+    `needs_input_grad` is set (None for the others, and for inputs that are
+    not tensors), so a weight that needs no gradient costs nothing."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) if isinstance(t, torch.Tensor) else t
+                  for t, n in zip(inputs, needs_input_grad)]
+        outputs = plain(*leaves)
+    outputs = outputs if isinstance(outputs, tuple) else (outputs,)
+    wanted = [t for t, n in zip(leaves, needs_input_grad) if n and isinstance(t, torch.Tensor)]
+    pairs = [(o, g) for o, g in zip(outputs, grad_outputs) if g is not None and o.requires_grad]
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True)
+                 if wanted and pairs else [None] * len(wanted))
+    return tuple(next(grads) if n and isinstance(t, torch.Tensor) else None
+                 for t, n in zip(inputs, needs_input_grad))
+
+
+class Recomputed(torch.autograd.Function):
+    """A kernel under autograd: apply(kernel, plain, *inputs), where
+    `kernel` and `plain` compute the same function of `inputs` (tensors or
+    None). Forward: `kernel(*inputs)`, the same launch and count as without
+    autograd; backward: the gradient of `plain(*inputs)`, recomputed
+    (`recompute_backward`)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.plain = plain
+        return kernel(*inputs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grad_outputs):
+        return (None, None, *recompute_backward(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], grad_outputs))
 
 
 def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor = None):

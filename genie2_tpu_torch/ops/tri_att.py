@@ -20,16 +20,21 @@ torch with the kernel's rounding points:
   float32 a masked key sits at exactly -inf = -1e9 (the logit is absorbed)
   and a row whose keys are all masked attends uniformly over all J keys,
   padded ones too, as genie2_tpu's module and its kernel do.
+
+Under autograd the wrapper goes through `Recomputed` (ops/launch.py): the
+kernel forward and the gradient of `tri_attention_plain`, recomputed (with
+`row_chunk` bounding its logits as in the forward's plain version).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, check_activation, launch, on_cpu
+from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, Recomputed, check_activation, launch, on_cpu, records_grad
 
 MAX_HEAD_WIDTH = 64  # csrc/tri_att_flash.cu keeps a query's c accumulators in registers
 
@@ -63,6 +68,16 @@ def tri_attention(q, k, v, tb, mask, inf: float = 1e9, row_chunk: int = 0) -> to
     the CPU; arguments and result as `tri_attention_plain`. The kernel
     holds no logits in device memory, so `row_chunk` has nothing to bound
     there and is not used."""
+    if records_grad([q, k, v, tb, mask]) and not on_cpu(q):
+        fixed = dict(inf=inf, row_chunk=row_chunk)
+        return Recomputed.apply(functools.partial(_tri_attention_forward, **fixed),
+                                functools.partial(tri_attention_plain, **fixed), q, k, v, tb, mask)
+    return _tri_attention_forward(q, k, v, tb, mask, inf, row_chunk)
+
+
+def _tri_attention_forward(q, k, v, tb, mask, inf: float, row_chunk: int) -> torch.Tensor:
+    """The kernel for tensors on the card (no graph), the plain version for
+    tensors on the CPU."""
     if on_cpu(q):
         return tri_attention_plain(q, k, v, tb, mask, inf, row_chunk)
     check_activation("tri_attention q", q, 5)
@@ -90,3 +105,4 @@ def tri_attention(q, k, v, tb, mask, inf: float = 1e9, row_chunk: int = 0) -> to
     )
     LAUNCHES["tri_attention"] += 1
     return out
+

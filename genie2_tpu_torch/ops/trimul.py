@@ -15,7 +15,19 @@ activations channel-major, [B, H, N, N], between them:
 
 `contract_cm_km` is the same contraction with the right operand stored
 k-major, x[b,h,i,j] = sum_k a[b,h,i,k] b[b,h,k,j] (csrc/triangle_contract.cu);
-no module calls it, as in genie2_tpu.
+no module's forward calls it, as in genie2_tpu: it runs in the contraction's
+backward.
+
+Gradients (ops/launch.py): the contraction's backward is four contractions
+of the same kind, all kernels on the card,
+
+  outgoing  da = dx . b   = contract_cm_km(dx, b)
+            db = dx^T . a = contract_cm(dx, a, outgoing=False)
+  incoming  da = b . dx^T = contract_cm(b, dx, outgoing=True)
+            db = a . dx   = contract_cm_km(a, dx)
+
+(a, b, dx per channel, [N, N] each); the projection's and the epilogue's
+backward are the gradients of their plain versions, recomputed.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a tensor on the card; anything else raises. The plain
@@ -31,9 +43,11 @@ Weights use torch's Linear layout: w_ap, w_ag, w_bp, w_bg [H, C]; w_z
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 # LAUNCHES and reset_launch_counts are re-exported: callers read and reset
 # every kernel's counter through this module.
@@ -43,6 +57,8 @@ from genie2_tpu_torch.ops.launch import (
     check_activation as _check_activation,
     launch,
     on_cpu as _on_cpu,
+    Recomputed,
+    records_grad,
     reset_launch_counts,
 )
 
@@ -145,8 +161,8 @@ _ARGTYPES = {
 
 # The parameters of the projection (float32 or bfloat16) and of the epilogue
 # (float32), in the order of their C entry points.
-_PROJECT_PARAMS = ("ln_in_scale", "ln_in_bias", "w_ap", "w_ag", "w_bp", "w_bg", "b_ap", "b_ag", "b_bp", "b_bg")
-_EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
+PROJECT_PARAMS = ("ln_in_scale", "ln_in_bias", "w_ap", "w_ag", "w_bp", "w_bg", "b_ap", "b_ag", "b_bp", "b_bg")
+EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
 
 
 def _launch(name: str, device, *args):
@@ -173,6 +189,15 @@ _MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
 
 def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
     """z [B,N,N,C], res_mask [B,N] -> (a, b) each [B,H,N,N] channel-major."""
+    params = [w[k] for k in PROJECT_PARAMS]
+    if records_grad([z, *params]) and not _on_cpu(z):
+        return Recomputed.apply(_PROJECT_KERNEL, _PROJECT_PLAIN, z, res_mask, *params)
+    return _project_gated_cm_forward(z, res_mask, w)
+
+
+def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
+    """The kernel for a tensor on the card (no graph), the plain version for
+    a tensor on the CPU."""
     if _on_cpu(z):
         return project_gated_cm_plain(z, res_mask, w)
     _check_activation("project z", z, 4)
@@ -189,7 +214,7 @@ def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
     # orders them itself, as it stages them; it reads the parameters in
     # float32 or bfloat16, all in W_ap's dtype.
     pdt = w["w_ap"].dtype if w["w_ap"].dtype in _DTYPE_CODES else torch.float32
-    params = [_as(w[k], pdt, dev) for k in _PROJECT_PARAMS]
+    params = [_as(w[k], pdt, dev) for k in PROJECT_PARAMS]
     _launch("trimul_project", dev, z, _f32(res_mask, dev), *params, a, b, B, N, C, H, _DTYPE_CODES[z.dtype],
             _DTYPE_CODES[pdt])
     LAUNCHES["trimul_project"] += 1
@@ -198,6 +223,12 @@ def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
 
 def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
     """[B,H,N,N] x [B,H,N,N] -> [B,H,N,N]; `outgoing` selects which index is k."""
+    if records_grad([a, b]) and not _on_cpu(a):
+        return ContractCM.apply(a, b, outgoing)
+    return _contract_cm_forward(a, b, outgoing)
+
+
+def _contract_cm_forward(a: torch.Tensor, b: torch.Tensor, outgoing: bool) -> torch.Tensor:
     if _on_cpu(a):
         return contract_cm_plain(a, b, outgoing)
     _check_activation("contract a", a, 4)
@@ -228,6 +259,13 @@ def contract_cm_km(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
 
 def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] row-major."""
+    params = [w[k] for k in EPILOGUE_PARAMS]
+    if records_grad([x, z, *params]) and not _on_cpu(x):
+        return Recomputed.apply(_EPILOGUE_KERNEL, _EPILOGUE_PLAIN, x, z, *params)
+    return _epilogue_cm_forward(x, z, w)
+
+
+def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     if _on_cpu(x):
         return epilogue_cm_plain(x, z, w)
     _check_activation("epilogue x", x, 4)
@@ -245,10 +283,58 @@ def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
     # The kernel folds LN_out into linear_z (fold_ln_out) and rounds the
     # product weights to the activation dtype itself, as it stages them.
-    params = [_f32(w[k], dev) for k in _EPILOGUE_PARAMS]
+    params = [_f32(w[k], dev) for k in EPILOGUE_PARAMS]
     _launch("trimul_epilogue", dev, x, z, *params, out, B, N, C, H, D, _DTYPE_CODES[x.dtype])
     LAUNCHES["trimul_epilogue"] += 1
     return out
+
+
+# --------------------------------------------------------------------- #
+# Gradients
+# --------------------------------------------------------------------- #
+
+
+def _flat(fn, names):
+    """fn(x, y, w) as a function of (x, y, *params), the parameters of w in
+    `names` order, for `Recomputed`."""
+    @functools.wraps(fn)
+    def flat(x, y, *params):
+        return fn(x, y, dict(zip(names, params)))
+    return flat
+
+
+# The projection's and the epilogue's kernel forwards and plain versions, as
+# `Recomputed` takes them.
+_PROJECT_KERNEL = _flat(_project_gated_cm_forward, PROJECT_PARAMS)
+_PROJECT_PLAIN = _flat(project_gated_cm_plain, PROJECT_PARAMS)
+_EPILOGUE_KERNEL = _flat(_epilogue_cm_forward, EPILOGUE_PARAMS)
+_EPILOGUE_PLAIN = _flat(epilogue_cm_plain, EPILOGUE_PARAMS)
+
+
+class ContractCM(torch.autograd.Function):
+    """`contract_cm` under autograd: apply(a, b, outgoing). Forward and
+    backward are the contraction kernels (the module docstring's four
+    identities)."""
+
+    @staticmethod
+    def forward(ctx, a, b, outgoing):
+        ctx.save_for_backward(a, b)
+        ctx.outgoing = outgoing
+        return _contract_cm_forward(a, b, outgoing)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dx):
+        a, b = ctx.saved_tensors
+        need_a, need_b = ctx.needs_input_grad[:2]
+        dx = dx.contiguous()
+        if ctx.outgoing:
+            da = contract_cm_km(dx, b) if need_a else None
+            db = contract_cm(dx, a, outgoing=False) if need_b else None
+        else:
+            da = contract_cm(b, dx, outgoing=True) if need_a else None
+            db = contract_cm_km(a, dx) if need_b else None
+        return da, db, None
 
 
 def trimul(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, outgoing: bool = True) -> torch.Tensor:

@@ -23,8 +23,20 @@ from genie2_tpu_torch.sampling.resampling import (
     stratified_resample_indices,
     systematic_resample_indices,
 )
+from genie2_tpu_torch.sampling.manifest import write_benchmark_manifests
+from genie2_tpu_torch.sampling.motif_target import load_motif_target, load_motif_target_info, parse_motif_target_pdb
 from genie2_tpu_torch.sampling.scaffold import ScaffoldSampler
+from genie2_tpu_torch.sampling.smc import SMCSampler, TDSTrace, tds_sample, tds_sample_injected
 from genie2_tpu_torch.sampling.sse_guided import soft_sse_fraction, sse_guided_sample, sse_guided_sample_injected
+from genie2_tpu_torch.sampling.twisting import (
+    enumerate_motif_placements,
+    motif_distance,
+    motif_frame_rotations,
+    placements_to_positions,
+    twisting_log_prob,
+    twisting_log_prob_frames,
+    xstart_variance,
+)
 from genie2_tpu_torch.sampling.unconditional import PackedUnconditionalSampler, UnconditionalSampler
 
 __all__ = [
@@ -60,4 +72,19 @@ __all__ = [
     "resampling_generator",
     "stratified_resample_indices",
     "systematic_resample_indices",
+    "write_benchmark_manifests",
+    "load_motif_target",
+    "load_motif_target_info",
+    "parse_motif_target_pdb",
+    "SMCSampler",
+    "TDSTrace",
+    "tds_sample",
+    "tds_sample_injected",
+    "enumerate_motif_placements",
+    "motif_distance",
+    "motif_frame_rotations",
+    "placements_to_positions",
+    "twisting_log_prob",
+    "twisting_log_prob_frames",
+    "xstart_variance",
 ]

@@ -220,23 +220,107 @@ def test_tri_attention_rejects_bad_input(device):
 
 
 def test_kernels_refuse_inputs_that_require_grad(device):
-    """Grad mode on and an input that requires grad: every wrapper raises
-    instead of returning a tensor without a graph; under no_grad it runs."""
+    """A raw launch refuses an input that requires grad with grad mode on
+    (the kernel would return a tensor without a graph); the wrappers record
+    their launch through their autograd Functions instead, and under
+    no_grad they launch without a graph."""
     q, k, v, tb, mask = _tri_att_inputs(device, torch.float32, 1, 16, 16, 2, 8)
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        tri_att.tri_attention(q, k, v, tb, mask)
+    out = tri_att.tri_attention(q, k, v, tb, mask)
+    assert out.requires_grad and type(out.grad_fn).__name__ == "RecomputedBackward"
     with torch.no_grad():
         out = tri_att.tri_attention(q, k, v, tb, mask)
     assert not out.requires_grad
     a = torch.randn(1, 8, 16, 16, device=device, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
-        trimul.contract_cm(a, a.detach())
+        trimul.launch_triangle_contract(a, a.detach(), torch.empty_like(a), (1, 8, 16), a.stride(), a.stride(),
+                                        a.stride(), variant=0)
+    assert trimul.contract_cm(a, a.detach()).requires_grad
     w = _weights(16, 8, torch.Generator(device=device).manual_seed(0), device)
     w["w_ap"].requires_grad_(True)  # a weight, not an activation
-    with pytest.raises(RuntimeError, match="forward only"):
-        trimul.project_gated_cm(torch.randn(1, 8, 8, 16, device=device), torch.ones(1, 8, device=device), w)
+    a_out, _ = trimul.project_gated_cm(torch.randn(1, 8, 8, 16, device=device), torch.ones(1, 8, device=device), w)
+    assert a_out.requires_grad
     args = list(_ipa_inputs(device, torch.float32, 1, 16, 4, 8, 2, 2, 16, 0))
     args[7].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ipa.ipa_attention(*args)
+    assert all(t.requires_grad for t in ipa.ipa_attention(*args))
+
+
+# Gradients, relative to max |plain gradient|: float32 within 1e-4 (the
+# contraction's backward is 3xTF32 products, the recomputed ones agree to
+# rounding), bfloat16 within 3e-2.
+
+
+def _grad_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g is not None and w is not None and torch.isfinite(g.float()).all()
+        _close(g, w, dtype)
+
+
+def _grads_of(fn, inputs, cotangents):
+    out = fn()
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, inputs, cotangents)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [96, 70])
+@pytest.mark.parametrize("outgoing", [True, False])
+def test_trimul_gradients_match_plain(device, dtype, n, outgoing):
+    """Project, contract and epilogue under autograd against the plain
+    versions' gradients; the contraction's backward launches the
+    contraction kernels only (trimul_contract and contract_cm_km)."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    c, h = 32, 24
+    w = {k: v.to(dtype).requires_grad_(True) for k, v in _weights(c, h, gen, device).items()}
+    z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype).requires_grad_(True)
+    res_mask = (torch.arange(n, device=device) < n - 5).float().expand(2, n).contiguous()
+    da, db = (torch.randn(2, h, n, n, generator=gen, device=device).to(dtype) for _ in range(2))
+    inputs = [z, *(w[k] for k in trimul.PROJECT_PARAMS)]
+    _grad_close(_grads_of(lambda: trimul.project_gated_cm(z, res_mask, w), inputs, (da, db)),
+                _grads_of(lambda: trimul.project_gated_cm_plain(z, res_mask, w), inputs, (da, db)), dtype)
+
+    a, b = (torch.randn(2, h, n, n, generator=gen, device=device).to(dtype).requires_grad_(True) for _ in range(2))
+    dx = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype)
+    trimul.reset_launch_counts()
+    got = _grads_of(lambda: trimul.contract_cm(a, b, outgoing), (a, b), dx)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+    assert counts == ({"trimul_contract_out": 1, "trimul_contract_in": 1, "contract_cm_km": 1}), counts
+    _grad_close(got, _grads_of(lambda: trimul.contract_cm_plain(a, b, outgoing), (a, b), dx), dtype)
+
+    x = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype).requires_grad_(True)
+    dout = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
+    inputs = [x, z, *(w[k] for k in trimul.EPILOGUE_PARAMS)]
+    _grad_close(_grads_of(lambda: trimul.epilogue_cm(x, z, w), inputs, dout),
+                _grads_of(lambda: trimul.epilogue_cm_plain(x, z, w), inputs, dout), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
+    """The IPA core (on strided k / v / points as nn/structure.py passes
+    them, or contiguous) and triangle attention under autograd against the
+    plain versions' gradients, every floating input differentiated."""
+    args = [t.requires_grad_(True) if t.is_floating_point() else t
+            for t in _ipa_inputs(device, dtype, 2, 70, 12, 16, 4, 8, 128, 6)[:9]]
+    mask = (torch.arange(70, device=device) < 64).float().expand(2, 70).contiguous()
+    leaves = list(args)
+    if strided:
+        q, k, v, q_pts, k_pts, v_pts, bias, z, hw = (t.detach() for t in args)
+        kv, kv_pts = torch.cat([k, v], -1).requires_grad_(True), torch.cat([k_pts, v_pts], -2).requires_grad_(True)
+        q, q_pts, bias, z, hw = (t.requires_grad_(True) for t in (q, q_pts, bias, z, hw))
+        c, pq = k.shape[-1], k_pts.shape[-2]
+        args = [q, kv[..., :c], kv[..., c:], q_pts, kv_pts[..., :pq, :], kv_pts[..., pq:, :], bias, z, hw]
+        leaves = [q, kv, q_pts, kv_pts, bias, z, hw]
+    args.append(mask)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cot = [torch.randn(o.shape, generator=gen, device=device).to(dtype) for o in ipa.ipa_attention_plain(*args)]
+    _grad_close(_grads_of(lambda: ipa.ipa_attention(*args), leaves, cot),
+                _grads_of(lambda: ipa.ipa_attention_plain(*args), leaves, cot), dtype)
+
+    q, k, v, tb, mask = _tri_att_inputs(device, dtype, 2, 33, 70, 4, 32)
+    for t in (q, k, v, tb):
+        t.requires_grad_(True)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    _grad_close(_grads_of(lambda: tri_att.tri_attention(q, k, v, tb, mask), (q, k, v, tb), do),
+                _grads_of(lambda: tri_att.tri_attention_plain(q, k, v, tb, mask), (q, k, v, tb), do), dtype)

@@ -72,11 +72,14 @@ def make_batch(padded: bool, with_motif: bool):
     return batchify(feats)
 
 
-def randomized_variables(model, batch, dims=DIMS):
+def randomized_variables(model, batch, dims=DIMS, jit=False):
+    """`jit` compiles the flax init as one program (seconds instead of the
+    op-by-op minute at these widths)."""
     feats = jto_device(batch)
     trans = jnp.zeros(batch["atom_positions"].shape, jnp.float32)
     rots = jfrenet(trans, feats["chain_index"], feats["residue_mask"])
-    variables = model.init(jax.random.PRNGKey(0), JRigid(rots, trans), jnp.array([1, 1]), feats)
+    init = jax.jit(model.init) if jit else model.init
+    variables = init(jax.random.PRNGKey(0), JRigid(rots, trans), jnp.array([1, 1]), feats)
     leaves, treedef = jax.tree_util.tree_flatten(variables)
     keys = jax.random.split(jax.random.PRNGKey(7), len(leaves))
     # Trained weights are nowhere zero: give the "final"/"gating" zero-init

@@ -42,7 +42,10 @@ def test_port_has_modules():
                      "genie2_tpu_torch/cli/common.py", "genie2_tpu_torch/cli/sample_scaffold.py",
                      "genie2_tpu_torch/ops/tri_att.py", "genie2_tpu_torch/sampling/resampling.py",
                      "genie2_tpu_torch/sampling/feynman_kac.py", "genie2_tpu_torch/sampling/sse_guided.py",
-                     "genie2_tpu_torch/features/secstruct.py", "genie2_tpu_torch/cli/sample_sse.py"):
+                     "genie2_tpu_torch/features/secstruct.py", "genie2_tpu_torch/cli/sample_sse.py",
+                     "genie2_tpu_torch/sampling/twisting.py", "genie2_tpu_torch/sampling/smc.py",
+                     "genie2_tpu_torch/sampling/motif_target.py", "genie2_tpu_torch/sampling/manifest.py",
+                     "genie2_tpu_torch/utils/loggers.py", "genie2_tpu_torch/cli/sample_motif_smc.py"):
         assert expected in rel
 
 

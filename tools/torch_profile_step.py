@@ -10,7 +10,20 @@ matrix products, the rest), the device's busy and idle shares, and the top
 kernels by device time. `--tri_att` turns triangle attention on in the
 configuration's pair layers.
 
+`--tds` profiles the twisted step of TDS/SMC motif scaffolding instead
+(sampling/smc.py; defaults to L=75 and 4 particles, with a motif of 10 and
+8 residues and 1000 placements): the denoiser forward and its backward
+with respect to x_t, the potential and the weights. Its families add the
+backward's: the contraction's backward launches (`bwd_contract`, the
+trimul_contract and contract_cm_km kernels inside ContractCM.backward) and
+the recomputed plain versions (`bwd_recompute_project`, `_epilogue`,
+`_ipa`, `_tri_attention`), each the device time of the kernels that run
+inside its range (part of the kernel families too, not added to them) and
+the range's span on the device (`..._span`, idle gaps included); and it
+times the same steps untwisted (forward only) beside them.
+
     python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh [--tri_att]
+    python3 tools/torch_profile_step.py --tds
 
 Needs a CUDA card; imports torch and genie2_tpu_torch only.
 """
@@ -55,14 +68,18 @@ def family(name: str) -> str:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--length", type=int, default=256)
-    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--length", type=int, default=None, help="default 256, or 75 with --tds")
+    parser.add_argument("--batch", type=int, default=None, help="default 2, or 4 particles with --tds")
     parser.add_argument("--quat", choices=("closed", "eigh"), default="eigh")
     parser.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     parser.add_argument("--tri_att", action="store_true", help="triangle attention in the pair layers")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--tds", action="store_true", help="profile the twisted TDS step (forward + backward)")
     args = parser.parse_args(argv)
+    if args.tds:
+        return profile_tds(args)
+    args.length, args.batch = args.length or 256, args.batch or 2
 
     import torch
     from torch.autograd import DeviceType
@@ -138,6 +155,135 @@ def main(argv=None):
         "family_ms_per_step": {k: v / 1e3 / args.steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / args.steps] for k, v in top],
     }), flush=True)
+
+
+def _label_backwards():
+    """Wrap the Functions' backwards in profiler ranges named as the
+    families of `--tds` (the names survive into key_averages)."""
+    from torch.profiler import record_function
+
+    from genie2_tpu_torch.ops import launch, trimul
+
+    def labelled(label, fn):
+        def wrapper(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return wrapper
+
+    contract_backward = trimul.ContractCM.backward
+    trimul.ContractCM.backward = staticmethod(labelled("bwd_contract", contract_backward))
+    # Recomputed backwards by their plain version's name.
+    names = {"project_gated_cm_plain": "bwd_recompute_project", "epilogue_cm_plain": "bwd_recompute_epilogue",
+             "ipa_attention_plain": "bwd_recompute_ipa", "tri_attention_plain": "bwd_recompute_tri_attention"}
+    recomputed_backward = launch.Recomputed.backward
+
+    def backward(ctx, *grads):
+        return labelled(names[getattr(ctx.plain, "func", ctx.plain).__name__], recomputed_backward)(ctx, *grads)
+
+    launch.Recomputed.backward = staticmethod(backward)
+    return sorted(["bwd_contract", *names.values()])
+
+
+def profile_tds(args):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.nn import Denoiser
+    from genie2_tpu_torch.nn.policy import apply_denoiser, compute_dtype
+    from genie2_tpu_torch.sampling import enumerate_motif_placements, placements_to_positions, tds_sample_injected
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    length, particles = args.length or 75, args.batch or 4
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    config = Config(os.path.join(REPO, "configs", "example.configuration"),
+                    overrides={"rotToQuatMethod": args.quat, "includeTriangularAttention": args.tri_att})
+    torch.manual_seed(args.seed)
+    dtype = compute_dtype(args.dtype)
+    model = randomize_zero_init(Denoiser.from_config(config), args.seed).to(dev).eval().to(dtype)
+    model.requires_grad_(False)
+    labels = _label_backwards()
+
+    features = to_device(batchify([create_empty_features([length]) for _ in range(particles)]), dev)
+    rng = np.random.default_rng(args.seed)
+    placements = enumerate_motif_placements(length, [10, 8], 1000, rng=rng)
+    positions = torch.as_tensor(placements_to_positions(placements), device=dev)
+    target = torch.as_tensor(rng.normal(size=(18, 3)).astype(np.float32) * 5, device=dev)
+    schedule = Schedule.create(config.diffusion["n_timestep"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    init = torch.randn(particles, length, 3, generator=gen, device=dev) * 10
+    steps = args.steps
+    noises = torch.randn(steps, particles, length, 3, generator=gen, device=dev)
+    offsets = torch.rand(steps, generator=gen, device=dev) / particles
+    with torch.no_grad():
+        static_bias = model.pair_feature_net.static_bias(features, dtype)
+
+    def model_fn(frames, t_vec):
+        return apply_denoiser(model, frames, t_vec, features, static_bias, dtype)
+
+    def run(twisted: bool):
+        # steps t = steps .. 1; untwist_below 1 twists every one of them
+        return tds_sample_injected(model_fn, schedule, features, positions, target, init, noises, offsets,
+                                   untwist_below=1 if twisted else steps + 1)
+
+    def wall_ms(twisted):
+        run(twisted)  # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(twisted)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    out = {"smi": smi, "mode": "tds", "length": length, "particles": particles, "placements": len(placements),
+           "quat": args.quat, "tri_att": args.tri_att, "dtype": args.dtype, "steps": steps}
+    for twisted in (True, False):
+        key = "twisted" if twisted else "untwisted"
+        out[f"wall_ms_per_step_{key}"] = wall_ms(twisted)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(twisted)
+            torch.cuda.synchronize()
+        out[f"peak_memory_bytes_{key}"] = torch.cuda.max_memory_allocated()
+        # The backward's ranges appear on the device timeline as spans from
+        # their first kernel's start to their last one's end (idle gaps
+        # included): they are not kernels, and a range's device time is
+        # the sum of the kernels that start inside its span.
+        spans = defaultdict(list)
+        by_family, by_kernel, count = defaultdict(float), defaultdict(float), defaultdict(int)
+        kernels = []
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if e.name in labels:
+                spans[e.name].append((e.time_range.start, e.time_range.end))
+                continue
+            us = e.time_range.elapsed_us()
+            by_family[family(e.name)] += us
+            by_kernel[e.name] += us
+            count[e.name] += 1
+            kernels.append((e.time_range.start, us))
+        device_ms = sum(by_family.values()) / 1e3 / steps
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+        out[f"top_kernels_ms_per_step_{key}"] = [[k[:90], v / 1e3 / steps, count[k] / steps] for k, v in top]
+        out[f"device_ms_per_step_{key}"] = device_ms if device_ms > 0 else "not measured"
+        out[f"device_busy_share_{key}"] = device_ms / out[f"wall_ms_per_step_{key}"] if device_ms > 0 else "not measured"
+        fams = {k: v / 1e3 / steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])}
+        for label, ranges in sorted(spans.items()):
+            inside = sum(us for start, us in kernels if any(lo <= start < hi for lo, hi in ranges))
+            fams[label] = inside / 1e3 / steps
+            fams[label + "_span"] = sum(hi - lo for lo, hi in ranges) / 1e3 / steps
+        out[f"family_ms_per_step_{key}"] = fams
+    print(json.dumps(out), flush=True)
+    return out
 
 
 if __name__ == "__main__":
