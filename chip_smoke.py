@@ -52,6 +52,17 @@ Phases, in order; any failure exits non-zero:
                dumps on a 200-step copy of the release; PDBs, placement,
                manifests, the per-step trace and kernel launches (backward
                ones included) checked;
+  8. train     training through cli/train.py at the full width of
+               configs/example.configuration (batch 4, fp32, remat and
+               dropout on) on a corpus of 32 seeded random-walk PDB files
+               of length 192-256 written here: 2 epochs (epoch checkpoints
+               loaded back, resume_state, finite losses, exact launch
+               counts of the forward, remat's second forward and the
+               backward), then --resume to a third epoch; one training
+               step with the kernels against the same step with every
+               plain version (loss, the whole gradient, grad_norm); one
+               bf16 step; wall and device ms a step, the busy share and
+               peak memory with remat on and off;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -1268,6 +1279,294 @@ def phase_tds(state):
 
 
 # ------------------------------------------------------------------ #
+# Phase 8
+# ------------------------------------------------------------------ #
+
+TRAIN_STRUCTURES, TRAIN_LENGTHS, TRAIN_VAL = 32, (192, 256), 4  # corpus, lengths, validation structures
+# The training step, kernels against plain: the loss and grad_norm
+# relative, the gradient vector against its max |entry| (DENOISER_TOL).
+TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_TOL = 1e-5, 1e-4
+
+
+def write_train_corpus(path):
+    """TRAIN_STRUCTURES single-chain CA traces, seeded random walks of 3.8 A
+    steps with random residue types, as PDB files."""
+    import numpy as np
+
+    from genie2_tpu_torch.features import create_empty_features, save_features_to_pdb
+
+    rng = np.random.default_rng(SEED)
+    os.makedirs(path)
+    for i in range(TRAIN_STRUCTURES):
+        length = int(rng.integers(TRAIN_LENGTHS[0], TRAIN_LENGTHS[1] + 1))
+        f = create_empty_features([length])
+        steps = rng.normal(size=(length, 3))
+        f["atom_positions"] = np.cumsum(3.8 * steps / np.linalg.norm(steps, axis=-1, keepdims=True), axis=0)
+        f["aatype"] = np.eye(20)[rng.integers(0, 20, length)].astype(int)
+        save_features_to_pdb(f, os.path.join(path, f"walk_{i:03d}.pdb"))
+
+
+def write_train_config(path, datadir, rootdir, epochs):
+    """configs/example.configuration pointed at the corpus, with a
+    validation split of TRAIN_VAL structures, `epochs` epochs, a checkpoint
+    every epoch and a log record every step."""
+    with open(os.path.join(HERE, "configs", "example.configuration")) as fh:
+        text = fh.read()
+    text = re.sub(r"(?m)^dataDirectory .*$", f"dataDirectory {datadir}", text)
+    text = re.sub(r"(?m)^rootDirectory .*$", f"rootDirectory {rootdir}", text)
+    text = re.sub(r"(?m)^numEpoches .*$", f"numEpoches {epochs}", text)
+    text = re.sub(r"(?m)^checkpointEveryEpoches .*$", "checkpointEveryEpoches 1", text)
+    text = re.sub(r"(?m)^logEverySteps .*$", "logEverySteps 1", text)
+    text += f"validationSplit {TRAIN_VAL / TRAIN_STRUCTURES}\n"
+    with open(path, "w") as fh:
+        fh.write(text)
+
+
+def remat_launches(config, steps: int):
+    """The launches remat's second forward of the pair layers adds to
+    `steps` training steps: every pair layer's TriMul kernels again (the
+    structure layers are not rematerialised)."""
+    return {k: v for k, v in expected_launches(config, steps).items() if k != "ipa_attention"}
+
+
+def train_launches(config, steps: int, eval_calls: int, remat: bool = True):
+    """Launch counts of `steps` training steps (forward, remat's second
+    forward where `remat`, backward) and `eval_calls` validation forwards."""
+    want = expected_launches(config, steps + eval_calls)
+    extra = [backward_launches(config, steps)] + ([remat_launches(config, steps)] if remat else [])
+    for table in extra:
+        for k, v in table.items():
+            want[k] += v
+    return want
+
+
+def train_metrics(workdir):
+    """The train records of a run's metrics.jsonl, by step, and its val records."""
+    train, val = {}, []
+    with open(os.path.join(workdir, "metrics.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec.get("prefix") == "val":
+                val.append(rec)
+            else:
+                train[rec["step"]] = rec
+    return train, val
+
+
+def phase_train(state):
+    """Training at full width through cli/train.py, then one step held
+    kernels against plain, a bf16 step, and the step's times and memory."""
+    import math
+
+    import torch
+
+    from genie2_tpu_torch.cli import train
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.utils.model_io import load_model
+
+    if "work" not in state:
+        state["work"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    work = state["work"]
+    datadir, rootdir, cfg = (os.path.join(work, d) for d in ("train_data", "train_runs", "train_configuration"))
+    write_train_corpus(datadir)
+    write_train_config(cfg, datadir, rootdir, epochs=2)
+    config = Config(cfg)
+    n_train = TRAIN_STRUCTURES - TRAIN_VAL
+    per_epoch = n_train // config.training["batch_size"]
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
+    records, val = train_metrics(trainer.workdir)
+    steps = trainer.state.step
+    losses = [records[s]["weighted_loss"] for s in sorted(records)]
+    rates = [records[s]["residues_per_s"] for s in sorted(records)][1:]
+    want = train_launches(config, steps, eval_calls=len(val))
+    for epoch in (0, 1):
+        model, _ = load_model(rootdir, config.io["name"], epoch=epoch, device="cuda")
+        if sum(p.numel() for p in model.parameters()) != sum(p.numel() for p in trainer.model.parameters()):
+            raise PhaseFailed(f"epoch={epoch}.ckpt does not load back")
+    resume_ok = os.path.isfile(os.path.join(trainer.ckpt_dir, "resume_state"))
+    rec = {
+        "phase": "train", "run": "cli", "structures": n_train, "validation": TRAIN_VAL,
+        "lengths": list(TRAIN_LENGTHS), "batch": config.training["batch_size"], "steps": steps, "seconds": seconds,
+        "losses": losses, "val_losses": [v["val_loss"] for v in val],
+        "residues_per_s_median": sorted(rates)[len(rates) // 2] if rates else None,
+        "peak_memory_bytes": peak, "launches": launches, "expected_launches": want,
+        "launches_per_step": {k: v / steps for k, v in launches.items()}, "resume_state": resume_ok,
+        "smi": state["smi"],
+    }
+    emit(rec)
+    state["launches_train"] = launches
+    if steps != 2 * per_epoch or len(val) != 2:
+        raise PhaseFailed(f"train: {steps} steps and {len(val)} validation records, expected {2 * per_epoch} and 2")
+    if not all(math.isfinite(x) for x in losses + rec["val_losses"]):
+        raise PhaseFailed("train: a loss is not finite")
+    if not resume_ok:
+        raise PhaseFailed("train: no resume_state")
+    if launches != want:
+        raise PhaseFailed(f"train: launch counts {launches}, expected {want}")
+
+    write_train_config(cfg, datadir, rootdir, epochs=3)
+    resumed, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda", "--resume"])
+    records, val = train_metrics(resumed.workdir)
+    new = [s for s in sorted(records) if s > steps]
+    emit({"phase": "train", "run": "resume", "version": resumed.version, "first_step": new[0] if new else None,
+          "steps": resumed.state.step, "seconds": seconds, "launches": launches})
+    if resumed.version != trainer.version or new != list(range(steps + 1, steps + per_epoch + 1)):
+        raise PhaseFailed(f"train resume: version {resumed.version}, new steps {new}")
+    if launches != train_launches(config, per_epoch, eval_calls=1):
+        raise PhaseFailed(f"train resume: launch counts {launches}")
+
+    compare_train_step(state, config, trainer)
+
+
+def _train_setup(config, batch_source, remat=True):
+    """A seeded full-width model (zero-initialised leaves randomised, as
+    seeded_denoiser), its train state, one batch of the corpus on the card,
+    and fixed t, noise and dropout seed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.train import create_train_state
+    from genie2_tpu_torch.utils.model_io import init_model
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    dev = torch.device("cuda")
+    config = copy.deepcopy(config)
+    config.tpu["remat"] = remat
+    model = randomize_zero_init(init_model(config, SEED, "cpu"), SEED).to(dev)
+    batch = next(batch_source.epoch(config.training["batch_size"], np.random.default_rng(SEED)))
+    feats = to_device(batch, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = torch.randint(1, config.diffusion["n_timestep"] + 1, (feats["atom_positions"].shape[0],), generator=gen,
+                      device=dev)
+    noise = torch.randn(feats["atom_positions"].shape, generator=gen, device=dev)
+    return create_train_state(model, config.optimization["lr"]), feats, dict(t=t, noise=noise, dropout_seed=SEED)
+
+
+def step_times(step, state, feats, inject, n=4):
+    """Wall ms of n steps (synchronised), the median after the first."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, feats, **inject)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rest = sorted(times[1:])
+    return rest[len(rest) // 2], times
+
+
+def device_ms(step, state, feats, inject, n=2):
+    """Device ms a step (CUDA kernels and copies under torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, feats, **inject)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
+
+
+def compare_train_step(state, config, trainer):
+    """One training step at full width (batch 4 of the corpus, L <= 256,
+    fp32, remat and dropout on) with the kernels, then from the same state,
+    batch, t, noise and dropout seed with every plain version swapped in:
+    loss, gradient vector and grad_norm compared, launches counted. Then
+    times, device time, peak memory with remat on and off, and one bf16
+    step from the same state."""
+    import copy
+    import math
+
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.train import make_train_step
+
+    train_state, feats, inject = _train_setup(config, trainer_dataset(trainer, config))
+    plain_state = copy.deepcopy(train_state)
+    bf16_state = copy.deepcopy(train_state)
+    step = make_train_step(trainer.schedule, config.training["condition_loss_weight"])
+
+    trimul.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    m_k = step(train_state, feats, **inject)
+    torch.cuda.synchronize()
+    peak_remat = torch.cuda.max_memory_allocated()
+    launches = dict(trimul.LAUNCHES)
+    g_k = torch.cat([p.grad.flatten() for p in train_state.model.parameters()])
+    with plain_kernels():
+        m_p = step(plain_state, feats, **inject)
+        g_p = torch.cat([p.grad.flatten() for p in plain_state.model.parameters()])
+        plain_ms, _ = step_times(step, plain_state, feats, inject, n=3)
+    loss_k, loss_p = float(m_k["weighted_loss"]), float(m_p["weighted_loss"])
+    gn_k, gn_p = float(m_k["grad_norm"]), float(m_p["grad_norm"])
+    err, scale = (g_k - g_p).abs().max().item(), g_p.abs().max().item()
+    rec = {
+        "phase": "train", "step_check": "kernels vs plain", "B": feats["atom_positions"].shape[0],
+        "L": feats["atom_positions"].shape[1], "loss_kernels": loss_k, "loss_plain": loss_p,
+        "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p), "loss_tol": TRAIN_LOSS_TOL,
+        "grad_max_abs_err": err, "grad_max_abs": scale, "grad_rel_err": err / max(scale, 1e-30),
+        "grad_tol": DENOISER_TOL, "grad_norm_kernels": gn_k, "grad_norm_plain": gn_p,
+        "grad_norm_rel_err": abs(gn_k - gn_p) / gn_p, "grad_norm_tol": TRAIN_GRAD_NORM_TOL,
+        "finite": bool(torch.isfinite(g_k).all().item()), "launches_one_step": launches,
+    }
+    ms, times = step_times(step, train_state, feats, inject)
+    dev_ms = device_ms(step, train_state, feats, inject)
+    n_res = int(feats["residue_mask"].sum().item())
+    rec.update({
+        "ms_per_step": ms, "ms_steps": times, "plain_ms_per_step": plain_ms, "residues": n_res,
+        "residues_per_s": n_res / ms * 1e3, "device_ms_per_step": dev_ms,
+        "busy_share": dev_ms / ms if dev_ms else None, "peak_memory_bytes_remat": peak_remat,
+    })
+
+    # remat off: the same step on a model without checkpointing.
+    no_remat, feats_nr, inject_nr = _train_setup(config, trainer_dataset(trainer, config), remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    step(no_remat, feats_nr, **inject_nr)
+    torch.cuda.synchronize()
+    rec["peak_memory_bytes_no_remat"] = torch.cuda.max_memory_allocated()
+    rec["ms_per_step_no_remat"], _ = step_times(step, no_remat, feats_nr, inject_nr, n=3)
+    del no_remat
+
+    step16 = make_train_step(trainer.schedule, config.training["condition_loss_weight"], "bf16")
+    m16 = step16(bf16_state, feats, **inject)
+    rec.update({"loss_bf16": float(m16["weighted_loss"]), "grad_norm_bf16": float(m16["grad_norm"])})
+    rec["ms_per_step_bf16"], _ = step_times(step16, bf16_state, feats, inject, n=3)
+    rec["device_ms_per_step_bf16"] = device_ms(step16, bf16_state, feats, inject)
+    rec["smi"] = state["smi"]
+    emit(rec)
+    state["train_step"] = rec
+    if not rec["finite"] or rec["loss_rel_err"] > TRAIN_LOSS_TOL or rec["grad_rel_err"] > DENOISER_TOL \
+            or rec["grad_norm_rel_err"] > TRAIN_GRAD_NORM_TOL:
+        raise PhaseFailed(f"train step: kernels against plain: loss {rec['loss_rel_err']:.3g}, gradient "
+                          f"{rec['grad_rel_err']:.3g}, grad_norm {rec['grad_norm_rel_err']:.3g}")
+    if launches != train_launches(config, 1, eval_calls=0):
+        raise PhaseFailed(f"train step launches {launches}, expected {train_launches(config, 1, 0)}")
+    # tests/test_torch_train.py's bound between the bf16 and float32 losses.
+    if not math.isfinite(rec["loss_bf16"]) or abs(rec["loss_bf16"] - loss_k) > 0.1:
+        raise PhaseFailed(f"train step bf16: loss {rec['loss_bf16']} against {loss_k}")
+
+
+def trainer_dataset(trainer, config):
+    """The training corpus as the CLI split it (its packed cache)."""
+    from genie2_tpu_torch.train import MotifAugmentConfig, StructureDataset
+
+    cache = os.path.join(config.io["rootdir"], config.io["name"], "parsed_cache")
+    return StructureDataset([], config.io["max_n_res"], config.io["max_n_chain"],
+                            motif=MotifAugmentConfig.from_config(config), cache_path=cache)
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
@@ -1299,6 +1598,7 @@ def kernels_line(state):
             "launches_scaffold": {run: count(table) for run, table in scaffold.items()},
             "launches_triatt": {"unconditional": count(triatt), "sse": count(state.get("launches_sse", {}))},
             "launches_tds": {run: count(table) for run, table in tds.items()},
+            "launches_train": count(state.get("launches_train", {})),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
@@ -1329,7 +1629,7 @@ def kernels_line(state):
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
-          "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds}
+          "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds, "train": phase_train}
 
 
 def main() -> int:

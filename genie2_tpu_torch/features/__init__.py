@@ -8,6 +8,7 @@ from genie2_tpu_torch.features.schema import (
     to_host,
 )
 from genie2_tpu_torch.features.pdb import (
+    features_from_pdb,
     parse_pdb,
     read_ca_coords,
     save_coords_to_pdb,
@@ -30,6 +31,7 @@ __all__ = [
     "pad_features",
     "to_device",
     "to_host",
+    "features_from_pdb",
     "parse_pdb",
     "read_ca_coords",
     "save_coords_to_pdb",

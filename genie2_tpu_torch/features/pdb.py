@@ -10,7 +10,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from genie2_tpu_torch.features.residues import RESTYPE_1_TO_3, RESTYPE_3_TO_1, RESTYPE_ORDER, RESTYPES
+from genie2_tpu_torch.features.residues import NUM_RESTYPES, RESTYPE_1_TO_3, RESTYPE_3_TO_1, RESTYPE_ORDER, RESTYPES
 from genie2_tpu_torch.features.schema import Features, create_empty_features
 
 
@@ -39,6 +39,18 @@ def parse_pdb(filepath: str) -> Tuple[List[List[int]], List[List[List[float]]]]:
 def summarize_pdb(filepath: str):
     seqs, _ = parse_pdb(filepath)
     return {"num_residues": int(np.sum([len(s) for s in seqs])), "num_chains": len(seqs)}
+
+
+def features_from_pdb(filepath: str) -> Features:
+    """PDB file -> feature dict with one-hot aatype and mean-centred CA
+    coordinates (float64), as genie2_tpu's `features_from_pdb` builds it
+    from its Python parser."""
+    seqs, coords = parse_pdb(filepath)
+    features = create_empty_features([len(s) for s in seqs])
+    positions = np.concatenate(coords)
+    features["aatype"] = np.eye(NUM_RESTYPES)[np.concatenate(seqs)].astype(int)
+    features["atom_positions"] = (positions - positions.mean(axis=0, keepdims=True)).astype(float)
+    return features
 
 
 def save_features_to_pdb(features: Features, filepath: str):

@@ -9,7 +9,7 @@ released Lightning checkpoint loads with plain `load_state_dict`.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -21,8 +21,14 @@ from genie2_tpu_torch.nn.structure import StructureNet
 
 
 class Denoiser(nn.Module):
-    """Given noisy frames at timestep t, predict the added noise. Dropout
-    rates are accepted for the configuration's sake; inference has none.
+    """Given noisy frames at timestep t, predict the added noise.
+
+    A Denoiser starts in eval mode, as the samplers call it: no dropout. In
+    `train()` mode its forward takes a CPU `torch.Generator`, from which it
+    draws one seed for each pair layer and each structure layer
+    application; each layer draws its dropout masks on the activations'
+    device from a generator of its own seed, never from the global RNG.
+    `remat` checkpoints each pair layer in training (nn/pair_stack.py).
     `tri_att_chunk` is the row chunk of triangle attention's plain version
     (0 = all rows at once)."""
 
@@ -32,7 +38,7 @@ class Denoiser(nn.Module):
         n_pair_transform_layer, include_mul_update, include_tri_att, c_hidden_mul, c_hidden_tri_att,
         n_head_tri, tri_dropout, pair_transition_n, n_structure_layer, n_structure_block,
         c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, ipa_dropout, n_structure_transition_layer,
-        structure_transition_dropout, quat_method: str = "closed", tri_att_chunk: int = 0,
+        structure_transition_dropout, quat_method: str = "closed", tri_att_chunk: int = 0, remat: bool = False,
     ):
         super().__init__()
         self.rescale = rescale
@@ -44,13 +50,16 @@ class Denoiser(nn.Module):
         )
         self.pair_transform_net = (
             PairTransformNet(c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
-                             c_hidden_mul, pair_transition_n, c_hidden_tri_att, n_head_tri, tri_att_chunk)
+                             c_hidden_mul, pair_transition_n, c_hidden_tri_att, n_head_tri, tri_att_chunk,
+                             tri_dropout, remat)
             if n_pair_transform_layer > 0 else None
         )
         self.structure_net = StructureNet(
             c_s, c_p, n_structure_layer, n_structure_block, c_hidden_ipa, n_head_ipa, n_qk_point,
-            n_v_point, n_structure_transition_layer,
+            n_v_point, n_structure_transition_layer, ipa_dropout, structure_transition_dropout,
         )
+        self.n_dropout_seeds = (n_pair_transform_layer, n_structure_layer * n_structure_block)
+        self.eval()
 
     @classmethod
     def from_config(cls, config) -> "Denoiser":
@@ -61,12 +70,26 @@ class Denoiser(nn.Module):
             max_n_chain=config.io["max_n_chain"],
             quat_method=config.tpu.get("rot_to_quat_method", "closed"),
             tri_att_chunk=config.tpu.get("tri_att_chunk", 0),
+            remat=config.tpu.get("remat", True),
         )
+
+    def dropout_seeds(self, generator: Optional[torch.Generator]):
+        """(pair layer seeds, structure layer seeds) drawn from the CPU
+        `generator` in training mode; (None, None) in eval mode."""
+        if not self.training:
+            return None, None
+        if generator is None:
+            raise ValueError("a Denoiser in train() mode needs a CPU torch.Generator for its dropout masks; "
+                             "call eval() for inference")
+        n_pair, n_structure = self.n_dropout_seeds
+        seeds = torch.randint(0, 2**62, (n_pair + n_structure,), generator=generator).tolist()
+        return seeds[:n_pair], seeds[n_pair:]
 
     def forward(
         self, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
-        static_pair_bias: torch.Tensor = None,
+        static_pair_bias: torch.Tensor = None, generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
+        pair_seeds, structure_seeds = self.dropout_seeds(generator)
         trans_in = ts.trans
         # The frames' dtype selects the compute precision; the encodings
         # are built in float32 and the activations cast to it.
@@ -75,7 +98,7 @@ class Denoiser(nn.Module):
         s = self.single_feature_net(ts, timesteps, features).to(compute_dtype)
         p = self.pair_feature_net(s, ts, features, static_bias=static_pair_bias).to(compute_dtype)
         if self.pair_transform_net is not None:
-            p = self.pair_transform_net(p, features)
-        states, ts = self.structure_net(s, p, ts, features)
+            p = self.pair_transform_net(p, features, pair_seeds)
+        states, ts = self.structure_net(s, p, ts, features, structure_seeds)
         ts = ts.scale_translation(1.0 / self.rescale)
         return {"z": trans_in - ts.trans, "s": s, "p": p, "states": states, "ts": ts}

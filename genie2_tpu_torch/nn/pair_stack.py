@@ -1,6 +1,13 @@
 """Pair-representation stack: triangle multiplicative updates, triangle
 attention and the pair transition, residual and masked.
 
+In training, each update before its residual add goes through dropout as
+flax's nn.Dropout applies it: one mask shared along the rows (axis -3)
+after both TriMul updates and the starting triangle attention, along the
+columns (axis -2) after the ending one. A layer's masks come from a seed it
+is given, so a layer rematerialised in the backward (`remat`,
+torch.utils.checkpoint) draws the same masks again.
+
 `TriangleMultiplicativeUpdate` always runs as the three-stage pipeline of
 `ops/trimul.py`: on a CUDA tensor through the three kernels, on a CPU tensor
 through their plain versions. The kernels take any N and any hidden width,
@@ -13,8 +20,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from genie2_tpu_torch.nn.primitives import Attention, Linear, layer_norm
+from genie2_tpu_torch.nn.primitives import Attention, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops import trimul
 
 
@@ -90,13 +98,15 @@ class PairTransition(nn.Module):
 
 class PairTransformLayer(nn.Module):
     """TriMulOut + TriMulIn [+ TriAttStart + TriAttEnd] + PairTransition,
-    residual, masked."""
+    residual, masked; each update but the transition's through dropout at
+    `tri_dropout` where a seed is given."""
 
     def __init__(self, c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n,
-                 c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0):
+                 c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0, tri_dropout=0.0):
         super().__init__()
         self.include_mul_update = include_mul_update
         self.include_tri_att = include_tri_att
+        self.tri_dropout = tri_dropout
         if include_mul_update:
             self.tri_mul_out = TriangleMultiplicativeUpdate(c_p, c_hidden_mul, outgoing=True)
             self.tri_mul_in = TriangleMultiplicativeUpdate(c_p, c_hidden_mul, outgoing=False)
@@ -107,30 +117,62 @@ class PairTransformLayer(nn.Module):
                                                  row_chunk=tri_att_chunk)
         self.pair_transition = PairTransition(c_p, pair_transition_n)
 
-    def forward(self, p, pair_mask, res_mask):
+    def forward(self, p, pair_mask, res_mask, seed=None):
+        """`seed` (an int) seeds this layer's dropout masks; None: no dropout."""
+        gen = layer_generator(seed, p.device)
+        rate = self.tri_dropout
         if self.include_mul_update:
-            p = p + self.tri_mul_out(p, res_mask)
-            p = p + self.tri_mul_in(p, res_mask)
+            p = p + dropout(self.tri_mul_out(p, res_mask), rate, gen, (-3,))
+            p = p + dropout(self.tri_mul_in(p, res_mask), rate, gen, (-3,))
         if self.include_tri_att:
-            p = p + self.tri_att_start(p, pair_mask)
-            p = p + self.tri_att_end(p, pair_mask)
+            p = p + dropout(self.tri_att_start(p, pair_mask), rate, gen, (-3,))
+            p = p + dropout(self.tri_att_end(p, pair_mask), rate, gen, (-2,))
         p = p + self.pair_transition(p, pair_mask)
         return p * pair_mask[..., None].to(p.dtype)
 
 
 class PairTransformNet(nn.Module):
+    """The stack of pair layers. With `remat`, in training mode with grad
+    on, each layer runs under torch.utils.checkpoint: its activations are
+    dropped after the forward and recomputed in the backward (its kernels
+    launch twice). The checkpointed function takes the layer's parameters
+    as arguments, so the recompute uses the tensors of the forward (a cast
+    copy under the bf16 policy's functional_call) and, with the layer's
+    seed, the same dropout masks."""
+
     def __init__(self, c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
-                 c_hidden_mul, pair_transition_n, c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0):
+                 c_hidden_mul, pair_transition_n, c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0,
+                 tri_dropout=0.0, remat=False):
         super().__init__()
+        self.remat = remat
         self.net = nn.ModuleList(
             PairTransformLayer(c_p, include_mul_update, include_tri_att, c_hidden_mul, pair_transition_n,
-                               c_hidden_tri_att, n_head_tri, tri_att_chunk)
+                               c_hidden_tri_att, n_head_tri, tri_att_chunk, tri_dropout)
             for _ in range(n_pair_transform_layer)
         )
 
-    def forward(self, p, features):
+    def forward(self, p, features, seeds=None):
+        """`seeds`: one dropout seed a layer, or None (no dropout)."""
         mask = features["residue_mask"].to(p.dtype)
         pair_mask = mask[:, :, None] * mask[:, None, :]
-        for layer in self.net:
-            p = layer(p, pair_mask, mask)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for i, layer in enumerate(self.net):
+            seed = None if seeds is None else seeds[i]
+            if remat:
+                p = _checkpointed(layer, p, pair_mask, mask, seed)
+            else:
+                p = layer(p, pair_mask, mask, seed)
         return p
+
+
+def _checkpointed(layer: nn.Module, *args):
+    """layer(*args) under non-reentrant checkpointing, as a pure function of
+    its arguments and of the layer's current parameter tensors."""
+    names, params = zip(*layer.named_parameters())
+
+    def run(*inputs):
+        return torch.func.functional_call(layer, dict(zip(names, inputs[len(args):])), inputs[:len(args)])
+
+    # The masks come from the layer's seed, not from the global RNG, so its
+    # state need not be saved and restored around the recompute.
+    return checkpoint(run, *args, *params, use_reentrant=False, preserve_rng_state=False)

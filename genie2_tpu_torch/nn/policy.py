@@ -5,6 +5,12 @@ runs its activations in bfloat16 (the TriMul kernels take bfloat16 and
 accumulate in float32); the noise prediction comes back in float32 and the
 reverse-diffusion update (posterior mean, noise, Frenet frames) stays
 float32 so coordinate error does not compound over the trajectory.
+
+Training (`apply_denoiser_cast`) keeps float32 master weights and runs the
+forward and backward on bf16 casts of them made inside the differentiated
+call, so the gradients reach the float32 parameters, as genie2_tpu's
+`make_apply_fn(model, "bf16")` casts the parameter tree inside
+`jax.value_and_grad`; the samplers keep `cast_model`'s cast copy.
 """
 
 from __future__ import annotations
@@ -46,12 +52,31 @@ def without_grad(model: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(model).requires_grad_(False)
 
 
+def _cast_inputs(ts: Rigid, features: Dict[str, Any], dtype: torch.dtype):
+    if dtype == torch.float32:
+        return ts, features
+    return ts.to(dtype), {k: v.to(dtype) if v.is_floating_point() else v for k, v in features.items()}
+
+
 def apply_denoiser(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
-                   static_pair_bias=None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   static_pair_bias=None, dtype: torch.dtype = torch.float32, generator=None) -> torch.Tensor:
     """The model's noise prediction z in float32, with the frames and the
     floating features cast to `dtype` (the model's weights must already be
-    in `dtype`)."""
-    if dtype != torch.float32:
-        features = {k: v.to(dtype) if v.is_floating_point() else v for k, v in features.items()}
-        ts = ts.to(dtype)
-    return model(ts, timesteps, features, static_pair_bias=static_pair_bias)["z"].float()
+    in `dtype`). `generator`: the dropout generator of a model in train()
+    mode (nn/denoiser.py)."""
+    ts, features = _cast_inputs(ts, features, dtype)
+    return model(ts, timesteps, features, static_pair_bias=static_pair_bias, generator=generator)["z"].float()
+
+
+def apply_denoiser_cast(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
+                        dtype: torch.dtype = torch.float32, generator=None) -> torch.Tensor:
+    """As `apply_denoiser`, for a model with float32 weights: the forward
+    runs on `dtype` casts of them made here, under autograd, so that a
+    backward reaches the float32 parameters. float32 calls the model as it
+    is."""
+    if dtype == torch.float32:
+        return apply_denoiser(model, ts, timesteps, features, generator=generator)
+    ts, features = _cast_inputs(ts, features, dtype)
+    cast = {n: p.to(dtype) for n, p in model.named_parameters()}
+    out = torch.func.functional_call(model, cast, (ts, timesteps, features), {"generator": generator})
+    return out["z"].float()

@@ -68,6 +68,26 @@ def layer_norm(c: int) -> nn.LayerNorm:
     return nn.LayerNorm(c, eps=LN_EPS)
 
 
+def layer_generator(seed, device) -> torch.Generator:
+    """The generator of one layer's dropout masks, on the activations'
+    device, or None (no dropout) where `seed` is None."""
+    return None if seed is None else torch.Generator(device=device).manual_seed(int(seed))
+
+
+def dropout(x: torch.Tensor, rate: float, generator, broadcast_dims=()) -> torch.Tensor:
+    """flax's nn.Dropout: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate), one mask shared along `broadcast_dims`
+    (axes, negative ones counted from the end). The identity where
+    `generator` is None (eval mode) or the rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    dims = {d % x.dim() for d in broadcast_dims}
+    shape = [1 if d in dims else n for d, n in enumerate(x.shape)]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Attention(nn.Module):
     """Gated multi-head attention as triangle attention drives it: the
     inputs are [B, I, J, C], every row i attends within itself, and the two

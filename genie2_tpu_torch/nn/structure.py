@@ -1,6 +1,9 @@
 """IPA-based structure module: invariant point attention with the pair head,
 the structure transition, the backbone update and the stack of layers that
-is reapplied per block (parameters shared across blocks)."""
+is reapplied per block (parameters shared across blocks). In training, the
+whole of s goes through dropout after s + IPA (before the layer norm) and
+after the transition's residual blocks (before its layer norm), as
+genie2_tpu places them; each application of a layer takes its own seed."""
 
 from __future__ import annotations
 
@@ -9,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from genie2_tpu_torch.geometry import Rigid, quat_to_rot
-from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, layer_norm
+from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops.ipa import ipa_attention
 
 
@@ -80,18 +83,18 @@ class _TransitionBlock(nn.Module):
 
 
 class StructureTransition(nn.Module):
-    """Residual 3-linear ReLU blocks, then LayerNorm (dropout is identity
-    at inference)."""
+    """Residual 3-linear ReLU blocks, dropout, then LayerNorm."""
 
-    def __init__(self, c, num_layers):
+    def __init__(self, c, num_layers, dropout_rate=0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.layers = nn.ModuleList(_TransitionBlock(c) for _ in range(num_layers))
         self.layer_norm = layer_norm(c)
 
-    def forward(self, s):
+    def forward(self, s, generator=None):
         for layer in self.layers:
             s = layer(s)
-        return self.layer_norm(s)
+        return self.layer_norm(dropout(s, self.dropout_rate, generator))
 
 
 class BackboneUpdate(nn.Module):
@@ -111,18 +114,22 @@ class BackboneUpdate(nn.Module):
 
 
 class StructureLayer(nn.Module):
-    """s += IPA; LN; transition; frame compose."""
+    """s += IPA; dropout; LN; transition; frame compose."""
 
-    def __init__(self, c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, n_structure_transition_layer):
+    def __init__(self, c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, n_structure_transition_layer,
+                 ipa_dropout=0.0, transition_dropout=0.0):
         super().__init__()
+        self.ipa_dropout = ipa_dropout
         self.ipa = InvariantPointAttention(c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point)
         self.ipa_layer_norm = layer_norm(c_s)
-        self.transition = StructureTransition(c_s, n_structure_transition_layer)
+        self.transition = StructureTransition(c_s, n_structure_transition_layer, transition_dropout)
         self.bb_update = BackboneUpdate(c_s)
 
-    def forward(self, s, p, t: Rigid, mask):
-        s = self.ipa_layer_norm(s + self.ipa(s, p, t, mask))
-        s = self.transition(s)
+    def forward(self, s, p, t: Rigid, mask, seed=None):
+        """`seed` (an int) seeds this application's dropout masks; None: no dropout."""
+        gen = layer_generator(seed, s.device)
+        s = self.ipa_layer_norm(dropout(s + self.ipa(s, p, t, mask), self.ipa_dropout, gen))
+        s = self.transition(s, gen)
         return s, t.compose(self.bb_update(s))
 
 
@@ -131,20 +138,23 @@ class StructureNet(nn.Module):
     stacked single representations and the final frames."""
 
     def __init__(self, c_s, c_p, n_structure_layer, n_structure_block, c_hidden_ipa, n_head_ipa,
-                 n_qk_point, n_v_point, n_structure_transition_layer):
+                 n_qk_point, n_v_point, n_structure_transition_layer, ipa_dropout=0.0, transition_dropout=0.0):
         super().__init__()
         self.n_structure_block = n_structure_block
         self.net = nn.ModuleList(
             StructureLayer(c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point,
-                           n_structure_transition_layer)
+                           n_structure_transition_layer, ipa_dropout, transition_dropout)
             for _ in range(n_structure_layer)
         )
 
-    def forward(self, s, p, ts: Rigid, features):
+    def forward(self, s, p, ts: Rigid, features, seeds=None):
+        """`seeds`: one dropout seed for each (block, layer) application, in
+        order, or None (no dropout)."""
         mask = features["residue_mask"].float()  # cast once for all layers' attention cores
         states = [s]
+        seeds = iter(seeds) if seeds is not None else None
         for _ in range(self.n_structure_block):
             for layer in self.net:
-                s, ts = layer(s, p, ts, mask)
+                s, ts = layer(s, p, ts, mask, None if seeds is None else next(seeds))
                 states.append(s)
         return torch.stack(states, dim=0), ts

@@ -1,0 +1,126 @@
+"""Training state and step.
+
+One step: t ~ U{1..T} per structure, masked Gaussian noise, q_sample of the
+translations, Frenet frames of the noisy translations, the denoiser's
+forward in train() mode (dropout, remat), the motif-weighted loss, the
+gradients, their global norm (metric `grad_norm`, before the update), one
+Adam update and, where `ema_decay` > 0, the weights' exponential moving
+average d * ema + (1 - d) * params after it.
+
+Adam is `torch.optim.Adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 and the same
+bias-corrected update as genie2_tpu's `optax.adam(lr)`. The master weights,
+the Adam moments, the loss and the update stay float32; under
+`compute_dtype` "bf16" the forward and backward run on bf16 casts of the
+weights made inside the differentiated call (nn/policy.py).
+
+The step's randomness is explicit: t and the noise are drawn from a
+generator on the batch's device, the dropout masks from a seed
+(nn/denoiser.py), and all three can be injected instead (the CPU parity
+tests inject genie2_tpu's). `step_randomness` derives both from (seed,
+epoch, batch index) through `np.random.SeedSequence`, as the samplers seed
+their noise streams.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from genie2_tpu_torch.diffusion import Schedule, q_sample
+from genie2_tpu_torch.geometry import Rigid, frenet_frames
+from genie2_tpu_torch.nn.policy import apply_denoiser_cast, compute_dtype
+from genie2_tpu_torch.train.loss import genie_loss
+
+
+class TrainState:
+    """The model (float32 master weights), its Adam optimizer, the step
+    count and the weights' EMA (a dict of tensors keyed like the model's
+    state_dict, or None where `ema_decay` is 0)."""
+
+    def __init__(self, model: torch.nn.Module, lr: float, ema_decay: float = 0.0):
+        self.model = model
+        self.optimizer = torch.optim.Adam(model.parameters(), lr=lr)
+        self.step = 0
+        self.ema = ({n: p.detach().clone() for n, p in model.named_parameters()} if ema_decay > 0 else None)
+
+    def state_dict(self) -> Dict:
+        blob = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(), "step": self.step}
+        if self.ema is not None:
+            blob["ema"] = self.ema
+        return blob
+
+    def load_state_dict(self, blob: Dict):
+        self.model.load_state_dict(blob["params"])
+        self.optimizer.load_state_dict(blob["opt_state"])
+        self.step = int(blob["step"])
+        if self.ema is not None:
+            with torch.no_grad():
+                for n, e in self.ema.items():
+                    e.copy_(blob["ema"][n])
+
+
+def create_train_state(model: torch.nn.Module, lr: float, ema_decay: float = 0.0) -> TrainState:
+    return TrainState(model, lr, ema_decay)
+
+
+def step_randomness(seed: int, epoch: int, batch: int, device) -> Tuple[torch.Generator, int]:
+    """(generator on `device` for t and the noise, dropout seed) of the
+    step at (seed, epoch, batch index in the epoch)."""
+    state = np.random.SeedSequence([int(seed), int(epoch), int(batch)]).generate_state(2, np.uint64)
+    rng = torch.Generator(device=device).manual_seed(int(state[0]) & (2**63 - 1))
+    return rng, int(state[1]) & (2**62 - 1)
+
+
+def noised_input(schedule: Schedule, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
+                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+    """(t [B], masked noise z [B,N,3], noisy frames): t ~ U{1..T} and the
+    standard normal noise are drawn from `rng` unless given; the noise is
+    masked to the real residues here."""
+    x0 = features["atom_positions"]
+    dev = x0.device
+    if t is None:
+        t = torch.randint(1, schedule.n_timestep + 1, (x0.shape[0],), generator=rng, device=dev)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=rng, device=dev, dtype=x0.dtype)
+    z = noise.to(dev) * features["residue_mask"].to(x0.dtype)[..., None]
+    t = t.to(dev)
+    trans_t = q_sample(schedule, x0, t, z)
+    rots_t = frenet_frames(trans_t, features["chain_index"], features["residue_mask"])
+    return t, z, Rigid(rots_t, trans_t)
+
+
+def make_train_step(schedule: Schedule, condition_loss_weight: float, compute_dtype_name: str = "fp32",
+                    ema_decay: float = 0.0):
+    """The training step: (state, features, rng=None, t=None, noise=None,
+    dropout_seed=None) -> metrics (0-d float32 tensors on the batch's
+    device). It updates `state` in place. `dropout_seed` seeds the CPU
+    generator of the model's dropout (nn/denoiser.py); t and the standard
+    normal `noise` [B,N,3] (masked here) are drawn from `rng` where not
+    given."""
+    dtype = compute_dtype(compute_dtype_name)
+
+    def train_step(state: TrainState, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
+                   t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                   dropout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        model = state.model.train()
+        t, z, frames = noised_input(schedule, features, rng, t, noise)
+        gen = torch.Generator().manual_seed(int(dropout_seed)) if dropout_seed is not None else None
+        z_pred = apply_denoiser_cast(model, frames, t, features, dtype, gen)
+        loss, metrics = genie_loss(z_pred, z, features, condition_loss_weight)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        params = [p for p in model.parameters() if p.grad is not None]
+        # The global norm of the gradients (optax.global_norm), before the update.
+        metrics["grad_norm"] = torch.sqrt(torch.stack([p.grad.square().sum() for p in params]).sum())
+        state.optimizer.step()
+        if state.ema is not None:
+            with torch.no_grad():
+                ema = list(state.ema.values())
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, torch._foreach_mul([p for _, p in model.named_parameters()], 1.0 - ema_decay))
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

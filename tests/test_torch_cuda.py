@@ -324,3 +324,62 @@ def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
     do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
     _grad_close(_grads_of(lambda: tri_att.tri_attention(q, k, v, tb, mask), (q, k, v, tb), do),
                 _grads_of(lambda: tri_att.tri_attention_plain(q, k, v, tb, mask), (q, k, v, tb), do), dtype)
+
+
+
+def test_training_step_kernels_match_plain(device):
+    """One training step (train/state.py) at a small width, batch 2 of
+    lengths 70 and 64 (padded to 70), dropout and remat on, with the
+    kernels and then from the same state, t, noise and dropout seed with
+    every plain version swapped in: the loss within 1e-5 relative, the
+    whole gradient within 1e-3 of its max |entry|, grad_norm within 1e-4
+    relative; the step launches the TriMul kernels twice a pair layer
+    (remat) and the contraction's backward kernels."""
+    import copy
+
+    import numpy as np
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.nn import structure
+    from genie2_tpu_torch.train import create_train_state, make_train_step
+    from genie2_tpu_torch.utils.model_io import init_model
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    config = Config(overrides={"singleFeatureDimension": 64, "pairFeatureDimension": 32,
+                               "numPairTransformLayers": 2, "triangularMultiplicativeHiddenDimension": 32,
+                               "numStructureLayers": 2, "maximumNumResidues": 70, "numTimesteps": 100})
+    state = create_train_state(randomize_zero_init(init_model(config, 0, "cpu"), 0).to(device), 1e-4)
+    plain_state = copy.deepcopy(state)
+    rng = np.random.default_rng(0)
+    feats = []
+    for length in (70, 64):
+        f = create_empty_features([length])
+        f["atom_positions"] = np.cumsum(rng.normal(size=(length, 3)) * 2.0, axis=0)
+        feats.append(f)
+    batch = to_device(batchify(feats), device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    inject = dict(t=torch.tensor([7, 60], device=device), noise=torch.randn(2, 70, 3, generator=gen, device=device),
+                  dropout_seed=3)
+    step = make_train_step(Schedule.create(100, device=device), 1.0)
+    trimul.reset_launch_counts()
+    m_k = step(state, batch, **inject)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in trimul.LAUNCHES.items() if v}
+    saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention)
+    trimul.project_gated_cm, trimul.contract_cm = trimul.project_gated_cm_plain, trimul.contract_cm_plain
+    trimul.epilogue_cm, structure.ipa_attention = trimul.epilogue_cm_plain, ipa.ipa_attention_plain
+    try:
+        m_p = step(plain_state, batch, **inject)
+    finally:
+        trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention = saved
+    g_k = torch.cat([p.grad.flatten() for p in state.model.parameters()])
+    g_p = torch.cat([p.grad.flatten() for p in plain_state.model.parameters()])
+    assert torch.isfinite(g_k).all()
+    loss_k, loss_p = m_k["weighted_loss"].item(), m_p["weighted_loss"].item()
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    assert (g_k - g_p).abs().max().item() <= 1e-3 * g_p.abs().max().item()
+    assert abs(m_k["grad_norm"].item() - m_p["grad_norm"].item()) <= 1e-4 * m_p["grad_norm"].item()
+    assert launches == {"trimul_project": 8, "trimul_contract_out": 6, "trimul_contract_in": 6, "trimul_epilogue": 8,
+                        "ipa_attention": 2, "contract_cm_km": 4}, launches

@@ -45,7 +45,11 @@ def test_port_has_modules():
                      "genie2_tpu_torch/features/secstruct.py", "genie2_tpu_torch/cli/sample_sse.py",
                      "genie2_tpu_torch/sampling/twisting.py", "genie2_tpu_torch/sampling/smc.py",
                      "genie2_tpu_torch/sampling/motif_target.py", "genie2_tpu_torch/sampling/manifest.py",
-                     "genie2_tpu_torch/utils/loggers.py", "genie2_tpu_torch/cli/sample_motif_smc.py"):
+                     "genie2_tpu_torch/utils/loggers.py", "genie2_tpu_torch/cli/sample_motif_smc.py",
+                     "genie2_tpu_torch/train/loss.py", "genie2_tpu_torch/train/state.py",
+                     "genie2_tpu_torch/train/data.py", "genie2_tpu_torch/train/cache.py",
+                     "genie2_tpu_torch/train/prefetch.py", "genie2_tpu_torch/train/loop.py",
+                     "genie2_tpu_torch/cli/train.py"):
         assert expected in rel
 
 

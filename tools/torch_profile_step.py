@@ -22,8 +22,18 @@ inside its range (part of the kernel families too, not added to them) and
 the range's span on the device (`..._span`, idle gaps included); and it
 times the same steps untwisted (forward only) beside them.
 
+`--train` profiles one training step instead (train/state.py; defaults to
+L=256 and batch 4, the configuration's `batchSize`, with dropout and remat
+as configured, the full-length structures of random walks and fixed t,
+noise and dropout seed): the forward, remat's second forward of the pair
+layers during the backward (`remat_forward`, a range like the backward's),
+the backward families as `--tds` reports them, and the Adam update (its
+foreach kernels, family `optimizer`); peak memory. `--no_remat` turns
+remat off.
+
     python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh [--tri_att]
     python3 tools/torch_profile_step.py --tds
+    python3 tools/torch_profile_step.py --train [--dtype bf16] [--no_remat]
 
 Needs a CUDA card; imports torch and genie2_tpu_torch only.
 """
@@ -43,6 +53,8 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 FAMILIES = (
+    # torch's foreach kernels: the Adam update (and the EMA where it is on).
+    ("optimizer", ("multi_tensor_apply",)),
     ("trimul_project", ("project_kernel",)),
     # The standalone model-layout contraction; its channel-major variants
     # share the TriMul contraction's tile kernel and name.
@@ -70,15 +82,22 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--length", type=int, default=None, help="default 256, or 75 with --tds")
     parser.add_argument("--batch", type=int, default=None, help="default 2, or 4 particles with --tds")
-    parser.add_argument("--quat", choices=("closed", "eigh"), default="eigh")
+    parser.add_argument("--quat", choices=("closed", "eigh"), default=None,
+                        help="default eigh (released weights' method); --train: the configuration's (closed)")
     parser.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     parser.add_argument("--tri_att", action="store_true", help="triangle attention in the pair layers")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--tds", action="store_true", help="profile the twisted TDS step (forward + backward)")
+    parser.add_argument("--train", action="store_true", help="profile the training step")
+    parser.add_argument("--no_remat", action="store_true", help="--train without remat")
     args = parser.parse_args(argv)
+    if args.quat is None and not args.train:
+        args.quat = "eigh"
     if args.tds:
         return profile_tds(args)
+    if args.train:
+        return profile_train(args)
     args.length, args.batch = args.length or 256, args.batch or 2
 
     import torch
@@ -187,7 +206,6 @@ def _label_backwards():
 def profile_tds(args):
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from genie2_tpu_torch.config import Config
@@ -253,35 +271,133 @@ def profile_tds(args):
             run(twisted)
             torch.cuda.synchronize()
         out[f"peak_memory_bytes_{key}"] = torch.cuda.max_memory_allocated()
-        # The backward's ranges appear on the device timeline as spans from
-        # their first kernel's start to their last one's end (idle gaps
-        # included): they are not kernels, and a range's device time is
-        # the sum of the kernels that start inside its span.
-        spans = defaultdict(list)
-        by_family, by_kernel, count = defaultdict(float), defaultdict(float), defaultdict(int)
-        kernels = []
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            if e.name in labels:
-                spans[e.name].append((e.time_range.start, e.time_range.end))
-                continue
-            us = e.time_range.elapsed_us()
-            by_family[family(e.name)] += us
-            by_kernel[e.name] += us
-            count[e.name] += 1
-            kernels.append((e.time_range.start, us))
-        device_ms = sum(by_family.values()) / 1e3 / steps
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
-        out[f"top_kernels_ms_per_step_{key}"] = [[k[:90], v / 1e3 / steps, count[k] / steps] for k, v in top]
-        out[f"device_ms_per_step_{key}"] = device_ms if device_ms > 0 else "not measured"
-        out[f"device_busy_share_{key}"] = device_ms / out[f"wall_ms_per_step_{key}"] if device_ms > 0 else "not measured"
-        fams = {k: v / 1e3 / steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])}
-        for label, ranges in sorted(spans.items()):
-            inside = sum(us for start, us in kernels if any(lo <= start < hi for lo, hi in ranges))
-            fams[label] = inside / 1e3 / steps
-            fams[label + "_span"] = sum(hi - lo for lo, hi in ranges) / 1e3 / steps
-        out[f"family_ms_per_step_{key}"] = fams
+        summary = summarize(prof, labels, steps, out[f"wall_ms_per_step_{key}"])
+        out.update({f"{k}_{key}": v for k, v in summary.items()})
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def summarize(prof, labels, steps, wall_ms):
+    """Device ms a step by kernel family, the top kernels, the busy share,
+    and for each labelled range its device ms (kernels that start inside
+    it) and its span. The ranges appear on the device timeline as spans
+    from their first kernel's start to their last one's end (idle gaps
+    included): they are not kernels."""
+    from torch.autograd import DeviceType
+
+    spans = defaultdict(list)
+    by_family, by_kernel, count = defaultdict(float), defaultdict(float), defaultdict(int)
+    kernels = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in labels:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+            continue
+        us = e.time_range.elapsed_us()
+        by_family[family(e.name)] += us
+        by_kernel[e.name] += us
+        count[e.name] += 1
+        kernels.append((e.time_range.start, us))
+    device_ms = sum(by_family.values()) / 1e3 / steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    fams = {k: v / 1e3 / steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])}
+    for label, ranges in sorted(spans.items()):
+        inside = sum(us for start, us in kernels if any(lo <= start < hi for lo, hi in ranges))
+        fams[label] = inside / 1e3 / steps
+        fams[label + "_span"] = sum(hi - lo for lo, hi in ranges) / 1e3 / steps
+    return {
+        "top_kernels_ms_per_step": [[k[:90], v / 1e3 / steps, count[k] / steps] for k, v in top],
+        "device_ms_per_step": device_ms if device_ms > 0 else "not measured",
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
+        "family_ms_per_step": fams,
+    }
+
+
+def _label_remat():
+    """Wrap the pair layers' forward in a profiler range named
+    `remat_forward` where it runs inside the backward (checkpoint's
+    recompute), and `pair_layer_forward` elsewhere."""
+    import torch
+    from torch.profiler import record_function
+
+    from genie2_tpu_torch.nn import pair_stack
+
+    forward = pair_stack.PairTransformLayer.forward
+
+    def labelled(self, *args, **kwargs):
+        # The autograd engine runs a graph task while it executes a backward.
+        in_backward = torch._C._current_graph_task_id() != -1
+        with record_function("remat_forward" if in_backward else "pair_layer_forward"):
+            return forward(self, *args, **kwargs)
+
+    pair_stack.PairTransformLayer.forward = labelled
+    return ["pair_layer_forward", "remat_forward"]
+
+
+def profile_train(args):
+    """One training step at full width, profiled: see the module docstring."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.train import create_train_state, make_train_step
+    from genie2_tpu_torch.utils.model_io import init_model
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    length, batch = args.length or 256, args.batch or 4
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    overrides = {"includeTriangularAttention": args.tri_att, "remat": not args.no_remat,
+                 "maximumNumResidues": max(length, 256)}
+    if args.quat:
+        overrides["rotToQuatMethod"] = args.quat
+    config = Config(os.path.join(REPO, "configs", "example.configuration"), overrides=overrides)
+    args.quat = config.tpu["rot_to_quat_method"]
+    model = randomize_zero_init(init_model(config, args.seed, "cpu"), args.seed).to(dev)
+    state = create_train_state(model, config.optimization["lr"])
+    labels = _label_backwards() + _label_remat()
+    schedule = Schedule.create(config.diffusion["n_timestep"], device=dev)
+    step = make_train_step(schedule, config.training["condition_loss_weight"], args.dtype)
+
+    rng = np.random.default_rng(args.seed)
+    feats = []
+    for _ in range(batch):
+        f = create_empty_features([length])
+        walk = rng.normal(size=(length, 3))
+        xyz = np.cumsum(3.8 * walk / np.linalg.norm(walk, axis=-1, keepdims=True), axis=0)
+        f["atom_positions"] = xyz - xyz.mean(0)
+        feats.append(f)
+    features = to_device(batchify(feats), dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    inject = dict(t=torch.randint(1, schedule.n_timestep + 1, (batch,), generator=gen, device=dev),
+                  noise=torch.randn(batch, length, 3, generator=gen, device=dev), dropout_seed=args.seed)
+
+    for _ in range(2):  # warm up
+        step(state, features, **inject)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(state, features, **inject)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(state, features, **inject)
+        torch.cuda.synchronize()
+    out = {"smi": smi, "mode": "train", "length": length, "batch": batch, "quat": args.quat,
+           "tri_att": args.tri_att, "dtype": args.dtype, "remat": not args.no_remat, "steps": args.steps,
+           "wall_ms_per_step": wall_ms, "residues_per_s": batch * length / wall_ms * 1e3,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    out.update(summarize(prof, labels, args.steps, wall_ms))
     print(json.dumps(out), flush=True)
     return out
 
