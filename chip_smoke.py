@@ -63,6 +63,24 @@ Phases, in order; any failure exits non-zero:
                plain version (loss, the whole gradient, grad_norm); one
                bf16 step; wall and device ms a step, the busy share and
                peak memory with remat on and off;
+  9. parallel  data parallelism (genie2_tpu_torch/parallel), each run held
+               against one process in this phase: two ranks over gloo
+               sharing the card (NCCL refuses two ranks on one GPU), spawned
+               after the kernels are built, take PARALLEL_TRAIN_STEPS
+               training steps at the train phase's width on two rows each
+               of one batch of 4 (loss and metrics, the first step's reduced
+               gradient, the parameters after the last); one twisted TDS
+               step from t = T on the tds phase's problem, 4 particles
+               (placements, resampling decisions, coordinates; two steps,
+               and one process moved by 1e-6 at x_T, reported beside it:
+               with random weights a trajectory moves by angstroms from a
+               change at rounding's scale); the unconditional CLI (L=256, 4
+               samples, DDIM-50) against one process running the ranks'
+               rows as its batches (files, coordinates; a batch of 4
+               reported beside it); the TDS CLI (100 steps; trace,
+               placement); launches summed over the ranks; then
+               cli/train.py under torchrun as one NCCL rank for 2 epochs
+               and --resume to a third, checkpoints loaded back;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -1567,6 +1585,469 @@ def trainer_dataset(trainer, config):
 
 
 # ------------------------------------------------------------------ #
+# Phase 9
+# ------------------------------------------------------------------ #
+
+PARALLEL_RANKS = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one GPU)
+PARALLEL_TRAIN_STEPS = 3
+PARALLEL_SAMPLES, PARALLEL_DDIM = 4, 50  # the sample run: L=256, DDIM-50
+# The tds run's steps: SMCSampler twists where t >= UNTWIST_BELOW, so 100
+# steps twist 51 times (50 would twist once).
+PARALLEL_TDS_STEPS = 100
+# Sharded against one process: coordinates of the sample run (Angstrom),
+# of one twisted TDS step (tests/test_smc.py's bound for genie2_tpu's mesh).
+PARALLEL_SAMPLE_TOL, PARALLEL_TDS_TOL = 1e-4, 2e-5
+# The size of the perturbation of x_T that shows how far one process's own
+# TDS trajectory moves from a change at float32 rounding's scale.
+TDS_PERTURBATION = 1e-6
+
+
+def tds_segment(mesh, plan, steps, perturb=0.0):
+    """`steps` steps of the tds phase's problem from t = T of the 1000-step
+    release (tds_sample_injected with first_step=T: x_T and the noise from
+    the (seed, particle, step) streams, the score proposal with cap 10, this
+    rank's particles), x_T moved by `perturb` times a seeded normal draw.
+    Returns every particle's coordinates, each particle's best placement,
+    the ESS and the resampling decisions."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.parallel import local_rows, shard_batch
+    from genie2_tpu_torch.sampling import SMCSampler
+    from genie2_tpu_torch.sampling.ddpm import init_translations, step_noise
+    from genie2_tpu_torch.sampling.motif_target import load_motif_target
+    from genie2_tpu_torch.sampling.resampling import resampling_draws, resampling_generator
+    from genie2_tpu_torch.sampling.smc import tds_sample_injected
+    from genie2_tpu_torch.sampling.twisting import enumerate_motif_placements, placements_to_positions
+    from genie2_tpu_torch.utils.model_io import load_pretrained_model
+
+    dev = torch.device("cuda")
+    model, config = load_pretrained_model(plan["rootdir"], plan["release"], 1, device=dev)
+    sampler = SMCSampler(model, config, mesh=mesh)
+    segments, length = load_motif_target(0, plan["motif_dir"])
+    placements = enumerate_motif_placements(length, [len(seg) for seg in segments], max_offsets=1000,
+                                            rng=np.random.default_rng(0))
+    feats = to_device(shard_batch(batchify([create_empty_features([length])] * TDS_PARTICLES), mesh), dev)
+    with torch.no_grad():
+        model_fn = sampler.make_model_fn(feats)
+    rows = local_rows(TDS_PARTICLES, mesh)
+    ids = list(range(rows.start, rows.stop))
+    T = config.diffusion["n_timestep"]
+    init = init_translations(feats, SEED, ids)
+    if perturb:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        init = init + perturb * torch.randn(init.shape, generator=gen, device=dev)
+    offsets = resampling_draws("systematic", TDS_PARTICLES, resampling_generator(SEED), steps=T)[:steps]
+    trans, score, trace, _ = tds_sample_injected(
+        model_fn, sampler.schedule, feats, torch.from_numpy(placements_to_positions(placements)),
+        torch.from_numpy(np.concatenate(segments)), init,
+        torch.stack([step_noise(SEED, ids, t, length) for t in range(T, T - steps, -1)]), offsets,
+        1.0, untwist_below=UNTWIST_BELOW, proposal="score", score_grad_cap=10.0, first_step=T, mesh=mesh)
+    return {"x": trans.cpu().numpy(), "best": score.argmax(1).tolist(), "ess": trace.ess.tolist(),
+            "resampled": trace.resampled.tolist()}
+
+
+def parallel_rank(rank, plan):
+    """The parallel phase's work in one process: PARALLEL_TRAIN_STEPS
+    training steps on this rank's rows of the batch, the TDS segments of
+    `plan`, then the CLIs of `plan` (the unconditional CLI with DDIM, the
+    TDS CLI), with `--num_devices` where `plan` says `distributed`. Launch
+    counts, times and results of each run; the heavy tensors (each step's
+    gradient, the parameters after the last) from rank 0 only, a checksum
+    of the parameters from every rank."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import sample_motif_smc, sample_unconditional
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.parallel import create_mesh, shard_batch
+    from genie2_tpu_torch.parallel.mesh import average_gradients
+    from genie2_tpu_torch.sampling import base
+    from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
+    from genie2_tpu_torch.utils.model_io import init_model
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    distributed = plan["distributed"]
+    mesh = create_mesh(-1, dev) if distributed else None
+    out = {}
+
+    # Training steps.
+    config = Config(plan["train_config"])
+    model = randomize_zero_init(init_model(config, SEED, "cpu"), SEED).to(dev)
+    state = create_train_state(model, config.optimization["lr"])
+    step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=dev),
+                           config.training["condition_loss_weight"], mesh=mesh)
+    feats = to_device(shard_batch(plan["batch"], mesh), dev)
+    trimul.reset_launch_counts()
+    metrics, times, grads = [], [], []
+    for i in range(PARALLEL_TRAIN_STEPS):
+        rng, dropout_seed = step_randomness(SEED, 0, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, feats, rng=rng, dropout_seed=dropout_seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if rank == 0:
+            grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]).cpu())
+    launches = dict(trimul.LAUNCHES)
+    params = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
+    # The step's gradient all-reduce (the grad_allreduce range) again, timed
+    # alone on the last step's gradients (the same on every rank, so their
+    # mean leaves them as they are).
+    allreduce_ms = []
+    if mesh is not None:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            average_gradients([p.grad for p in model.parameters()], mesh)
+            torch.cuda.synchronize()
+            allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+    out["train"] = {
+        "metrics": metrics, "ms_steps": times, "grad_allreduce_ms": allreduce_ms, "launches": launches,
+        "rows": int(feats["residue_mask"].shape[0]),
+        "param_checksum": [params.sum().item(), params.abs().sum().item()],
+    }
+    if rank == 0:
+        out["train"]["grads"] = grads
+        out["train"]["params"] = params.float().cpu()
+    del model, state, feats
+
+    out["segments"] = {label: tds_segment(mesh, plan, steps, perturb)
+                       for label, (steps, perturb) in plan["segments"].items()}
+
+    # The sampling CLIs: the samples each returns, on every rank.
+    samples = []
+    sample = base.BaseSampler.sample
+
+    def capture(self, params):
+        result = sample(self, params)
+        samples.append(np.stack([f["atom_positions"] for f in result]))
+        return result
+
+    base.BaseSampler.sample = capture
+    flags = ["--num_devices", str(PARALLEL_RANKS)] if distributed else []
+    mains = {"sample": sample_unconditional.main, "tds": sample_motif_smc.main}
+    try:
+        for run, argv in plan["clis"].items():
+            samples.clear()
+            trimul.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = mains[run.split("_")[0]](argv + flags)
+            torch.cuda.synchronize()
+            out[run] = {"seconds": time.perf_counter() - t0, "launches": dict(trimul.LAUNCHES),
+                        "coords": np.concatenate(samples)}
+            if run == "tds":
+                out[run].update(placement=result["placement"], ess_trace=result["ess_trace"],
+                                resamples=result["resamples"], tds_seconds=result["seconds"])
+    finally:
+        base.BaseSampler.sample = sample
+    return out
+
+
+def _params_against_adam(got, want, grads_got, grads_want, lr):
+    """Parameters after len(grads_want) Adam steps (flattened) against one
+    process's, from each run's gradients at every step. To first order a
+    gradient difference D moves Adam's update m / sqrt(v) by at most
+    2 D / sqrt(v), so over `steps` steps an entry whose sqrt(v) (bias
+    corrected, at every step) is at least 2 x steps x 1e3 times its largest
+    gradient difference so far moves by at most 1e-3 lr. Held: those
+    entries, with sqrt(v) at least 1e-5 (the floor of
+    tests/test_torch_train.py:_params_close), within that test's 1e-3 lr
+    plus the float32 rounding of each step's stored parameter, a unit in
+    the last place a step (at lr 1e-4, 1e-3 lr is below the spacing of
+    float32 numbers above 0.84); every entry within Adam's bound of lr a
+    step either way; an entry whose gradient was 0 at every step in both
+    runs not moved at all. Reported: that test's own set (sqrt(v) >= 1e-5
+    alone), which at full width holds entries whose gradient's relative
+    rounding difference exceeds 1e-3, beyond what any float32 reduction
+    order keeps within 1e-3 lr."""
+    import torch
+
+    steps = len(grads_want)
+    err = (got.double() - want.double()).abs()
+    v = torch.zeros_like(err)
+    diff = torch.zeros_like(err)
+    ratio = torch.full_like(err, float("inf"))
+    root = torch.full_like(err, float("inf"))
+    still = torch.ones_like(err, dtype=torch.bool)
+    for t, (g, w) in enumerate(zip(grads_got, grads_want), 1):
+        g, w = g.double(), w.double()
+        v = 0.999 * v + 0.001 * w * w
+        diff = torch.maximum(diff, (g - w).abs())
+        r = torch.sqrt(v / (1 - 0.999 ** t))
+        root = torch.minimum(root, r)
+        ratio = torch.minimum(ratio, r / diff)
+        still &= (g == 0) & (w == 0)
+    held = (root >= 1e-5) & (ratio >= 2 * steps * 1e3)
+    w32 = want.float().abs()
+    tol = 1e-3 * lr + steps * (torch.nextafter(w32, torch.tensor(float("inf"))) - w32).double()
+    cpu_rule = root >= 1e-5
+    return {"max_err": err.max().item(), "bound": 2 * steps * lr, "tol": 1e-3 * lr,
+            "held_share": held.double().mean().item(),
+            "held_max_err": err[held].max().item() if held.any() else 0.0,
+            "held_max_err_over_tol": (err / tol)[held].max().item() if held.any() else 0.0,
+            "cpu_rule_share": cpu_rule.double().mean().item(),
+            "cpu_rule_max_err": err[cpu_rule].max().item() if cpu_rule.any() else 0.0,
+            "still_share": still.double().mean().item(),
+            "still_max_err": err[still].max().item() if still.any() else 0.0}
+
+
+def run_process_group(cmd, timeout):
+    """Run `cmd` in its own session, killed with everything it started at
+    `timeout` seconds. Returns (exit code, stdout, stderr)."""
+    import signal as signal_
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal_.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+    return proc.returncode, out, err
+
+
+def torchrun_train(argv):
+    """Entry of the parallel phase's torchrun process (one NCCL rank):
+    cli/train.py on the configuration argv[1] (`--distributed`), then again
+    on argv[2] with `--resume`; each run's launch counts, steps, version and
+    the process group's shape written as JSON to argv[0]."""
+    import torch
+    import torch.distributed as dist
+
+    from genie2_tpu_torch.cli import train
+    from genie2_tpu_torch.ops import trimul
+
+    runs = []
+    for cfg, extra in ((argv[1], []), (argv[2], ["--resume"])):
+        trimul.reset_launch_counts()
+        trainer = train.main(["-c", cfg, "--device", "cuda", "--distributed", *extra])
+        torch.cuda.synchronize()
+        runs.append({"flags": extra, "launches": dict(trimul.LAUNCHES), "steps": trainer.state.step,
+                     "version": trainer.version, "world": dist.get_world_size(), "backend": str(dist.get_backend()),
+                     "device": str(trainer.device), "mesh": trainer.mesh is not None})
+    with open(argv[0], "w") as fh:
+        json.dump(runs, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(state):
+    """Data parallelism: two gloo ranks on the card against one process
+    (training steps, the DDIM sample run, the TDS run), then cli/train.py
+    under torchrun as one NCCL rank, with --resume."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel.spawn import run_ranks
+    from genie2_tpu_torch.train import MotifAugmentConfig, StructureDataset
+    from genie2_tpu_torch.utils.model_io import load_model
+
+    work, rootdir, name = release_dir(state)
+    config = example_config()
+    train_cfg = os.path.join(work, "train_configuration")
+    tconfig = Config(train_cfg)
+    cache = os.path.join(tconfig.io["rootdir"], tconfig.io["name"], "parsed_cache")
+    dataset = StructureDataset([], tconfig.io["max_n_res"], tconfig.io["max_n_chain"],
+                               motif=MotifAugmentConfig.from_config(tconfig), cache_path=cache)
+    batch = next(dataset.epoch(tconfig.training["batch_size"], np.random.default_rng(SEED)))
+    tds_release = release_copy(state, PARALLEL_TDS_STEPS)
+    motif_dir = os.path.join(work, "tds_motifs")
+
+    def plan(label, distributed):
+        outdir = os.path.join(work, f"parallel_{label}")
+
+        def sample(name, batch_size):
+            return common_argv(rootdir, os.path.join(outdir, name), "0.6") + [
+                "--num_samples", str(PARALLEL_SAMPLES), "--batch_size", str(batch_size), "--min_length", "256",
+                "--max_length", "256", "--ddim_steps", str(PARALLEL_DDIM), "--ddim_eta", "0.5"]
+
+        tds = ["--name", tds_release, "--epoch", "1", "--rootdir", rootdir, "--outdir", os.path.join(outdir, "tds"),
+               "--seed", str(SEED), "--device", "cuda", "--motif_index", "0", "--motif_dir", motif_dir,
+               "--num_particles", str(TDS_PARTICLES), "--scale", "1.0", "--max_offsets", "1000", "--proposal",
+               "score", "--score_grad_cap", "10"]
+        # Two ranks run a batch of 4 as two calls of 2 rows; one process runs
+        # those rows as its batches of 2 (the same calls), and a batch of 4
+        # beside them.
+        clis = {"sample": sample("sample", PARALLEL_SAMPLES), "tds": tds}
+        segments = {"one_step": (1, 0.0), "two_steps": (2, 0.0)}
+        if not distributed:
+            clis.update(sample=sample("sample", PARALLEL_SAMPLES // PARALLEL_RANKS),
+                        sample_batch4=sample("sample_batch4", PARALLEL_SAMPLES))
+            segments.update(one_step_perturbed=(1, TDS_PERTURBATION), two_steps_perturbed=(2, TDS_PERTURBATION))
+        return {"distributed": distributed, "train_config": train_cfg, "batch": batch, "clis": clis,
+                "segments": segments, "rootdir": rootdir, "release": name, "motif_dir": motif_dir}, outdir
+
+    alone_plan, alone_dir = plan("alone", False)
+    ranks_plan, ranks_dir = plan("ranks", True)
+    t0 = time.perf_counter()
+    alone = parallel_rank(0, alone_plan)
+    alone_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PARALLEL_RANKS, (ranks_plan,), deadline=480.0)
+    ranks_s = time.perf_counter() - t0
+    failures = []
+    summed = {run: {k: sum(r[run]["launches"][k] for r in ranks) for k in ranks[0][run]["launches"]}
+              for run in ("train", "sample", "tds")}
+    twisted = PARALLEL_TDS_STEPS - UNTWIST_BELOW + 1
+    # One process's launches; the ranks' summed are those of each rank's
+    # calls: PARALLEL_RANKS x the training steps and the TDS run (each rank
+    # calls the denoiser once a step), the sample run's calls (each rank one
+    # call a step on its rows, one process one call a step a batch of 2).
+    want = {"train": train_launches(config, PARALLEL_TRAIN_STEPS, eval_calls=0),
+            "sample": expected_launches(config, PARALLEL_RANKS * PARALLEL_DDIM),
+            "tds": with_backward(config, PARALLEL_TDS_STEPS, twisted)}
+    want_ranks = {run: table if run == "sample" else {k: PARALLEL_RANKS * v for k, v in table.items()}
+                  for run, table in want.items()}
+    note = "two gloo ranks share one card: these numbers show correctness and overhead, not scaling"
+
+    # train: each step's metrics and reduced gradient, the parameters.
+    a_train, r_train = alone["train"], ranks[0]["train"]
+    metric_err = max(abs(r["train"]["metrics"][i][k] - v) / max(abs(v), 1e-12)
+                     for r in ranks for i, m in enumerate(a_train["metrics"]) for k, v in m.items())
+    grad_diffs = [(g - w).abs().max().item() for g, w in zip(r_train["grads"], a_train["grads"])]
+    grad_errs = [d / w.abs().max().item() for d, w in zip(grad_diffs, a_train["grads"])]
+    grad_err = max(grad_errs)
+    lr = tconfig.optimization["lr"]
+    adam = _params_against_adam(r_train["params"], a_train["params"], r_train["grads"], a_train["grads"], lr)
+    same_params = all(r["train"]["param_checksum"] == r_train["param_checksum"] for r in ranks)
+    rec = {
+        "phase": "parallel", "run": "train", "ranks": PARALLEL_RANKS, "backend": "gloo", "batch": len(batch["aatype"]),
+        "rows_per_rank": [r["train"]["rows"] for r in ranks], "L": int(batch["aatype"].shape[1]),
+        "steps": PARALLEL_TRAIN_STEPS, "metric_rel_err": metric_err, "metric_tol": TRAIN_LOSS_TOL,
+        "grad_rel_err": grad_err, "grad_rel_err_per_step": grad_errs, "grad_tol": 1e-4, "params": adam,
+        "ranks_same_params": same_params,
+        "ms_per_step_one_process": sorted(a_train["ms_steps"][1:])[0],
+        "ms_per_step_two_ranks": max(sorted(r["train"]["ms_steps"][1:])[0] for r in ranks),
+        "ms_steps": {"one_process": a_train["ms_steps"], "ranks": [r["train"]["ms_steps"] for r in ranks]},
+        "grad_allreduce_ms": [r["train"]["grad_allreduce_ms"] for r in ranks],
+        "launches_summed": summed["train"], "expected_launches": want_ranks["train"],
+        "launches_one_process": a_train["launches"], "note": note, "smi": state["smi"],
+    }
+    emit(rec)
+    if metric_err > TRAIN_LOSS_TOL or grad_err > 1e-4 or not same_params or adam["max_err"] > adam["bound"] \
+            or adam["held_max_err_over_tol"] > 1 or adam["still_max_err"] > 0 or adam["held_share"] == 0:
+        failures.append(f"train: metrics {metric_err:.3g}, gradient {grad_err:.3g}, parameters {adam}, "
+                        f"same on every rank {same_params}")
+    for run in ("train", "sample", "tds"):
+        if summed[run] != want_ranks[run] or alone[run]["launches"] != want[run]:
+            failures.append(f"{run}: launches {summed[run]} over the ranks, {alone[run]['launches']} alone, "
+                            f"expected {want_ranks[run]} / {want[run]}")
+
+    # sample: the files and the coordinates behind them, against one
+    # process running the ranks' rows as its batches.
+    differ, files = 0, sorted(os.listdir(os.path.join(alone_dir, "sample", "pdbs")))
+    for f in files:
+        with open(os.path.join(alone_dir, "sample", "pdbs", f), "rb") as a, \
+                open(os.path.join(ranks_dir, "sample", "pdbs", f), "rb") as b:
+            differ += a.read() != b.read()
+    coord_err = max(float(np.abs(r["sample"]["coords"] - alone["sample"]["coords"]).max()) for r in ranks)
+    batch4_err = float(np.abs(alone["sample_batch4"]["coords"] - alone["sample"]["coords"]).max())
+    rec = {"phase": "parallel", "run": "sample", "ranks": PARALLEL_RANKS, "samples": PARALLEL_SAMPLES, "L": 256,
+           "ddim_steps": PARALLEL_DDIM, "files": len(files), "files_differing": differ, "coord_max_abs_err": coord_err,
+           "coord_tol": PARALLEL_SAMPLE_TOL, "one_process_batch4_vs_batch2_coord_max_abs_err": batch4_err,
+           "seconds_one_process_batch4": alone["sample_batch4"]["seconds"],
+           "seconds_two_ranks": max(r["sample"]["seconds"] for r in ranks),
+           "launches_summed": summed["sample"], "note": note, "smi": state["smi"]}
+    emit(rec)
+    if len(files) != PARALLEL_SAMPLES or coord_err > PARALLEL_SAMPLE_TOL:
+        failures.append(f"sample: {len(files)} files, {differ} differ, coordinates {coord_err:.3g}")
+    for f in files:
+        check_ca_file(os.path.join(ranks_dir, "sample", "pdbs", f), 256)
+
+    # tds: one twisted step from t = T held (placements, decisions,
+    # coordinates); what two steps, and one process's own trajectory moved
+    # by TDS_PERTURBATION at x_T, show of the problem's sensitivity.
+    seg = alone["segments"]
+    step_rec = {}
+    for label in ("one_step", "two_steps"):
+        a = seg[label]
+        step_rec[label] = {
+            "coord_max_abs_err": max(float(np.abs(r["segments"][label]["x"] - a["x"]).max()) for r in ranks),
+            "best_same": all(r["segments"][label]["best"] == a["best"] for r in ranks),
+            "decisions_same": all(r["segments"][label]["resampled"] == a["resampled"] for r in ranks),
+            "ess_max_abs_err": max(float(np.abs(np.subtract(r["segments"][label]["ess"], a["ess"])).max()) for r in ranks),
+            "perturbed_coord_max_abs_err": float(np.abs(seg[label + "_perturbed"]["x"] - a["x"]).max()),
+            "perturbed_best_same": seg[label + "_perturbed"]["best"] == a["best"],
+            "max_abs_x": float(np.abs(a["x"]).max()), "ess": a["ess"], "resampled": a["resampled"],
+        }
+    one = step_rec["one_step"]
+
+    def trace(outdir):
+        with open(os.path.join(outdir, "tds", "logs", "metrics.jsonl")) as fh:
+            return [json.loads(line) for line in fh]
+
+    a_tr, r_tr = trace(alone_dir), trace(ranks_dir)
+    diverged = next((i for i, (a, b) in enumerate(zip(a_tr, r_tr)) if a["resampled"] != b["resampled"]), None)
+    with open(os.path.join(ranks_dir, "tds", "motif_location.txt")) as fh:
+        placed = [tuple(int(v) for v in ln.split("\t")) for ln in fh.read().split("\n") if ln]
+    trace_ok = (len(r_tr) == PARALLEL_TDS_STEPS and all(1.0 - 1e-4 <= r["ess"] <= TDS_PARTICLES + 1e-4 for r in r_tr)
+                and all(np.isfinite(r["motif_dist"]) for r in r_tr)
+                and [e - s_ + 1 for s_, e in placed] == list(TDS_SEGMENTS))
+    rec = {"phase": "parallel", "run": "tds", "ranks": PARALLEL_RANKS, "particles": TDS_PARTICLES,
+           "length": TDS_LENGTH, "one_twisted_step_at_T": one, "two_steps_from_T": step_rec["two_steps"],
+           "perturbation": TDS_PERTURBATION, "coord_tol": PARALLEL_TDS_TOL,
+           "cli": {"steps": PARALLEL_TDS_STEPS, "twisted_steps": PARALLEL_TDS_STEPS - UNTWIST_BELOW + 1,
+                   "placement_two_ranks": ranks[0]["tds"]["placement"], "placement_one_process": alone["tds"]["placement"],
+                   "first_step_whose_decision_differs": diverged, "trace_ok": trace_ok,
+                   "coord_max_abs_err": max(float(np.abs(r["tds"]["coords"] - alone["tds"]["coords"]).max())
+                                            for r in ranks),
+                   "resamples_one_process": alone["tds"]["resamples"], "resamples_two_ranks": ranks[0]["tds"]["resamples"]},
+           "ms_per_step_one_process": alone["tds"]["tds_seconds"] / PARALLEL_TDS_STEPS * 1e3,
+           "ms_per_step_two_ranks": max(r["tds"]["tds_seconds"] for r in ranks) / PARALLEL_TDS_STEPS * 1e3,
+           "launches_summed": summed["tds"], "note": note, "smi": state["smi"]}
+    emit(rec)
+    if not (one["best_same"] and one["decisions_same"]) or one["coord_max_abs_err"] > PARALLEL_TDS_TOL \
+            or one["ess_max_abs_err"] > 1e-2 or not trace_ok:
+        failures.append(f"tds: one step from T {one}, the CLI's trace and placement {trace_ok}")
+
+    # cli/train.py under torchrun: one NCCL rank, 2 epochs, then --resume to 3.
+    nccl_root = os.path.join(work, "train_runs_nccl")
+    per_epoch = (TRAIN_STRUCTURES - TRAIN_VAL) // tconfig.training["batch_size"]
+    cfgs = [os.path.join(work, f"train_configuration_nccl_{epochs}") for epochs in (2, 3)]
+    for cfg, epochs in zip(cfgs, (2, 3)):
+        write_train_config(cfg, tconfig.io["datadir"], nccl_root, epochs=epochs)
+    out_json = os.path.join(work, "torchrun.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           os.path.join(HERE, "chip_smoke.py"), "--torchrun-train", out_json, *cfgs]
+    t0 = time.perf_counter()
+    code, stdout, stderr = run_process_group(cmd, timeout=300)
+    seconds = time.perf_counter() - t0
+    if code != 0 or not os.path.isfile(out_json):
+        raise PhaseFailed(f"torchrun cli/train.py: exit {code}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    with open(out_json) as fh:
+        runs = json.load(fh)
+    for res, steps, evals in zip(runs, (2 * per_epoch, per_epoch), (2, 1)):
+        expect = train_launches(config, steps, eval_calls=evals)
+        emit({"phase": "parallel", "run": "torchrun_train", **res, "expected_launches": expect, "smi": state["smi"]})
+        if res["world"] != 1 or res["backend"] != "nccl" or not res["mesh"] or res["launches"] != expect:
+            failures.append(f"torchrun {res['flags']}: {res}, expected launches {expect}")
+    emit({"phase": "parallel", "run": "torchrun_train", "seconds_with_start": seconds})
+    if runs[1]["version"] != runs[0]["version"] or runs[1]["steps"] != 3 * per_epoch:
+        failures.append(f"torchrun --resume: {runs}")
+    for epoch in (0, 1, 2):
+        model, _ = load_model(nccl_root, tconfig.io["name"], epoch=epoch, device="cuda")
+        if not all(torch.isfinite(p).all() for p in model.parameters()):
+            failures.append(f"torchrun: epoch={epoch}.ckpt is not finite")
+    state["launches_parallel"] = {"train": summed["train"], "sample": summed["sample"], "tds": summed["tds"],
+                                  "torchrun_train": runs[0]["launches"]}
+    emit({"phase": "parallel", "seconds_one_process": alone_s, "seconds_two_ranks_with_start": ranks_s})
+    if failures:
+        raise PhaseFailed("; ".join(failures))
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
@@ -1599,6 +2080,7 @@ def kernels_line(state):
             "launches_triatt": {"unconditional": count(triatt), "sse": count(state.get("launches_sse", {}))},
             "launches_tds": {run: count(table) for run, table in tds.items()},
             "launches_train": count(state.get("launches_train", {})),
+            "launches_parallel": {run: count(table) for run, table in state.get("launches_parallel", {}).items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
@@ -1629,7 +2111,8 @@ def kernels_line(state):
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
-          "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds, "train": phase_train}
+          "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds, "train": phase_train,
+          "parallel": phase_parallel}
 
 
 def main() -> int:
@@ -1658,4 +2141,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-train"]:
+        sys.exit(torchrun_train(sys.argv[2:]))
     sys.exit(main())

@@ -1,4 +1,10 @@
-"""Flags and set-up that the sampling CLIs share."""
+"""Flags and set-up that the sampling CLIs share.
+
+Data parallel: `torchrun --nproc_per_node N -m genie2_tpu_torch.cli.<cli>
+... --num_devices N` (or -1) runs one process a card (cuda:LOCAL_RANK),
+each sampling its rows of every batch; rank 0 writes the files, which are
+those of one process (parallel/mesh.py, sampling/base.py).
+"""
 
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ SOLVER_FLAGS = ("ddim_steps", "ddim_eta", "ddim_eta_switch_t", "dpm_steps", "dum
 
 def add_checkpoint_arguments(parser: argparse.ArgumentParser):
     """The flags every sampling CLI has: which checkpoint, where to write,
-    the seed, the device and the parallelism flags that are refused."""
+    the seed, the device and the parallelism flags."""
     parser.add_argument("--name", type=str, required=True, help="Model name")
     parser.add_argument("--epoch", type=int, required=True, help="Model epoch")
     parser.add_argument("--rootdir", type=str, default="results", help="Root directory")
@@ -22,7 +28,9 @@ def add_checkpoint_arguments(parser: argparse.ArgumentParser):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; no card without --device cpu is an error")
     parser.add_argument("--mesh_model", type=int, default=1, help="Only 1 is supported (tensor parallelism is not ported)")
-    parser.add_argument("--num_devices", type=int, default=None, help="Only 1 is supported (batch sharding is not ported)")
+    parser.add_argument("--num_devices", type=int, default=None,
+                        help="Shard every batch over the ranks of a torchrun launch: its world size or -1 "
+                             "(default: one process)")
 
 
 def add_model_arguments(parser: argparse.ArgumentParser):
@@ -52,13 +60,16 @@ def solver_params(args) -> Dict[str, Any]:
 
 
 def load_model(args):
-    """Refuse the parallelism flags, fix the matmul precision and load the
-    release-layout checkpoint onto `args.device`. Returns (model, config)."""
+    """Resolve the parallelism flags into a mesh (parallel/mesh.py:
+    `mesh_from_arg`, which joins the launcher's process group), fix the
+    matmul precision and load the release-layout checkpoint onto
+    `args.device` (this rank's card under a launcher). Returns (model,
+    config, mesh); the mesh is None for one process."""
+    from genie2_tpu_torch.parallel import mesh_from_arg
     from genie2_tpu_torch.utils.model_io import load_pretrained_model
 
-    given = [f"--{k}" for k in ("mesh_seq", "mesh_model", "num_devices") if getattr(args, k, None) not in (None, 1)]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: parallelism is not ported to genie2_tpu_torch yet")
+    mesh = mesh_from_arg(args.num_devices, getattr(args, "mesh_seq", 1), args.mesh_model, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return load_pretrained_model(args.rootdir, args.name, args.epoch, ema=args.ema, device=args.device)
+    model, config = load_pretrained_model(args.rootdir, args.name, args.epoch, ema=args.ema, device=args.device)
+    return model, config, mesh

@@ -8,8 +8,10 @@ benchmark manifests `scaffold_info.csv` and `motif_info.csv`, the per-step
 trace `{outdir}/logs/metrics.jsonl` and, with --dump_trajectory_every,
 `{outdir}/test/{x0,xt}_predicted_test_{step}.pdb`. Flags as genie2_tpu's
 CLI, plus `--device` (default cuda; `--device cpu` runs the plain versions
-on the CPU). `--mesh_seq`, `--mesh_model` and `--num_devices` other than 1
-raise NotImplementedError.
+on the CPU). Under torchrun, `--num_devices N` (or -1) shards the particles
+over the N ranks (a count N does not divide raises) and rank 0 writes the
+files and the trace; `--mesh_seq` and `--mesh_model` other than 1 raise
+NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_motif_smc --name base --epoch 40 \
         --outdir out --motif_index 0 --motif_dir motifbench/pdbs
@@ -21,6 +23,7 @@ import argparse
 import time
 
 from genie2_tpu_torch.cli.common import add_checkpoint_arguments, load_model
+from genie2_tpu_torch.parallel import is_main
 
 
 def run(args):
@@ -28,8 +31,8 @@ def run(args):
     summary line and return its numbers with the ESS trace."""
     from genie2_tpu_torch.sampling import SMCSampler
 
-    model, config = load_model(args)
-    sampler = SMCSampler(model, config)
+    model, config, mesh = load_model(args)
+    sampler = SMCSampler(model, config, mesh=mesh)
     sampler.max_offsets = args.max_offsets
     if args.dump_trajectory_every:
         sampler.dump_trajectory_every = args.dump_trajectory_every
@@ -41,16 +44,17 @@ def run(args):
         "rot_tausq": args.rot_tausq, "proposal": args.proposal, "score_grad_cap": args.score_grad_cap,
     })
     seconds = time.perf_counter() - t0
-    stream_tds_trace(sampler.trace, args.outdir, n_timestep=config.diffusion["n_timestep"],
-                     wandb_project=args.wandb_project, run_name=f"motif_{args.motif_index}",
-                     tensorboard=args.tensorboard, config=vars(args))
     ess = sampler.trace.ess
     resamples = int(sampler.trace.resampled.sum())
-    print(
-        f"motif {args.motif_index}: placement={sampler.final_placement} "
-        f"ess(min/mean)={ess.min():.2f}/{ess.mean():.2f} resamples={resamples}",
-        flush=True,
-    )
+    if is_main(mesh):  # the trace streams from rank 0 only
+        stream_tds_trace(sampler.trace, args.outdir, n_timestep=config.diffusion["n_timestep"],
+                         wandb_project=args.wandb_project, run_name=f"motif_{args.motif_index}",
+                         tensorboard=args.tensorboard, config=vars(args))
+        print(
+            f"motif {args.motif_index}: placement={sampler.final_placement} "
+            f"ess(min/mean)={ess.min():.2f}/{ess.mean():.2f} resamples={resamples}",
+            flush=True,
+        )
     return {
         "placement": [list(seg) for seg in sampler.final_placement], "ess_min": float(ess.min()),
         "ess_mean": float(ess.mean()), "ess_trace": ess.tolist(), "resamples": resamples, "seconds": seconds,

@@ -5,9 +5,10 @@ in --datadir, outputs under `{outdir}/motif={name}/pdbs` and `motif_pdbs`.
 `--strength` > 0 applies classifier-free guidance eps_u + (1 + s)(eps_c -
 eps_u), with the motif masks zeroed for the unconditional branch (two model
 calls per step); 0 is the plain conditional model. `--device` defaults to
-cuda; `--device cpu` runs the plain versions on the CPU. The parallelism
-flags (`--mesh_seq`, `--mesh_model`, `--num_devices` other than 1) raise
-NotImplementedError.
+cuda; `--device cpu` runs the plain versions on the CPU. Under torchrun,
+`--num_devices N` (or -1) shards every batch over the N ranks and rank 0
+writes the files (cli/common.py); `--mesh_seq` and `--mesh_model` other
+than 1 raise NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_scaffold --name NAME --epoch E \
         --rootdir results --scale 0.4 --outdir out --datadir data/design25
@@ -21,14 +22,15 @@ import os
 import time
 
 from genie2_tpu_torch.cli.common import add_model_arguments, add_solver_arguments, load_model, solver_params
+from genie2_tpu_torch.parallel import is_main
 
 
 def run_tasks(args):
     """Sample every motif problem of --datadir; returns {motif name: seconds}."""
     from genie2_tpu_torch.sampling import ScaffoldSampler
 
-    model, config = load_model(args)
-    sampler = ScaffoldSampler(model, config)
+    model, config, mesh = load_model(args)
+    sampler = ScaffoldSampler(model, config, mesh=mesh)
 
     paths = sorted(glob.glob(os.path.join(args.datadir, "*.pdb")))
     if args.motif_name is not None:
@@ -52,7 +54,8 @@ def run_tasks(args):
             offset += batch
             remaining -= batch
         seconds[motif_name] = time.perf_counter() - t0
-        print(f"motif {motif_name}: {args.num_samples} samples done in {seconds[motif_name]:.2f} s", flush=True)
+        if is_main(mesh):
+            print(f"motif {motif_name}: {args.num_samples} samples done in {seconds[motif_name]:.2f} s", flush=True)
     return seconds
 
 

@@ -6,8 +6,10 @@ the requested helix or strand content, systematic resampling triggered by
 the effective sample size; the final particles are written as
 `{outdir}/pdbs/{length}_{i}.pdb` and their soft and hard (P-SEA) fractions
 reported. Flags as genie2_tpu's CLI, plus `--device` (default cuda;
-`--device cpu` runs the plain versions on the CPU). `--mesh_model` and
-`--num_devices` other than 1 raise NotImplementedError.
+`--device cpu` runs the plain versions on the CPU). Under torchrun,
+`--num_devices N` (or -1) shards the particles over the N ranks (a count N
+does not divide raises) and rank 0 writes the files; `--mesh_model` other
+than 1 raises NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_sse --name base --epoch 40 \
         --outdir out --length 100 --num_particles 8 --target helix \
@@ -33,14 +35,18 @@ def run(args):
     from genie2_tpu_torch.features import batchify, create_empty_features, save_features_to_pdb, to_device
     from genie2_tpu_torch.features.secstruct import sec_struct_frac
     from genie2_tpu_torch.nn.policy import apply_denoiser, cast_model, compute_dtype
+    from genie2_tpu_torch.parallel import is_main, shard_batch
+    from genie2_tpu_torch.parallel.mesh import check_particles
     from genie2_tpu_torch.sampling import soft_sse_fraction, sse_guided_sample
 
-    model, config = load_model(args)
+    model, config, mesh = load_model(args)
+    check_particles(args.num_particles, mesh)
     device = next(model.parameters()).device
     dtype = compute_dtype(config.tpu.get("compute_dtype", "fp32"))
     model = cast_model(model, dtype)
     schedule = Schedule.create(config.diffusion["n_timestep"], config.diffusion["schedule"], device=device)
-    feats = to_device(batchify([create_empty_features([args.length]) for _ in range(args.num_particles)]), device)
+    batch = batchify([create_empty_features([args.length]) for _ in range(args.num_particles)])
+    feats = to_device(shard_batch(batch, mesh), device)
 
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -52,26 +58,27 @@ def run(args):
 
         trans, result = sse_guided_sample(
             model_fn, schedule, feats, args.seed, args.num_particles, target=args.target,
-            strength=args.strength, scale=args.scale, ess_threshold=args.ess_threshold,
+            strength=args.strength, scale=args.scale, ess_threshold=args.ess_threshold, mesh=mesh,
         )
-        soft = soft_sse_fraction(trans, feats["residue_mask"], args.target).cpu().numpy()
+        soft = soft_sse_fraction(trans, to_device(batch, device)["residue_mask"], args.target).cpu().numpy()
     trans_np = trans.float().cpu().numpy()
     ess = result.ess_trace.cpu().numpy()
     resamples = int(result.resampled_trace.sum().item())
     seconds = time.perf_counter() - t0
 
-    os.makedirs(os.path.join(args.outdir, "pdbs"), exist_ok=True)
-    for i in range(args.num_particles):
-        f = create_empty_features([args.length])
-        f["atom_positions"] = trans_np[i]
-        save_features_to_pdb(f, os.path.join(args.outdir, "pdbs", f"{args.length}_{i}.pdb"))
     hard = [sec_struct_frac(trans_np[i])[0 if args.target == "helix" else 1] for i in range(args.num_particles)]
-    print(
-        f"{args.num_particles} particles, target={args.target} strength={args.strength}: "
-        f"soft {args.target} mean={soft.mean():.3f} max={soft.max():.3f}; hard P-SEA mean={np.mean(hard):.3f}; "
-        f"ess(min/mean)={ess.min():.2f}/{ess.mean():.2f} resamples={resamples}",
-        flush=True,
-    )
+    if is_main(mesh):
+        os.makedirs(os.path.join(args.outdir, "pdbs"), exist_ok=True)
+        for i in range(args.num_particles):
+            f = create_empty_features([args.length])
+            f["atom_positions"] = trans_np[i]
+            save_features_to_pdb(f, os.path.join(args.outdir, "pdbs", f"{args.length}_{i}.pdb"))
+        print(
+            f"{args.num_particles} particles, target={args.target} strength={args.strength}: "
+            f"soft {args.target} mean={soft.mean():.3f} max={soft.max():.3f}; hard P-SEA mean={np.mean(hard):.3f}; "
+            f"ess(min/mean)={ess.min():.2f}/{ess.mean():.2f} resamples={resamples}",
+            flush=True,
+        )
     return {
         "soft": soft.tolist(), "soft_mean": float(soft.mean()), "soft_max": float(soft.max()),
         "hard_mean": float(np.mean(hard)), "ess_min": float(ess.min()), "ess_mean": float(ess.mean()),

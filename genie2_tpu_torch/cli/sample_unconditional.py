@@ -4,8 +4,9 @@ Same flags and output layout as genie2_tpu's (`{outdir}/pdbs/{length}_{i}.pdb`),
 plus `--device` (default cuda; `--device cpu` runs the plain versions on the
 CPU). Lengths run max -> min, shuffled unless --sequential_order; `--pack`
 fills every batch with samples of mixed lengths grouped by padding bucket.
-The parallelism flags (`--mesh_seq`, `--mesh_model`, `--num_devices` other
-than 1) raise NotImplementedError.
+Under torchrun, `--num_devices N` (or -1) shards every batch over the N
+ranks and rank 0 writes the files (cli/common.py); `--mesh_seq` and
+`--mesh_model` other than 1 raise NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_unconditional --name NAME --epoch E \
         --rootdir results --scale 0.6 --outdir out --num_samples 2 --batch_size 2
@@ -18,14 +19,15 @@ import random
 import time
 
 from genie2_tpu_torch.cli.common import add_model_arguments, add_solver_arguments, load_model, solver_params
+from genie2_tpu_torch.parallel import is_main
 
 
-def run_packed(args, model, config):
+def run_packed(args, model, config, mesh):
     """--pack: every batch full, lengths grouped by padding bucket.
     Returns {"packed": seconds}."""
     from genie2_tpu_torch.sampling import PackedUnconditionalSampler, bucket_length
 
-    sampler = PackedUnconditionalSampler(model, config)
+    sampler = PackedUnconditionalSampler(model, config, mesh=mesh)
     tasks = [
         (length, i)
         for length in range(args.max_length, args.min_length - 1, -args.length_step)
@@ -42,7 +44,8 @@ def run_packed(args, model, config):
             "names": [f"{length}_{i}" for length, i in chunk], "seed": args.seed, **solver_params(args),
         })
     seconds = time.perf_counter() - t0
-    print(f"packed sweep: {len(tasks)} samples done in {seconds:.2f} s", flush=True)
+    if is_main(mesh):
+        print(f"packed sweep: {len(tasks)} samples done in {seconds:.2f} s", flush=True)
     return {"packed": seconds}
 
 
@@ -50,10 +53,10 @@ def run_tasks(args):
     """Sample every length of the sweep; returns {length: seconds}."""
     from genie2_tpu_torch.sampling import UnconditionalSampler
 
-    model, config = load_model(args)
+    model, config, mesh = load_model(args)
     if args.pack:
-        return run_packed(args, model, config)
-    sampler = UnconditionalSampler(model, config)
+        return run_packed(args, model, config, mesh)
+    sampler = UnconditionalSampler(model, config, mesh=mesh)
 
     lengths = list(range(args.max_length, args.min_length - 1, -args.length_step))
     if not args.sequential_order:
@@ -73,7 +76,8 @@ def run_tasks(args):
             offset += batch
             remaining -= batch
         seconds[length] = time.perf_counter() - t0
-        print(f"length {length}: {args.num_samples} samples done in {seconds[length]:.2f} s", flush=True)
+        if is_main(mesh):
+            print(f"length {length}: {args.num_samples} samples done in {seconds[length]:.2f} s", flush=True)
     return seconds
 
 

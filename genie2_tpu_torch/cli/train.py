@@ -1,15 +1,21 @@
 """Training CLI: `python -m genie2_tpu_torch.cli.train -c CONFIG [-t] [--resume]
-[--init_from CKPT] [--device cpu]`.
+[--init_from CKPT] [--device cpu] [--distributed]`.
 
 The configuration file's `dataDirectory` is split into train / validation
 name lists under {rootDirectory}/{name}/ (kept across runs), parsed once
-into a packed cache beside them, and trained by `train/loop.py:Trainer` on
-one device: cuda unless `--device cpu`, and an error where there is no
-card. The configuration is copied next to the run, where the loaders read
-it. `-t` trains on a 16-file subset (with its own cache). TF32 is off, as
-in the sampling CLIs. `--distributed`, and `meshSeq` / `meshModel` other
-than 1 or `meshData` other than -1 or 1 in the configuration, raise
-NotImplementedError: parallelism is not ported yet.
+into a packed cache beside them, and trained by `train/loop.py:Trainer`:
+on cuda unless `--device cpu`, and an error where there is no card. The
+configuration is copied next to the run, where the loaders read it. `-t`
+trains on a 16-file subset (with its own cache). TF32 is off, as in the
+sampling CLIs.
+
+Data parallel: under torchrun (`torchrun --nproc_per_node N -m
+genie2_tpu_torch.cli.train -c CONFIG`) every process joins the process
+group from the launcher's environment, as `jax.distributed.initialize()`
+does (`--distributed`, implied where WORLD_SIZE > 1; NCCL on the card,
+gloo on the CPU), takes the card LOCAL_RANK and trains on its rows of each
+global batch; `meshData` must be -1 or the world size. `meshSeq` /
+`meshModel` other than 1 raise NotImplementedError (not ported).
 """
 
 from __future__ import annotations
@@ -21,32 +27,40 @@ import shutil
 import torch
 
 
-def check_single_device(args, config):
-    """Refuse what needs more than one device."""
-    given = ["--distributed"] if args.distributed else []
-    given += [f"{k} {config.tpu.get(key)}" for k, key in (("meshSeq", "mesh_seq"), ("meshModel", "mesh_model"))
-              if config.tpu.get(key, 1) != 1]
-    if config.tpu.get("mesh_data", -1) not in (-1, 1):
-        given.append(f"meshData {config.tpu['mesh_data']}")
+def check_mesh(args, config):
+    """Refuse the axes that are not ported; join the launcher's process
+    group where asked or launched with more than one rank."""
+    from genie2_tpu_torch.parallel.mesh import UNPORTED_AXES, init_from_launcher
+
+    given = [f"{k} {config.tpu.get(key)}" for k, key in (("meshSeq", "mesh_seq"), ("meshModel", "mesh_model"))
+             if config.tpu.get(key, 1) != 1]
     if given:
-        raise NotImplementedError(f"{', '.join(given)}: parallelism is not ported to genie2_tpu_torch yet")
+        raise NotImplementedError(f"{', '.join(given)}: {UNPORTED_AXES}")
+    if args.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_from_launcher(args.device)
 
 
 def run(args):
     """Train as `args` (the parser's namespace) say; returns the Trainer."""
     from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel import barrier, data_axis_size, is_main
+    from genie2_tpu_torch.parallel.mesh import mesh_from_config
     from genie2_tpu_torch.train.data import MotifAugmentConfig, StructureDataset, resolve_filepath, setup_split
     from genie2_tpu_torch.train.loop import Trainer
     from genie2_tpu_torch.utils.model_io import resolve_device
 
     config = Config(args.config)
-    check_single_device(args, config)
+    check_mesh(args, config)
     device = resolve_device(args.device)
+    mesh = mesh_from_config(config.tpu.get("mesh_data", -1), device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = config.io["name"] or "run"
     rootdir = config.io["rootdir"]
 
+    # Rank 0 writes the split and the cache first; the others read them.
+    if not is_main(mesh):
+        barrier(mesh)
     train_names, val_names = setup_split(
         rootdir=rootdir, name=name, datadir=config.io["datadir"], min_n_res=config.io["min_n_res"],
         max_n_res=config.io["max_n_res"], max_n_chain=config.io["max_n_chain"],
@@ -68,11 +82,13 @@ def run(args):
         raise FileNotFoundError(f"no training structures found under {config.io['datadir']!r} "
                                 f"(split listed {len(train_names)} names)")
     val_dataset = build_dataset(val_names or [], "parsed_cache_val")
-    print(f"dataset: {len(dataset)} train / {len(val_dataset) if val_dataset else 0} val structures on {device}",
-          flush=True)
-
+    if is_main(mesh):
+        barrier(mesh)
     trainer = Trainer(config, resume=args.resume, init_from=args.init_from, device=device)
-    shutil.copyfile(args.config, os.path.join(rootdir, name, "configuration"))
+    if is_main(mesh):
+        print(f"dataset: {len(dataset)} train / {len(val_dataset) if val_dataset else 0} val structures on "
+              f"{data_axis_size(mesh)} x {device}", flush=True)
+        shutil.copyfile(args.config, os.path.join(rootdir, name, "configuration"))
     trainer.fit(dataset, resume=args.resume, val_dataset=val_dataset,
                 save_state_every_n_step=config.training["save_state_every_n_step"])
     return trainer
@@ -84,7 +100,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--test", action="store_true", default=False, help="Test mode (16-structure subset)")
     p.add_argument("--resume", action="store_true", default=False,
                    help="Continue from the latest version's resume_state (step-granular)")
-    p.add_argument("--distributed", action="store_true", default=False, help="Not supported (raises)")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="Join the process group of the launcher's environment (torchrun); implied where "
+                        "WORLD_SIZE > 1")
     p.add_argument("--init_from", type=str, default=None,
                    help="Fine-tune: initialize the weights from a torch checkpoint file, fresh optimizer state")
     p.add_argument("--device", type=str, default="cuda",

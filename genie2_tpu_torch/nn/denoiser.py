@@ -9,7 +9,7 @@ released Lightning checkpoint loads with plain `load_state_dict`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,7 +27,9 @@ class Denoiser(nn.Module):
     `train()` mode its forward takes a CPU `torch.Generator`, from which it
     draws one seed for each pair layer and each structure layer
     application; each layer draws its dropout masks on the activations'
-    device from a generator of its own seed, never from the global RNG.
+    device from a generator of its own seed, never from the global RNG, for
+    the global batch, and keeps this batch's rows (`rows`), so a row's masks
+    do not depend on how the global batch is split over ranks.
     `remat` checkpoints each pair layer in training (nn/pair_stack.py).
     `tri_att_chunk` is the row chunk of triangle attention's plain version
     (0 = all rows at once)."""
@@ -73,23 +75,30 @@ class Denoiser(nn.Module):
             remat=config.tpu.get("remat", True),
         )
 
-    def dropout_seeds(self, generator: Optional[torch.Generator]):
-        """(pair layer seeds, structure layer seeds) drawn from the CPU
-        `generator` in training mode; (None, None) in eval mode."""
+    def dropout_seeds(self, generator: Optional[torch.Generator], rows: Tuple[int, int, int]):
+        """(pair layer keys, structure layer keys) in training mode: each
+        the layer's seed, drawn from the CPU `generator`, with `rows`
+        (start, stop, total: this batch's rows of the global batch); (None,
+        None) in eval mode."""
         if not self.training:
             return None, None
         if generator is None:
             raise ValueError("a Denoiser in train() mode needs a CPU torch.Generator for its dropout masks; "
                              "call eval() for inference")
         n_pair, n_structure = self.n_dropout_seeds
-        seeds = torch.randint(0, 2**62, (n_pair + n_structure,), generator=generator).tolist()
+        seeds = [(s, *rows) for s in torch.randint(0, 2**62, (n_pair + n_structure,), generator=generator).tolist()]
         return seeds[:n_pair], seeds[n_pair:]
 
     def forward(
         self, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
         static_pair_bias: torch.Tensor = None, generator: Optional[torch.Generator] = None,
+        rows: Optional[Tuple[int, int, int]] = None,
     ) -> Dict[str, Any]:
-        pair_seeds, structure_seeds = self.dropout_seeds(generator)
+        """`rows`: (start, stop, total), this batch's rows of a global batch
+        of `total` rows, which the dropout masks are drawn for (default: the
+        batch is the whole batch)."""
+        rows = (0, timesteps.shape[0], timesteps.shape[0]) if rows is None else rows
+        pair_seeds, structure_seeds = self.dropout_seeds(generator, rows)
         trans_in = ts.trans
         # The frames' dtype selects the compute precision; the encodings
         # are built in float32 and the activations cast to it.

@@ -4,9 +4,10 @@ attention and the pair transition, residual and masked.
 In training, each update before its residual add goes through dropout as
 flax's nn.Dropout applies it: one mask shared along the rows (axis -3)
 after both TriMul updates and the starting triangle attention, along the
-columns (axis -2) after the ending one. A layer's masks come from a seed it
-is given, so a layer rematerialised in the backward (`remat`,
-torch.utils.checkpoint) draws the same masks again.
+columns (axis -2) after the ending one. A layer's masks come from the key
+it is given (its seed and the batch's rows of the global batch), so a
+layer rematerialised in the backward (`remat`, torch.utils.checkpoint)
+draws the same masks again.
 
 `TriangleMultiplicativeUpdate` always runs as the three-stage pipeline of
 `ops/trimul.py`: on a CUDA tensor through the three kernels, on a CPU tensor
@@ -118,7 +119,7 @@ class PairTransformLayer(nn.Module):
         self.pair_transition = PairTransition(c_p, pair_transition_n)
 
     def forward(self, p, pair_mask, res_mask, seed=None):
-        """`seed` (an int) seeds this layer's dropout masks; None: no dropout."""
+        """`seed` (a dropout key, nn/primitives.py) seeds this layer's dropout masks; None: no dropout."""
         gen = layer_generator(seed, p.device)
         rate = self.tri_dropout
         if self.include_mul_update:
@@ -152,7 +153,7 @@ class PairTransformNet(nn.Module):
         )
 
     def forward(self, p, features, seeds=None):
-        """`seeds`: one dropout seed a layer, or None (no dropout)."""
+        """`seeds`: one dropout key a layer, or None (no dropout)."""
         mask = features["residue_mask"].to(p.dtype)
         pair_mask = mask[:, :, None] * mask[:, None, :]
         remat = self.remat and self.training and torch.is_grad_enabled()

@@ -59,24 +59,27 @@ def _cast_inputs(ts: Rigid, features: Dict[str, Any], dtype: torch.dtype):
 
 
 def apply_denoiser(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
-                   static_pair_bias=None, dtype: torch.dtype = torch.float32, generator=None) -> torch.Tensor:
+                   static_pair_bias=None, dtype: torch.dtype = torch.float32, generator=None,
+                   rows=None) -> torch.Tensor:
     """The model's noise prediction z in float32, with the frames and the
     floating features cast to `dtype` (the model's weights must already be
-    in `dtype`). `generator`: the dropout generator of a model in train()
-    mode (nn/denoiser.py)."""
+    in `dtype`). `generator` and `rows`: the dropout generator of a model
+    in train() mode and this batch's rows of the global batch
+    (nn/denoiser.py)."""
     ts, features = _cast_inputs(ts, features, dtype)
-    return model(ts, timesteps, features, static_pair_bias=static_pair_bias, generator=generator)["z"].float()
+    return model(ts, timesteps, features, static_pair_bias=static_pair_bias, generator=generator,
+                 rows=rows)["z"].float()
 
 
 def apply_denoiser_cast(model, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
-                        dtype: torch.dtype = torch.float32, generator=None) -> torch.Tensor:
+                        dtype: torch.dtype = torch.float32, generator=None, rows=None) -> torch.Tensor:
     """As `apply_denoiser`, for a model with float32 weights: the forward
     runs on `dtype` casts of them made here, under autograd, so that a
     backward reaches the float32 parameters. float32 calls the model as it
     is."""
     if dtype == torch.float32:
-        return apply_denoiser(model, ts, timesteps, features, generator=generator)
+        return apply_denoiser(model, ts, timesteps, features, generator=generator, rows=rows)
     ts, features = _cast_inputs(ts, features, dtype)
     cast = {n: p.to(dtype) for n, p in model.named_parameters()}
-    out = torch.func.functional_call(model, cast, (ts, timesteps, features), {"generator": generator})
+    out = torch.func.functional_call(model, cast, (ts, timesteps, features), {"generator": generator, "rows": rows})
     return out["z"].float()

@@ -10,6 +10,7 @@ trained with it, so `Linear` reproduces it rather than the textbook fan.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -68,23 +69,40 @@ def layer_norm(c: int) -> nn.LayerNorm:
     return nn.LayerNorm(c, eps=LN_EPS)
 
 
-def layer_generator(seed, device) -> torch.Generator:
-    """The generator of one layer's dropout masks, on the activations'
-    device, or None (no dropout) where `seed` is None."""
-    return None if seed is None else torch.Generator(device=device).manual_seed(int(seed))
+class DropoutSource(NamedTuple):
+    """One layer's dropout masks: a generator of the layer's seed, on the
+    activations' device, drawing each mask for the whole global batch of
+    `total` rows, of which this batch holds rows [start, stop)."""
+
+    generator: torch.Generator
+    start: int
+    stop: int
+    total: int
 
 
-def dropout(x: torch.Tensor, rate: float, generator, broadcast_dims=()) -> torch.Tensor:
+def layer_generator(key, device) -> Optional[DropoutSource]:
+    """The source of one layer's dropout masks from its key (layer seed,
+    start, stop, total; nn/denoiser.py), or None (no dropout) where `key`
+    is None. Drawing every mask for the global batch and keeping this
+    batch's rows makes a row's mask the same on whichever rank it lies."""
+    if key is None:
+        return None
+    seed, start, stop, total = key
+    return DropoutSource(torch.Generator(device=device).manual_seed(int(seed)), start, stop, total)
+
+
+def dropout(x: torch.Tensor, rate: float, source: Optional[DropoutSource], broadcast_dims=()) -> torch.Tensor:
     """flax's nn.Dropout: keep each entry with probability 1 - rate and
     scale it by 1 / (1 - rate), one mask shared along `broadcast_dims`
-    (axes, negative ones counted from the end). The identity where
-    `generator` is None (eval mode) or the rate is 0."""
-    if generator is None or rate == 0.0:
+    (axes other than the batch axis 0, negative ones counted from the end).
+    The mask is drawn for the global batch and sliced to this batch's rows.
+    The identity where `source` is None (eval mode) or the rate is 0."""
+    if source is None or rate == 0.0:
         return x
     keep = 1.0 - rate
     dims = {d % x.dim() for d in broadcast_dims}
-    shape = [1 if d in dims else n for d, n in enumerate(x.shape)]
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    shape = [source.total] + [1 if d in dims else n for d, n in enumerate(x.shape)][1:]
+    mask = torch.rand(shape, generator=source.generator, device=x.device)[source.start:source.stop] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -126,7 +126,7 @@ class StructureLayer(nn.Module):
         self.bb_update = BackboneUpdate(c_s)
 
     def forward(self, s, p, t: Rigid, mask, seed=None):
-        """`seed` (an int) seeds this application's dropout masks; None: no dropout."""
+        """`seed` (a dropout key, nn/primitives.py) seeds this application's dropout masks; None: no dropout."""
         gen = layer_generator(seed, s.device)
         s = self.ipa_layer_norm(dropout(s + self.ipa(s, p, t, mask), self.ipa_dropout, gen))
         s = self.transition(s, gen)

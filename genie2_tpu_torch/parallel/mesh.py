@@ -1,0 +1,280 @@
+"""Data parallelism over torch.distributed: one process a card.
+
+Counterpart of genie2_tpu/parallel/mesh.py's `data` axis. genie2_tpu runs
+one controller over a jax Mesh and lets XLA insert the collectives; here
+every card has its own process (launched by `torchrun`, or by
+`parallel/spawn.py`), and the code calls the collectives itself:
+
+  * training: each rank takes its rows of the global batch, and after the
+    backward the gradients are all-reduced and divided by the world size
+    (train/state.py), as XLA's psum does for genie2_tpu;
+  * sampling: each rank runs its rows of the sample batch (padded to a
+    multiple of the world size) or its particles, and the rows are
+    gathered where the samplers need them all.
+
+Every collective is an `all_reduce` or a `broadcast`: gathering rows is an
+all-reduce SUM of a zero buffer in which each rank fills its own rows. gloo
+implements only those two for CUDA tensors, so the same code runs over
+NCCL, over gloo on the CPU and over gloo on CUDA tensors (two ranks on one
+card, which NCCL refuses).
+
+The `seq` and `model` axes (`pair_sharding`, parallel/tensor_parallel.py)
+are not ported: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from genie2_tpu_torch.utils.model_io import resolve_device
+
+UNPORTED_AXES = "ROADMAP A.5: tensor parallelism and sequence sharding are not ported to genie2_tpu_torch yet"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This process's place in the data-parallel world: its rank, the world
+    size and the device its tensors (and the collectives' buffers) live
+    on. The process group is torch.distributed's default group."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+
+
+def launcher_world_size() -> Optional[int]:
+    """The world size of a torchrun launch (or of an initialised process
+    group); None for a process started on its own."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return None
+
+
+def init_from_launcher(device) -> None:
+    """Initialise the default process group from torchrun's environment
+    (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), as
+    `jax.distributed.initialize()` does for genie2_tpu: NCCL on the card,
+    gloo on the CPU. Nothing to do where a group exists already."""
+    if dist.is_initialized():
+        return
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+    if missing:
+        raise ValueError(f"no launcher environment ({', '.join(missing)} unset): start the processes with "
+                         "torchrun --nproc_per_node N")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+
+
+def create_mesh(n_data: int = -1, device=None) -> Mesh:
+    """The data-parallel mesh over every rank of the initialised process
+    group; `n_data` -1 or the world size (the data axis is the only one,
+    and a rank cannot hold a part of it)."""
+    if not dist.is_initialized():
+        raise ValueError("create_mesh needs an initialised process group (torchrun, or init_from_launcher)")
+    world = dist.get_world_size()
+    if n_data not in (-1, world):
+        raise ValueError(f"meshData {n_data} must be -1 or the world size ({world} ranks)")
+    return Mesh(dist.get_rank(), world, resolve_device(device))
+
+
+def mesh_from_config(n_data: int, device=None) -> Optional[Mesh]:
+    """The training mesh of `meshData`: over every rank of the initialised
+    process group, or None in a process started alone, where `n_data` must
+    be -1 or 1."""
+    if dist.is_available() and dist.is_initialized():
+        return create_mesh(n_data, device)
+    if n_data not in (-1, 1):
+        raise ValueError(f"meshData {n_data} needs {n_data} ranks, and this process is alone: launch with "
+                         f"torchrun --nproc_per_node {n_data}")
+    return None
+
+
+def mesh_from_arg(num_devices: Optional[int] = None, n_seq: int = 1, n_model: int = 1, device=None) -> Optional[Mesh]:
+    """Resolve the CLIs' --num_devices (and --mesh_seq / --mesh_model) into
+    a mesh; None means one process, no sharding. -1 means every rank of the
+    launch; any other count must equal the launch's world size, and a count
+    other than 1 needs a launcher, as genie2_tpu refuses more devices than
+    it has."""
+    if n_seq != 1 or n_model != 1:
+        raise NotImplementedError(f"--mesh_seq {n_seq} / --mesh_model {n_model}: {UNPORTED_AXES}")
+    world = launcher_world_size()
+    if num_devices in (None, 1):
+        if world is not None and world > 1:
+            raise ValueError(f"launched with {world} ranks: pass --num_devices {world} (or -1)")
+        return None
+    if world is None:
+        raise ValueError(f"--num_devices {num_devices} needs one process a device: launch with "
+                         "torchrun --nproc_per_node N")
+    if num_devices not in (-1, world):
+        raise ValueError(f"--num_devices {num_devices} but the launch has {world} ranks")
+    init_from_launcher(device)
+    return create_mesh(-1, device)
+
+
+def data_axis_size(mesh: Optional[Mesh]) -> int:
+    """The divisor of batch and particle counts: the world size, 1 without
+    a mesh."""
+    return 1 if mesh is None else mesh.world_size
+
+
+def is_main(mesh: Optional[Mesh]) -> bool:
+    """Whether this process writes files and logs: rank 0, or the only one."""
+    return mesh is None or mesh.rank == 0
+
+
+def local_rows(n: int, mesh: Optional[Mesh]) -> slice:
+    """This rank's rows of a global axis of `n` (divisible by the world size)."""
+    if mesh is None:
+        return slice(0, n)
+    per = n // mesh.world_size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
+    """This rank's rows of a global batch (numpy arrays or tensors): every
+    process holds the same global batch and keeps its own part, as
+    genie2_tpu's multi-host `shard_batch` feeds each process's devices."""
+    n_data = data_axis_size(mesh)
+    for k, v in batch.items():
+        if getattr(v, "shape", None) and v.shape[0] % n_data:
+            raise ValueError(
+                f"batch axis {v.shape[0]} (key {k!r}) not divisible by the mesh 'data' axis ({n_data}); "
+                "pick a divisible batchSize or shrink meshData"
+            )
+    if mesh is None:
+        return batch
+    return {k: v[local_rows(v.shape[0], mesh)] if getattr(v, "shape", None) else v for k, v in batch.items()}
+
+
+def check_particles(n_particles: int, mesh: Optional[Mesh]):
+    """Particles shard over the ranks and are never padded (a padded
+    particle would join the resampling population): a count the world size
+    does not divide is an error, as in genie2_tpu."""
+    n_data = data_axis_size(mesh)
+    if n_particles % n_data:
+        raise ValueError(
+            f"num_particles={n_particles} must be divisible by the mesh 'data' axis ({n_data}) (particles are "
+            "sharded, not padded: they interact through resampling); pick a divisible particle count or run "
+            "without --num_devices")
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The sum of `x` over the ranks (in place); `x` itself without a mesh."""
+    if mesh is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+    return x
+
+
+def gather_rows(mesh: Optional[Mesh], *tensors: torch.Tensor) -> List[torch.Tensor]:
+    """Each rank's rows of each tensor, stacked in rank order: the global
+    tensors, on every rank. One all-reduce SUM of a zero-padded float32
+    buffer carries all of them: exact for float32 values and for integers
+    below 2^24, since every entry is one value plus zeros. Without a mesh,
+    the tensors."""
+    if mesh is None:
+        return list(tensors)
+    flat = [t.reshape(t.shape[0], -1).float() for t in tensors]
+    n = flat[0].shape[0]
+    widths = [f.shape[1] for f in flat]
+    buf = torch.zeros(n * mesh.world_size, sum(widths), dtype=torch.float32, device=flat[0].device)
+    buf[mesh.rank * n:(mesh.rank + 1) * n] = torch.cat(flat, dim=1)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    out = []
+    for t, part in zip(tensors, buf.split(widths, dim=1)):
+        out.append(part.reshape(n * mesh.world_size, *t.shape[1:]).to(t.dtype))
+    return out
+
+
+GRAD_BUCKET_BYTES = 32 << 20  # the flattened gradient buckets of one all-reduce each
+
+
+def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
+    """Replace each gradient by its mean over the ranks (in place), in a few
+    flattened buckets, each one all-reduce SUM divided by the world size,
+    as genie2_tpu's psum over the data axis; nothing without a mesh. Every
+    rank passes the same list: a gradient that is None on one rank is None
+    on all (the same model and path) and is left out by the caller, since
+    Adam skips a None gradient but would update its moments on a zero one."""
+    if mesh is None or not grads:
+        return
+    with torch.profiler.record_function("grad_allreduce"):
+        buckets, size = [[]], 0
+        for g in grads:
+            if buckets[-1] and (size + g.numel() * g.element_size() > GRAD_BUCKET_BYTES
+                                or g.dtype != buckets[-1][0].dtype):
+                buckets.append([])
+                size = 0
+            buckets[-1].append(g)
+            size += g.numel() * g.element_size()
+        for bucket in buckets:
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat.div_(mesh.world_size)
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+
+
+def any_rank(flag: bool, mesh: Optional[Mesh]) -> bool:
+    """Whether `flag` is set on any rank (an all-reduce MAX): the ranks
+    agree on it, so every one takes the same branch."""
+    if mesh is None:
+        return flag
+    x = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item() > 0)
+
+
+def broadcast_int(value: int, mesh: Optional[Mesh]) -> int:
+    """Rank 0's `value` on every rank."""
+    if mesh is None:
+        return value
+    x = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(x, src=0)
+    return int(x.item())
+
+
+def replicate(module_or_tensors, mesh: Optional[Mesh]):
+    """Rank 0's parameters and buffers (of a module) or tensors (a sequence
+    or a dict of them) on every rank, in place; returns the argument."""
+    if mesh is None:
+        return module_or_tensors
+    if isinstance(module_or_tensors, torch.nn.Module):
+        tensors: Sequence[torch.Tensor] = list(module_or_tensors.state_dict().values())
+    elif isinstance(module_or_tensors, dict):
+        tensors = list(module_or_tensors.values())
+    else:
+        tensors = list(module_or_tensors)
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src=0)
+    return module_or_tensors
+
+
+def barrier(mesh: Optional[Mesh]):
+    """Wait for every rank (an all-reduce of one element on the mesh's device)."""
+    if mesh is not None:
+        dist.all_reduce(torch.zeros(1, device=mesh.device))
+
+
+def pad_to_ranks(n: int, mesh: Optional[Mesh]) -> int:
+    """`n` rounded up to a multiple of the world size."""
+    n_data = data_axis_size(mesh)
+    return -(-n // n_data) * n_data
+
+
+def repeat_first_rows(batch: Dict[str, np.ndarray], n_total: int) -> Dict[str, np.ndarray]:
+    """A host batch grown to `n_total` rows by repeats of row 0."""
+    reps = n_total - next(iter(batch.values())).shape[0]
+    if reps == 0:
+        return batch
+    return {k: np.concatenate([v, np.repeat(v[:1], reps, axis=0)]) for k, v in batch.items()}

@@ -6,6 +6,13 @@ sampling/dpm_solver.py, with classifier-free guidance and trajectory dumps.
 Optional sampling parameters (all default to off): `strength`, `ddim_steps`,
 `ddim_eta`, `ddim_eta_switch_t`, `dpm_steps`, `fast_spacing`,
 `dump_trajectory_every`, `seed`.
+
+Data parallel (`mesh`, parallel/mesh.py): every rank builds the same global
+batch, padded to the global batch's bucket length and, by repeats of row 0
+with throwaway negative sample ids, to a multiple of the world size; each
+rank runs its rows and the coordinates are gathered on every rank. Noise
+streams keyed by (seed, sample id, step) make the split irrelevant, so the
+files are those of one process. Rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import batchify, debatchify, save_coords_to_pdb, to_device, to_host
 from genie2_tpu_torch.nn.policy import apply_denoiser, cast_model, compute_dtype
+from genie2_tpu_torch.parallel.mesh import gather_rows, is_main, pad_to_ranks, repeat_first_rows, shard_batch
 from genie2_tpu_torch.sampling.ddpm import (
     ModelFn,
     ancestral_sample,
@@ -52,10 +60,12 @@ def pad_residues(batch: Dict[str, np.ndarray], n_padded: int) -> Dict[str, np.nd
 class BaseSampler(ABC):
     """Template-method sampler over the reverse loops. The model must
     already sit on its device in eval mode (the loader puts it on the card
-    unless the caller names the CPU); the sampler runs where the model is."""
+    unless the caller names the CPU); the sampler runs where the model is.
+    With a `mesh`, each rank runs its share of every batch."""
 
-    def __init__(self, model, config, bucket: int = 32, dtype: str = None):
+    def __init__(self, model, config, bucket: int = 32, dtype: str = None, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.dtype = compute_dtype(dtype or config.tpu.get("compute_dtype", "fp32"))
         self.model = cast_model(model, self.dtype)  # the caller's model stays as it is
@@ -95,9 +105,11 @@ class BaseSampler(ABC):
         if not self.validate_parameters(params):
             missing = [n for n in self.required if n not in params]
             raise ValueError(f"missing required sampling parameters: {missing}")
-        self.on_sample_start(params)
+        if is_main(self.mesh):
+            self.on_sample_start(params)
         list_np_features = self._sample(params)
-        self.on_sample_end(params, list_np_features)
+        if is_main(self.mesh):
+            self.on_sample_end(params, list_np_features)
         return list_np_features
 
     def sample_ids(self, params: Dict[str, Any], n: int) -> List[int]:
@@ -170,9 +182,13 @@ class BaseSampler(ABC):
 
         batch = batchify([dict(f) for f in self.create_np_features_batch(params)])
         n_real = batch["aatype"].shape[0]
-        ids = self.sample_ids(params, n_real)
-
-        features = to_device(pad_residues(batch, bucket_length(batch["residue_mask"].shape[1], self.bucket)), self.device)
+        n_total = pad_to_ranks(n_real, self.mesh)
+        # Rows past n_real repeat row 0 under throwaway negative ids.
+        all_ids = self.sample_ids(params, n_real) + list(range(-1, n_real - n_total - 1, -1))
+        padded = repeat_first_rows(pad_residues(batch, bucket_length(batch["residue_mask"].shape[1], self.bucket)),
+                                   n_total)
+        features = to_device(shard_batch(padded, self.mesh), self.device)
+        ids = shard_batch({"ids": np.asarray(all_ids)}, self.mesh)["ids"].tolist()
         model_fn = self.make_model_fn(features, float(params.get("strength") or 0.0))
 
         if dpm_steps:
@@ -190,8 +206,10 @@ class BaseSampler(ABC):
             trans, snapshots, snap_steps = ancestral_sample_with_trajectory(
                 model_fn, self.schedule, features, seed, ids, scale, record_every=dump_every
             )
-            self._write_trajectory(params, snapshots, snap_steps, int(np.asarray(batch["num_residues"][0])))
+            if is_main(self.mesh):  # rank 0 holds sample 0
+                self._write_trajectory(params, snapshots, snap_steps, int(np.asarray(batch["num_residues"][0])))
         else:
             trans = ancestral_sample(model_fn, self.schedule, features, seed, ids, scale)
-        features["atom_positions"] = trans
-        return debatchify(to_host(features))[:n_real]
+        out = to_device(padded, "cpu")
+        out["atom_positions"] = gather_rows(self.mesh, trans)[0]
+        return debatchify(to_host(out))[:n_real]

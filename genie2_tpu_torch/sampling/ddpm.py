@@ -26,8 +26,10 @@ ModelFn = Callable[[Rigid, torch.Tensor], torch.Tensor]
 
 
 def stream_seed(seed: int, sample_id: int, step: int) -> int:
-    """The seed of one (seed, sample_id, step) noise stream."""
-    state = np.random.SeedSequence([int(seed), int(sample_id), int(step)]).generate_state(1, np.uint64)
+    """The seed of one (seed, sample_id, step) noise stream. A negative id
+    (a row that only pads a batch to a multiple of the ranks) is taken
+    modulo 2^64, as SeedSequence takes no negative entropy."""
+    state = np.random.SeedSequence([int(seed), int(sample_id) % 2**64, int(step)]).generate_state(1, np.uint64)
     return int(state[0]) & (2**63 - 1)
 
 

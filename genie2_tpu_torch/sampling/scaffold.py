@@ -14,16 +14,22 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from genie2_tpu_torch.features import features_from_motif_pdb, save_features_to_pdb, save_motif_pdb
+from genie2_tpu_torch.parallel.mesh import broadcast_int
 from genie2_tpu_torch.sampling.base import BaseSampler
 
 
 class ScaffoldSampler(BaseSampler):
     """`placement_seed` seeds the generator that draws the placements; the
-    default is an unseeded generator."""
+    default is an unseeded generator. With a mesh every rank draws every
+    sample's placement (from rank 0's seed where none is given), so each
+    rank's rows are rows of the same global batch."""
 
-    def __init__(self, model, config, bucket: int = 32, dtype: str = None, placement_seed: Optional[int] = None):
+    def __init__(self, model, config, bucket: int = 32, dtype: str = None, placement_seed: Optional[int] = None,
+                 mesh=None):
+        if placement_seed is None and mesh is not None:
+            placement_seed = broadcast_int(int(np.random.SeedSequence().generate_state(1, np.uint32)[0]), mesh)
         self._rng = np.random.default_rng(placement_seed)
-        super().__init__(model, config, bucket=bucket, dtype=dtype)
+        super().__init__(model, config, bucket=bucket, dtype=dtype, mesh=mesh)
 
     def setup(self):
         self.add_required_parameter("filepath")

@@ -19,6 +19,15 @@ step and discards it below, with the same results.
 Randomness: particle p draws x_T and its per-step noise from the (seed, p,
 step) streams of sampling/ddpm.py, the resampling offsets come from
 `resampling_generator(seed)`.
+
+Data parallel (`mesh`): the particles shard over the ranks (a count that
+does not divide raises: a padded particle would join the resampling
+population). The gradient through the denoiser stays on its rank; the
+twist's norms are all-reduced, and each step's proposals, log weights and
+monitors are gathered, so every rank computes the same ESS, resampling
+decision and indices and takes its selected rows. Placements and
+decisions are those of one process; coordinates agree up to the
+reduction order of the norms.
 """
 
 from __future__ import annotations
@@ -42,6 +51,15 @@ from genie2_tpu_torch.features import (
 )
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
 from genie2_tpu_torch.nn.policy import without_grad
+from genie2_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    check_particles,
+    data_axis_size,
+    gather_rows,
+    local_rows,
+    shard_batch,
+)
 from genie2_tpu_torch.sampling.base import BaseSampler
 from genie2_tpu_torch.sampling.ddpm import ModelFn, init_translations, trajectory_noise
 from genie2_tpu_torch.sampling.manifest import write_benchmark_manifests
@@ -69,6 +87,13 @@ PROPOSALS = ("posterior", "score")
 
 def _log_normal(x, mean, var):
     return -0.5 * ((x - mean) ** 2) / var - 0.5 * torch.log(var) - _LOG_SQRT_2PI
+
+
+def _particle_norm(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The norm of `x` over every particle, this rank's and the others'."""
+    if mesh is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(all_reduce_sum(x.square().sum(), mesh))
 
 
 class TDSTrace(NamedTuple):
@@ -101,6 +126,7 @@ def tds_sample_injected(
     score_grad_cap: float = 0.0,
     record_every: Optional[int] = None,
     first_step: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, TDSTrace, Dict[int, Tuple[np.ndarray, np.ndarray]]]:
     """The twisted SMC reverse trajectory from a supplied x_T [P, L, 3],
     supplied per-step noise [T, P, L, 3] (noises[0] is used at step T) and
@@ -114,7 +140,7 @@ def tds_sample_injected(
     `proposal` selects where the twisting gradient g (of the sum over
     particles of log p~) enters the proposal mean mu_t:
       "posterior": mu + coef1 g a|g|/(a + |g|), a = grad_alpha, |g| the
-          norm over all particles;
+          norm over all particles (every rank's);
       "score": mu + (beta/sqrt(alpha)) g/(var P), g taken with the x-start
           variance 1 - abar_t, with the optional soft cap
           |delta| < score_grad_cap.
@@ -123,12 +149,18 @@ def tds_sample_injected(
 
     Returns (final translations [P, L, 3], the last step's per-placement
     scores [P, O], TDSTrace of device tensors, snapshots {step: (x0, x_{t-1})
-    as numpy arrays} every `record_every` steps)."""
+    as numpy arrays} every `record_every` steps).
+
+    With a `mesh`, `features`, `init_trans` and `noises` hold this rank's
+    particles (its rows of the P = rows x world size) and the results are
+    every particle's, on every rank."""
     if proposal not in PROPOSALS:
         raise ValueError(f"proposal must be 'posterior' or 'score', got {proposal!r}")
-    n_particles = init_trans.shape[0]
-    if features["residue_mask"].shape[0] != n_particles:
-        raise ValueError(f"{features['residue_mask'].shape[0]} feature rows for {n_particles} particles")
+    n_local = init_trans.shape[0]
+    if features["residue_mask"].shape[0] != n_local:
+        raise ValueError(f"{features['residue_mask'].shape[0]} feature rows for {n_local} particles")
+    n_particles = n_local * data_axis_size(mesh)
+    rows = local_rows(n_particles, mesh)
     device = init_trans.device
     mask = features["residue_mask"].float()[..., None]
     chain_index, residue_mask = features["chain_index"], features["residue_mask"]
@@ -164,13 +196,13 @@ def tds_sample_injected(
 
     trans = init_trans
     log_proposal = (-0.5 * (math.log(2 * math.pi) + trans ** 2)).sum(dim=(1, 2))
-    log_w_acc = torch.zeros(n_particles, dtype=torch.float32, device=device)
+    log_w_acc = torch.zeros(n_local, dtype=torch.float32, device=device)
     identity = torch.arange(n_particles, device=device)
     traces: List[Tuple[torch.Tensor, ...]] = []
     snaps: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
     score = None
     for i, t in enumerate(range(first_step, first_step - noises.shape[0], -1)):
-        t_vec = torch.full((n_particles,), t, dtype=torch.long, device=device)
+        t_vec = torch.full((n_local,), t, dtype=torch.long, device=device)
         abar = s.alphas_cumprod[t]
         var, rot_var = xstart_variance(abar, tausq), xstart_variance(abar, rot_tausq)
         grad_var = s.one_minus_alphas_cumprod[t] if proposal == "score" else None
@@ -194,9 +226,9 @@ def tds_sample_injected(
                 if proposal == "score":
                     delta = (s.betas[t] / s.sqrt_alphas[t]) * (grad / (var * n_particles))
                     if score_grad_cap:
-                        delta = delta * (score_grad_cap / (score_grad_cap + torch.linalg.vector_norm(delta)))
+                        delta = delta * (score_grad_cap / (score_grad_cap + _particle_norm(delta, mesh)))
                 else:
-                    norm = torch.linalg.vector_norm(grad)
+                    norm = _particle_norm(grad, mesh)
                     delta = coef1 * grad * grad_alpha * norm / (grad_alpha + norm)
                 mean_twisted = mean_untwisted + delta
 
@@ -209,23 +241,26 @@ def tds_sample_injected(
             log_twisted = _log_normal(proposed, mean_twisted, sigmasq).sum(dim=(1, 2))
             log_w_new = log_reverse + log_prob - log_twisted - log_proposal + log_w_acc
 
-            ess = ess_from_log_weights(log_w_new)
+            # The resampling population is every rank's particles.
+            proposed_all, log_prob_all, log_w_all, x0_all, best_all = gather_rows(
+                mesh, proposed, log_prob, log_w_new, x0, torch.argmax(score, dim=1))
+            ess = ess_from_log_weights(log_w_all)
             do_resample = ess < ess_frac * n_particles
-            idx = systematic_resample_indices(torch.softmax(log_w_new, dim=0), offsets[i])
-            sel = torch.where(do_resample, idx, identity)
+            idx = systematic_resample_indices(torch.softmax(log_w_all, dim=0), offsets[i])
+            sel = torch.where(do_resample, idx, identity)[rows]
             if t > 1:
-                trans = proposed[sel]
-                log_proposal = log_prob[sel]
-                log_w_acc = torch.where(do_resample, torch.zeros_like(log_w_new),
-                                        normalize_log_weights(log_w_new) + math.log(float(n_particles)))
+                trans = proposed_all[sel]
+                log_proposal = log_prob_all[sel]
+                log_w_acc = torch.where(do_resample, torch.zeros_like(log_w_all),
+                                        normalize_log_weights(log_w_all) + math.log(float(n_particles)))[rows]
             else:  # the last step takes the twisted mean and leaves the weights as they are
                 trans = mean_twisted
-            traces.append((ess, do_resample & (t > 1), motif_distance(x0, positions, motif_target),
-                           torch.argmax(score[0])))
+            traces.append((ess, do_resample & (t > 1), motif_distance(x0_all, positions, motif_target), best_all[0]))
             if record_every and t % record_every == 0:
-                snaps[t] = (x0, trans)
+                snaps[t] = (x0_all, gather_rows(mesh, trans)[0])
     trace = TDSTrace(*(torch.stack(parts) for parts in zip(*traces)))
     snapshots = {t: (x0.cpu().numpy(), xt.cpu().numpy()) for t, (x0, xt) in snaps.items()}
+    trans, score = gather_rows(mesh, trans, score)
     return trans, score, trace, snapshots
 
 
@@ -237,19 +272,22 @@ def tds_sample(
     motif_target: torch.Tensor,
     seed: int,
     scale: float = 1.0,
+    mesh: Optional[Mesh] = None,
     **kwargs,
 ):
     """The twisted SMC trajectory over the schedule's T steps, with x_T and
     each step's noise from the (seed, particle, step) streams and the
-    resampling offsets from `resampling_generator(seed)`. Keyword arguments
-    and the result as `tds_sample_injected`."""
-    n_particles = features["residue_mask"].shape[0]
-    ids = list(range(n_particles))
+    resampling offsets from `resampling_generator(seed)`. With a mesh,
+    `features` holds this rank's particles. Keyword arguments and the
+    result as `tds_sample_injected`."""
+    n_particles = features["residue_mask"].shape[0] * data_axis_size(mesh)
+    rows = local_rows(n_particles, mesh)
+    ids = list(range(rows.start, rows.stop))
     trans = init_translations(features, seed, ids)
     noises = trajectory_noise(seed, ids, schedule.n_timestep, trans.shape[1])
     offsets = resampling_draws("systematic", n_particles, resampling_generator(seed), steps=schedule.n_timestep)
     return tds_sample_injected(model_fn, schedule, features, positions, motif_target, trans, noises, offsets,
-                               scale, **kwargs)
+                               scale, mesh=mesh, **kwargs)
 
 
 class SMCSampler(BaseSampler):
@@ -265,7 +303,8 @@ class SMCSampler(BaseSampler):
     computes no weight gradients and the caller's model stays as it is.
 
     Optional sampling parameters: `seed`, `twist_rotations`, `rot_tausq`,
-    `proposal`, `score_grad_cap`."""
+    `proposal`, `score_grad_cap`. With a mesh the particles shard over the
+    ranks: a count the world size does not divide raises."""
 
     def setup(self):
         self.add_required_parameter("motif_index")
@@ -299,7 +338,9 @@ class SMCSampler(BaseSampler):
         self.placements = placements
         positions = torch.from_numpy(placements_to_positions(placements))
 
-        features = to_device(batchify(self.create_np_features_batch(params)), self.device)
+        check_particles(params["num_samples"], self.mesh)
+        batch = batchify(self.create_np_features_batch(params))
+        features = to_device(shard_batch(batch, self.mesh), self.device)
         with torch.no_grad():  # the static pair bias, outside any graph
             model_fn = self.make_model_fn(features)
         trans, final_score, trace, snapshots = tds_sample(
@@ -307,7 +348,7 @@ class SMCSampler(BaseSampler):
             untwist_below=self.untwist_below, record_every=self.dump_trajectory_every, motif_rots=motif_rots,
             rot_mask=rot_mask, rot_tausq=float(params.get("rot_tausq") or 0.1),
             proposal=params.get("proposal") or "posterior",
-            score_grad_cap=float(params.get("score_grad_cap") or 0.0),
+            score_grad_cap=float(params.get("score_grad_cap") or 0.0), mesh=self.mesh,
         )
 
         self.trace = TDSTrace(*(t.cpu().numpy() for t in trace))
@@ -320,8 +361,9 @@ class SMCSampler(BaseSampler):
         self._protein_length = protein_length
         self._seg_info = load_motif_target_info(params["motif_index"], params["motif_dir"])
 
-        features["atom_positions"] = trans
-        return debatchify(to_host(features))
+        out = to_device(batch, "cpu")
+        out["atom_positions"] = trans
+        return debatchify(to_host(out))
 
     def on_sample_end(self, params: Dict[str, Any], list_np_features: List[Dict]):
         for i, np_features in enumerate(list_np_features):

@@ -21,16 +21,18 @@ extended strand d(i,i+3) ~ 9.9 A / d(i,i+4) ~ 13.1 A.
 
 Randomness: particle p draws its x_T and its per-step noise from the
 (seed, p, step) streams of sampling/ddpm.py, the resampling offsets come
-from `resampling_generator(seed)`.
+from `resampling_generator(seed)`. With a mesh each rank runs its rows of
+the particles (the filter's contract, sampling/feynman_kac.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from genie2_tpu_torch.diffusion import Schedule
+from genie2_tpu_torch.parallel.mesh import Mesh, data_axis_size, local_rows
 from genie2_tpu_torch.sampling.ddpm import ModelFn, init_translations, reverse_step, trajectory_noise
 from genie2_tpu_torch.sampling.feynman_kac import FKResult, smc_feynman_kac_injected
 from genie2_tpu_torch.sampling.resampling import resampling_draws, resampling_generator
@@ -59,14 +61,16 @@ def soft_sse_fraction(trans: torch.Tensor, mask: torch.Tensor, target: str = "he
 def sse_guided_sample_injected(model_fn: ModelFn, schedule: Schedule, features: Dict[str, Any],
                                init_trans: torch.Tensor, noises: torch.Tensor, offsets: torch.Tensor,
                                target: str = "helix", strength: float = 20.0, scale: float = 0.6,
-                               ess_threshold: float = 0.5) -> Tuple[torch.Tensor, FKResult]:
+                               ess_threshold: float = 0.5, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, FKResult]:
     """The guided filter from a supplied x_T [P, N, 3] with supplied
     per-step noise [T, P, N, 3] (noises[0] is used at step T; masked here)
     and resampling offsets [T]. `features` is a batch whose leading axis is
-    the particle axis. Returns (final translations [P, N, 3], FKResult)."""
-    n_particles = init_trans.shape[0]
-    if features["residue_mask"].shape[0] != n_particles:
-        raise ValueError(f"{features['residue_mask'].shape[0]} feature rows for {n_particles} particles")
+    the particle axis. Returns (final translations [P, N, 3], FKResult).
+    With a mesh, `features`, `init_trans` and `noises` hold this rank's
+    rows and the results every particle."""
+    n_local = init_trans.shape[0]
+    if features["residue_mask"].shape[0] != n_local:
+        raise ValueError(f"{features['residue_mask'].shape[0]} feature rows for {n_local} particles")
     mask = features["residue_mask"]
     fmask = mask.float()[..., None]
 
@@ -76,21 +80,24 @@ def sse_guided_sample_injected(model_fn: ModelFn, schedule: Schedule, features: 
     def G(new_particles, old_particles, extra, t):
         return strength * (soft_sse_fraction(new_particles, mask, target) - soft_sse_fraction(old_particles, mask, target))
 
-    result = smc_feynman_kac_injected(M, G, init_trans, None, noises, offsets, n_particles, ess_threshold)
+    result = smc_feynman_kac_injected(M, G, init_trans, None, noises, offsets, n_local * data_axis_size(mesh),
+                                      ess_threshold, mesh)
     return result.particles, result
 
 
 def sse_guided_sample(model_fn: ModelFn, schedule: Schedule, features: Dict[str, Any], seed: int,
                       n_particles: int, target: str = "helix", strength: float = 20.0, scale: float = 0.6,
-                      ess_threshold: float = 0.5) -> Tuple[torch.Tensor, FKResult]:
+                      ess_threshold: float = 0.5, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, FKResult]:
     """SSE-guided generation: `n_particles` particles of one design target
     (the same features replicated per particle) through the DDPM reverse
-    process, reweighted toward the requested SSE class."""
-    ids = list(range(n_particles))
+    process, reweighted toward the requested SSE class. With a mesh,
+    `features` holds this rank's rows of the particles."""
+    rows = local_rows(n_particles, mesh)
+    ids = list(range(rows.start, rows.stop))
     trans = init_translations(features, seed, ids)
     # All noise is drawn up front and moved to the device once, as in the
     # ancestral loop.
     noises = trajectory_noise(seed, ids, schedule.n_timestep, trans.shape[1]).to(trans.device)
     offsets = resampling_draws("systematic", n_particles, resampling_generator(seed), steps=schedule.n_timestep)
     return sse_guided_sample_injected(model_fn, schedule, features, trans, noises, offsets, target, strength,
-                                      scale, ess_threshold)
+                                      scale, ess_threshold, mesh)

@@ -16,6 +16,13 @@
 
 `scanSteps` K runs K single steps: the numerics are those of K steps
 whatever K is, and preemption and mid-epoch saves act at every step.
+
+Data parallel: in a process group (torchrun, `cli/train.py
+--distributed`), `meshData` -1 or the world size makes every rank build the
+same global batch and train on its rows (train/state.py). Rank 0 picks the
+version directory and writes the logs, checkpoints and resume points; the
+others wait for it at a barrier before anything reads them. SIGTERM on any
+rank stops every rank at the same step boundary.
 """
 
 from __future__ import annotations
@@ -33,6 +40,16 @@ from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import to_device
 from genie2_tpu_torch.nn import Denoiser
 from genie2_tpu_torch.nn.policy import apply_denoiser
+from genie2_tpu_torch.parallel.mesh import (
+    any_rank,
+    barrier,
+    broadcast_int,
+    data_axis_size,
+    is_main,
+    mesh_from_config,
+    replicate,
+    shard_batch,
+)
 from genie2_tpu_torch.train.data import StructureDataset
 from genie2_tpu_torch.train.loss import genie_loss
 from genie2_tpu_torch.train.prefetch import prefetch
@@ -95,38 +112,53 @@ def latest_version(basedir: str) -> Optional[int]:
 
 class Trainer:
     """Epoch loop and checkpointing over the training step, on one device
-    (`device`: cuda unless the caller names the CPU)."""
+    (`device`: cuda unless the caller names the CPU), or on each rank of an
+    initialised process group, data parallel (`meshData`)."""
 
     def __init__(self, config: Config, model: Optional[Denoiser] = None, version: Optional[int] = None,
                  resume: bool = False, init_from: Optional[str] = None, device=None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh_from_config(config.tpu.get("mesh_data", -1), self.device)
         cfg = config.training
+        n_data = data_axis_size(self.mesh)
+        if cfg["batch_size"] % n_data:
+            raise ValueError(f"batchSize {cfg['batch_size']} not divisible by the mesh 'data' axis ({n_data}); "
+                             "pick a divisible batchSize or shrink meshData")
+        main = is_main(self.mesh)
         self.model = (model or init_model(config, cfg["seed"], self.device)).to(self.device)
         self.schedule = Schedule.create(config.diffusion["n_timestep"], config.diffusion["schedule"],
                                         device=self.device)
 
         name = config.io["name"] or "run"
         basedir = os.path.join(config.io["rootdir"], name)
-        if version is None:
+        if version is None and main:
             # Resuming continues the latest version; a fresh run opens the next one.
             version = latest_version(basedir) if resume else None
             if version is None:
                 version = next_version(basedir)
-        self.version = version
+        # Rank 0 picks: a rank that looked itself could see rank 0's new
+        # directory and open the next one.
+        self.version = broadcast_int(version if main else 0, self.mesh)
         self.workdir = os.path.join(basedir, f"version_{self.version}")
         self.ckpt_dir = os.path.join(self.workdir, "checkpoints")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        self.logger = MetricsLogger(self.workdir, log_every=cfg["log_every_n_step"])
-        self._saver = AsyncSaver() if cfg.get("async_checkpoint", False) else None
+        self.log_every = cfg["log_every_n_step"]
+        self.logger = self._saver = None
+        if main:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            self.logger = MetricsLogger(self.workdir, log_every=self.log_every)
+            self._saver = AsyncSaver() if cfg.get("async_checkpoint", False) else None
 
         if init_from:
             # Fine-tune: start from existing weights with a fresh optimizer.
-            print(f"[finetune] initializing weights from {init_from}", flush=True)
+            if main:
+                print(f"[finetune] initializing weights from {init_from}", flush=True)
             self.model.load_state_dict(load_state_dict_file(init_from))
+        replicate(self.model, self.mesh)
         self.state = create_train_state(self.model, config.optimization["lr"], ema_decay=cfg.get("ema_decay", 0.0))
         self._step_fn = make_train_step(self.schedule, cfg["condition_loss_weight"],
-                                        config.tpu.get("compute_dtype", "fp32"), cfg.get("ema_decay", 0.0))
+                                        config.tpu.get("compute_dtype", "fp32"), cfg.get("ema_decay", 0.0),
+                                        self.mesh)
 
     # -------------------------------------------------------------- #
     # Checkpoints
@@ -143,9 +175,12 @@ class Trainer:
             self._saver.wait()
 
     def save_checkpoint(self, epoch: int) -> str:
-        """epoch={E}.ckpt (and .ema.ckpt), each with its .meta.json sidecar."""
+        """epoch={E}.ckpt (and .ema.ckpt), each with its .meta.json sidecar,
+        written by rank 0."""
         method = self.config.tpu.get("rot_to_quat_method", "closed")
         path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
+        if not is_main(self.mesh):
+            return path
         save_params(path, self.model.state_dict(), method, self._save)
         if self.state.ema is not None:
             save_params(os.path.join(self.ckpt_dir, f"epoch={epoch}.ema.ckpt"), self.state.ema, method, self._save)
@@ -161,7 +196,10 @@ class Trainer:
             os.replace(base + ".new", base)
 
     def save_state(self, epoch: int, step_in_epoch: int = 0) -> str:
+        """resume_state, written by rank 0 (every rank holds the same state)."""
         path = os.path.join(self.ckpt_dir, "resume_state")
+        if not is_main(self.mesh):
+            return path
         blob = {**self.state.state_dict(), "epoch": epoch, "step_in_epoch": step_in_epoch}
         self._ckpt_wait()
         self._promote_resume()
@@ -169,9 +207,12 @@ class Trainer:
         return path
 
     def restore_state(self):
-        """Restore resume_state if present: (start_epoch, start_step_in_epoch), or None."""
-        self._ckpt_wait()  # an async save in flight lands first
-        self._promote_resume()
+        """Restore resume_state if present: (start_epoch, start_step_in_epoch),
+        or None; every rank reads it once rank 0 has settled it."""
+        if is_main(self.mesh):
+            self._ckpt_wait()  # an async save in flight lands first
+            self._promote_resume()
+        barrier(self.mesh)
         path = os.path.join(self.ckpt_dir, "resume_state")
         if not os.path.isfile(path):
             return None
@@ -186,19 +227,24 @@ class Trainer:
     def evaluate(self, dataset, batch_size: int, epoch: int, max_batches: int = 16) -> float:
         """Mean weighted loss over up to `max_batches` validation batches,
         float32, no dropout; each batch's t and noise from
-        (seed, epoch, VAL_BATCH + batch index)."""
-        batch_size = max(1, min(batch_size, len(dataset)))
+        (seed, epoch, VAL_BATCH + batch index). With a mesh each rank runs
+        its rows of a global batch (a multiple of the world size) and the
+        batch's loss is the global one."""
+        n_data = data_axis_size(self.mesh)
+        batch_size = min(batch_size, len(dataset)) // n_data * n_data
         w = self.config.training["condition_loss_weight"]
         model = self.model.eval()
         losses = []
         with torch.no_grad():
-            for i, batch in enumerate(dataset.epoch(batch_size, np.random.default_rng(0), drop_last=True)):
+            batches = dataset.epoch(batch_size, np.random.default_rng(0), drop_last=True) if batch_size else []
+            for i, batch in enumerate(batches):
                 if i >= max_batches:
                     break
-                feats = to_device(batch, self.device)
+                feats = to_device(shard_batch(batch, self.mesh), self.device)
                 rng, _ = step_randomness(self.config.training["seed"], epoch, VAL_BATCH + i, self.device)
-                t, z, frames = noised_input(self.schedule, feats, rng)
-                losses.append(float(genie_loss(apply_denoiser(model, frames, t, feats), z, feats, w)[0]))
+                t, z, frames = noised_input(self.schedule, feats, rng, mesh=self.mesh)
+                _, metrics = genie_loss(apply_denoiser(model, frames, t, feats), z, feats, w, self.mesh)
+                losses.append(float(metrics["weighted_loss"]))
         return float(np.mean(losses)) if losses else float("nan")
 
     def fit(self, dataset: StructureDataset, n_epoch: Optional[int] = None, resume: bool = False,
@@ -211,16 +257,19 @@ class Trainer:
         cfg = self.config.training
         n_epoch = n_epoch if n_epoch is not None else cfg["n_epoch"]
         batch_size = cfg["batch_size"]
+        main = is_main(self.mesh)
         start_epoch, start_batch = 0, 0
         if resume:
             restored = self.restore_state()
             if restored is not None:
                 start_epoch, start_batch = restored
-                print(f"[resume] epoch {start_epoch}, batch {start_batch}, step {self.state.step}", flush=True)
+                if main:
+                    print(f"[resume] epoch {start_epoch}, batch {start_batch}, step {self.state.step}", flush=True)
 
         def place(batch):
-            # On the prefetch thread: the residue count and the copy to the device.
-            return int(batch["residue_mask"].sum()), to_device(batch, self.device)
+            # On the prefetch thread: the global batch's residue count, and
+            # this rank's rows copied to the device.
+            return int(batch["residue_mask"].sum()), to_device(shard_batch(batch, self.mesh), self.device)
 
         preempt = {"signum": None}
 
@@ -246,7 +295,8 @@ class Trainer:
             win_res, win_t = residues_done, now
             self.logger.log(step_i, metrics_i)
 
-        try:
+        def run_epochs():
+            nonlocal residues_done
             for epoch in range(start_epoch, n_epoch):
                 data_rng = np.random.default_rng([cfg["seed"], epoch])
                 skip = start_batch if epoch == start_epoch else 0
@@ -256,30 +306,42 @@ class Trainer:
                         rng, dropout_seed = step_randomness(cfg["seed"], epoch, b, self.device)
                         metrics = self._step_fn(self.state, batch, rng=rng, dropout_seed=dropout_seed)
                         residues_done += n_res
-                        if self.state.step % self.logger.log_every == 0:
+                        if main and self.state.step % self.log_every == 0:
                             log_window(self.state.step, dict(metrics))
                         if save_state_every_n_step and (b + 1) % save_state_every_n_step == 0:
                             self.save_state(epoch, b + 1)
-                        if preempt["signum"] is not None:
+                        # Every rank takes the same branch: a signal to any rank stops all at this step.
+                        if any_rank(preempt["signum"] is not None, self.mesh):
                             path = self.save_state(epoch, b + 1)
-                            print(f"[preempt] signal {preempt['signum']}: saved {path} (epoch {epoch}, batch "
-                                  f"{b + 1}, step {self.state.step}); exiting cleanly — restart with --resume",
-                                  flush=True)
-                            return self.state
+                            if main:
+                                print(f"[preempt] signal {preempt['signum']}: saved {path} (epoch {epoch}, batch "
+                                      f"{b + 1}, step {self.state.step}); exiting cleanly — restart with --resume",
+                                      flush=True)
+                            return
                 finally:
                     if hasattr(batches, "close"):
                         batches.close()
                 if val_dataset is not None:
                     val_loss = self.evaluate(val_dataset, batch_size, epoch)
-                    self.logger.log(self.state.step, {"val_loss": val_loss}, prefix="val")
+                    if main:
+                        self.logger.log(self.state.step, {"val_loss": val_loss}, prefix="val")
                 if (epoch + 1) % cfg["checkpoint_every_n_epoch"] == 0 or epoch == n_epoch - 1:
                     path = self.save_checkpoint(epoch)
                     self.save_state(epoch + 1, 0)
-                    print(f"[checkpoint] epoch {epoch} -> {path}", flush=True)
+                    if main:
+                        print(f"[checkpoint] epoch {epoch} -> {path}", flush=True)
+
+        try:
+            run_epochs()
         finally:
             if prev_handler is not no_trap:
                 signal.signal(signal.SIGTERM, prev_handler if prev_handler is not None else signal.SIG_DFL)
             # Every checkpoint reported is on disk when fit() returns or raises.
-            self._ckpt_wait()
-            self._promote_resume()
+            if main:
+                self._ckpt_wait()
+                self._promote_resume()
+        # Only where no rank raised (a rank that raises leaves the group, and
+        # the others' next collective fails): the ranks return once rank 0's
+        # files are on disk.
+        barrier(self.mesh)
         return self.state

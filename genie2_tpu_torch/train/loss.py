@@ -8,9 +8,11 @@ the per-category means are NaN-free (weighted by membership).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from genie2_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 
 
 def residue_error_norm(x_pred: torch.Tensor, x: torch.Tensor, mask: torch.Tensor, aggregate: str = None,
@@ -28,10 +30,14 @@ def residue_error_norm(x_pred: torch.Tensor, x: torch.Tensor, mask: torch.Tensor
 
 
 def genie_loss(z_pred: torch.Tensor, z: torch.Tensor, features: Dict[str, torch.Tensor],
-               condition_loss_weight: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               condition_loss_weight: float, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(scalar weighted loss, metrics): unweighted_loss, weighted_loss,
     motif_mse_loss, scaffold_mse_loss, unconditional_mse_loss and
-    frac_conditioned, each a 0-d tensor."""
+    frac_conditioned, each a 0-d tensor. Each metric is a sum over the batch
+    divided by a count over it; with a mesh both are summed over the ranks
+    first, so the metrics are the global batch's. The loss is this batch's
+    mean (with equal rows a rank, the mean of the ranks' losses is the
+    global one)."""
     residue_mask = features["residue_mask"].float()
     fixed_seq = features["fixed_sequence_mask"].float()
     condition_mask = residue_mask * fixed_seq
@@ -52,14 +58,17 @@ def genie_loss(z_pred: torch.Tensor, z: torch.Tensor, features: Dict[str, torch.
     no_motif = 1.0 - has_motif
     safe_cond = condition_losses / torch.clamp(n_cond, min=1.0)
     safe_infill = infill_losses / torch.clamp(n_infill, min=1.0)
-    n_motif = torch.clamp(has_motif.sum(), min=1.0)
+    rows = torch.full((), float(weighted.shape[0]), device=weighted.device)
 
-    metrics = {
-        "unweighted_loss": unweighted.mean(),
-        "weighted_loss": weighted.mean(),
-        "motif_mse_loss": (safe_cond * has_motif).sum() / n_motif,
-        "scaffold_mse_loss": (safe_infill * has_motif).sum() / n_motif,
-        "unconditional_mse_loss": (safe_infill * no_motif).sum() / torch.clamp(no_motif.sum(), min=1.0),
-        "frac_conditioned": has_motif.mean(),
+    # (sum over the batch, count over it) of each metric.
+    terms = {
+        "unweighted_loss": (unweighted.sum(), rows),
+        "weighted_loss": (weighted.sum(), rows),
+        "motif_mse_loss": ((safe_cond * has_motif).sum(), has_motif.sum()),
+        "scaffold_mse_loss": ((safe_infill * has_motif).sum(), has_motif.sum()),
+        "unconditional_mse_loss": ((safe_infill * no_motif).sum(), no_motif.sum()),
+        "frac_conditioned": (has_motif.sum(), rows),
     }
+    sums = all_reduce_sum(torch.stack([torch.stack(pair) for pair in terms.values()]).detach(), mesh)
+    metrics = {k: sums[i, 0] / torch.clamp(sums[i, 1], min=1.0) for i, k in enumerate(terms)}
     return weighted.mean(), metrics

@@ -19,6 +19,12 @@ generator on the batch's device, the dropout masks from a seed
 tests inject genie2_tpu's). `step_randomness` derives both from (seed,
 epoch, batch index) through `np.random.SeedSequence`, as the samplers seed
 their noise streams.
+
+Data parallel (`mesh`): each rank runs its rows of the global batch and
+the gradients are all-reduced by hand after the backward, not by
+DistributedDataParallel: the bf16 policy calls the model through
+`torch.func.functional_call`, which bypasses a DDP wrapper's forward, so
+DDP's reducer would never be prepared.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from genie2_tpu_torch.diffusion import Schedule, q_sample
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
 from genie2_tpu_torch.nn.policy import apply_denoiser_cast, compute_dtype
+from genie2_tpu_torch.parallel.mesh import Mesh, average_gradients, data_axis_size, local_rows
 from genie2_tpu_torch.train.loss import genie_loss
 
 
@@ -74,44 +81,60 @@ def step_randomness(seed: int, epoch: int, batch: int, device) -> Tuple[torch.Ge
 
 
 def noised_input(schedule: Schedule, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
-                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                 mesh: Optional[Mesh] = None):
     """(t [B], masked noise z [B,N,3], noisy frames): t ~ U{1..T} and the
     standard normal noise are drawn from `rng` unless given; the noise is
-    masked to the real residues here."""
+    masked to the real residues here. With a mesh, t and the noise are the
+    global batch's (drawn for it in the one-process order, or given), and
+    this rank takes its rows of them."""
     x0 = features["atom_positions"]
     dev = x0.device
+    n = x0.shape[0] * data_axis_size(mesh)
     if t is None:
-        t = torch.randint(1, schedule.n_timestep + 1, (x0.shape[0],), generator=rng, device=dev)
+        t = torch.randint(1, schedule.n_timestep + 1, (n,), generator=rng, device=dev)
     if noise is None:
-        noise = torch.randn(x0.shape, generator=rng, device=dev, dtype=x0.dtype)
-    z = noise.to(dev) * features["residue_mask"].to(x0.dtype)[..., None]
-    t = t.to(dev)
+        noise = torch.randn((n, *x0.shape[1:]), generator=rng, device=dev, dtype=x0.dtype)
+    rows = local_rows(n, mesh)
+    z = noise[rows].to(dev) * features["residue_mask"].to(x0.dtype)[..., None]
+    t = t[rows].to(dev)
     trans_t = q_sample(schedule, x0, t, z)
     rots_t = frenet_frames(trans_t, features["chain_index"], features["residue_mask"])
     return t, z, Rigid(rots_t, trans_t)
 
 
 def make_train_step(schedule: Schedule, condition_loss_weight: float, compute_dtype_name: str = "fp32",
-                    ema_decay: float = 0.0):
+                    ema_decay: float = 0.0, mesh: Optional[Mesh] = None):
     """The training step: (state, features, rng=None, t=None, noise=None,
     dropout_seed=None) -> metrics (0-d float32 tensors on the batch's
     device). It updates `state` in place. `dropout_seed` seeds the CPU
     generator of the model's dropout (nn/denoiser.py); t and the standard
     normal `noise` [B,N,3] (masked here) are drawn from `rng` where not
-    given."""
+    given.
+
+    With a mesh, `features` is this rank's rows of the global batch
+    (`shard_batch`), t and `noise` are the global batch's (`noised_input`),
+    so are the dropout masks (nn/primitives.py:dropout), the gradients
+    are averaged over the ranks before `grad_norm` and the update, and the
+    metrics are the global batch's (`genie_loss`): every rank then takes
+    the same Adam and EMA update, that of one process on the global
+    batch."""
     dtype = compute_dtype(compute_dtype_name)
 
     def train_step(state: TrainState, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                    dropout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         model = state.model.train()
-        t, z, frames = noised_input(schedule, features, rng, t, noise)
+        t, z, frames = noised_input(schedule, features, rng, t, noise, mesh)
         gen = torch.Generator().manual_seed(int(dropout_seed)) if dropout_seed is not None else None
-        z_pred = apply_denoiser_cast(model, frames, t, features, dtype, gen)
-        loss, metrics = genie_loss(z_pred, z, features, condition_loss_weight)
+        n = z.shape[0] * data_axis_size(mesh)
+        rows = local_rows(n, mesh)
+        z_pred = apply_denoiser_cast(model, frames, t, features, dtype, gen, (rows.start, rows.stop, n))
+        loss, metrics = genie_loss(z_pred, z, features, condition_loss_weight, mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         params = [p for p in model.parameters() if p.grad is not None]
+        average_gradients([p.grad for p in params], mesh)
         # The global norm of the gradients (optax.global_norm), before the update.
         metrics["grad_norm"] = torch.sqrt(torch.stack([p.grad.square().sum() for p in params]).sum())
         state.optimizer.step()

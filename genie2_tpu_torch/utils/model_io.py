@@ -34,8 +34,12 @@ from genie2_tpu_torch.nn import Denoiser
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; CUDA unless the caller asks for the CPU,
-    and an error, never a silent CPU run, when no card is present."""
+    and an error, never a silent CPU run, when no card is present. Under a
+    launcher that sets LOCAL_RANK (torchrun), a bare "cuda" is this
+    process's card, cuda:LOCAL_RANK."""
     device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU")
     return device

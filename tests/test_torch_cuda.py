@@ -383,3 +383,35 @@ def test_training_step_kernels_match_plain(device):
     assert abs(m_k["grad_norm"].item() - m_p["grad_norm"].item()) <= 1e-4 * m_p["grad_norm"].item()
     assert launches == {"trimul_project": 8, "trimul_contract_out": 6, "trimul_contract_in": 6, "trimul_epilogue": 8,
                         "ipa_attention": 2, "contract_cm_km": 4}, launches
+
+
+def test_two_rank_training_step_matches_one_process(device):
+    """Two ranks over gloo on the one card (NCCL refuses two ranks on one
+    GPU), each with two rows of a batch of four, dropout and remat on, the
+    kernels launched in each: two steps' loss and metrics within 1e-5
+    relative and gradients within 1e-4 of their max |entry| against one
+    process on the whole batch."""
+    import numpy as np
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel.spawn import run_ranks
+    from genie2_tpu_torch.train import synthetic_dataset
+
+    import torch_ranks  # tests/ is on sys.path under pytest (the rank bodies, without JAX)
+
+    overrides = {"singleFeatureDimension": 64, "pairFeatureDimension": 32, "numPairTransformLayers": 2,
+                 "triangularMultiplicativeHiddenDimension": 32, "numStructureLayers": 2, "maximumNumResidues": 70,
+                 "numTimesteps": 100}
+    state_dict = torch_ranks.seeded_model(Config(overrides=overrides)).state_dict()
+    batch = next(synthetic_dataset(4, max_n_res=70, min_n_res=50).epoch(4, np.random.default_rng(0)))
+    args = (overrides, state_dict, batch, 2, 1e-4, None)
+    ranks = run_ranks(torch_ranks.train_steps, 2, (*args, True, "cuda"), deadline=300.0)
+    alone, _, _ = torch_ranks.train_steps(0, *args, distributed=False, device="cuda")
+    for records, _, _ in ranks:
+        for (metrics, grads), (want_metrics, want_grads) in zip(records, alone):
+            for k, v in want_metrics.items():
+                assert abs(metrics[k] - v) <= 1e-5 * max(abs(v), 1e-6), k
+            g = torch.cat([x.flatten() for x in grads.values()])
+            w = torch.cat([want_grads[n].flatten() for n in grads])
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+

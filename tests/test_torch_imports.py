@@ -49,7 +49,8 @@ def test_port_has_modules():
                      "genie2_tpu_torch/train/loss.py", "genie2_tpu_torch/train/state.py",
                      "genie2_tpu_torch/train/data.py", "genie2_tpu_torch/train/cache.py",
                      "genie2_tpu_torch/train/prefetch.py", "genie2_tpu_torch/train/loop.py",
-                     "genie2_tpu_torch/cli/train.py"):
+                     "genie2_tpu_torch/cli/train.py", "genie2_tpu_torch/parallel/mesh.py",
+                     "genie2_tpu_torch/parallel/spawn.py"):
         assert expected in rel
 
 

@@ -432,3 +432,6 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="--mesh_seq"):
         sample_motif_smc.main(["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--motif_index", "0",
                                "--motif_dir", str(tmp_path), "--mesh_seq", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="torchrun"):
+        sample_motif_smc.main(["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--motif_index", "0",
+                               "--motif_dir", str(tmp_path), "--num_devices", "2", "--device", "cpu"])

@@ -33,7 +33,7 @@ from genie2_tpu_torch.config import Config
 from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import batchify, create_empty_features, to_device
 from genie2_tpu_torch.nn import Denoiser
-from genie2_tpu_torch.nn.primitives import dropout
+from genie2_tpu_torch.nn.primitives import dropout, layer_generator
 from genie2_tpu_torch.train import create_train_state, genie_loss, make_train_step
 from genie2_tpu_torch.utils.weights import params_from_flax
 
@@ -278,7 +278,7 @@ def test_dropout_rate_scale_and_broadcast():
     dropped share within 0.01 of the rate over 2^17 draws, one mask along
     each broadcast axis, the identity without a generator or at rate 0."""
     x = torch.rand(4, 64, 64, 8) + 0.5
-    gen = torch.Generator().manual_seed(0)
+    gen = layer_generator((0, 0, 4, 4), "cpu")  # the whole batch of 4
     for rate, axes in ((0.25, ()), (0.25, (-3,)), (0.1, (-2,))):
         y = dropout(x, rate, gen, axes)
         kept = y != 0

@@ -1,0 +1,271 @@
+"""Rank bodies of the data-parallel tests (tests/test_torch_parallel*.py).
+
+`genie2_tpu_torch.parallel.spawn.run_ranks` runs each of them in spawned
+processes joined into one gloo group; the tests call the same functions
+with `distributed=False` for the one-process reference. This module imports
+torch and the port only, so a rank starts without JAX.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import signal
+
+import numpy as np
+import torch
+
+
+def _mesh(distributed: bool, device="cpu"):
+    from genie2_tpu_torch.parallel import create_mesh
+
+    return create_mesh(-1, device) if distributed else None
+
+
+def seeded_model(config, seed: int = 3):
+    """A tiny Denoiser with seeded weights, its zero-initialised leaves
+    given random values (every parameter then has a gradient)."""
+    from genie2_tpu_torch.nn import Denoiser
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return randomize_zero_init(Denoiser.from_config(config), seed)
+
+
+def collectives(rank: int):
+    """Every collective of parallel/mesh.py on this rank's values."""
+    import torch.distributed as dist
+
+    from genie2_tpu_torch.parallel import (
+        all_reduce_sum,
+        any_rank,
+        barrier,
+        broadcast_int,
+        gather_rows,
+        replicate,
+    )
+    from genie2_tpu_torch.parallel.mesh import average_gradients
+
+    mesh = _mesh(True)
+    world = mesh.world_size
+    rows, ids = gather_rows(mesh, torch.full((2, 3), float(rank)) + torch.arange(3.0),
+                            torch.tensor([10 * rank, 10 * rank + 1]))
+    module = torch.nn.Linear(3, 2)
+    with torch.no_grad():
+        module.weight.fill_(rank)
+    replicate(module, mesh)
+    grads = [torch.full((5,), float(rank)), torch.full((2, 2), 2.0 * rank)]
+    average_gradients(grads, mesh)
+    barrier(mesh)
+    return {
+        "rows": rows, "ids": ids, "ids_dtype": str(ids.dtype),
+        "sum": all_reduce_sum(torch.tensor([rank + 1.0]), mesh).item(),
+        "any_last": any_rank(rank == world - 1, mesh), "any_none": any_rank(False, mesh),
+        "broadcast": broadcast_int(100 + rank, mesh), "weight": module.weight.detach().clone(),
+        "grads": grads, "world": dist.get_world_size(),
+    }
+
+
+def hang_or_raise(rank: int, mode: str):
+    """Rank 1 raises or sleeps; the others wait in a collective for it."""
+    import time
+
+    from genie2_tpu_torch.parallel import barrier
+
+    if rank == 1:
+        if mode == "raise":
+            raise RuntimeError("rank 1 fails on purpose")
+        time.sleep(600)
+    barrier(_mesh(True))
+    return rank
+
+
+def train_steps(rank: int, config_overrides, state_dict, batch, steps: int, lr: float, inject=None,
+                distributed: bool = True, device: str = "cpu"):
+    """`steps` training steps on `device`, on this rank's rows of `batch`
+    (the whole of it without `distributed`): t and the noise injected
+    (`inject`, the global batch's, one pair a step, dropout seed the step's
+    index) or drawn from `step_randomness(0, 0, step)`. Returns per-step
+    (metrics, gradients), the parameters and Adam's second moments after
+    the last, on the CPU."""
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.nn import Denoiser
+    from genie2_tpu_torch.parallel import shard_batch
+    from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
+
+    mesh = _mesh(distributed, device)
+    config = Config(overrides=config_overrides)
+    model = Denoiser.from_config(config)
+    model.load_state_dict(state_dict)
+    state = create_train_state(model.to(device), lr)
+    step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=device), 1.0, mesh=mesh)
+    feats = to_device(shard_batch(batch, mesh), device)
+    records = []
+    for i in range(steps):
+        if inject is not None:
+            t, noise = inject[i]
+            metrics = step(state, feats, t=t, noise=noise, dropout_seed=i)
+        else:
+            rng, dropout_seed = step_randomness(0, 0, i, device)
+            metrics = step(state, feats, rng=rng, dropout_seed=dropout_seed)
+        records.append(({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    nu = {n: state.optimizer.state[p]["exp_avg_sq"].cpu() for n, p in model.named_parameters()}
+    return records, params, nu
+
+
+def _signal_after(trainer, step: int):
+    """Wrap the trainer's step so that this process signals itself
+    SIGTERM after its `step`-th step."""
+    inner = trainer._step_fn
+
+    def step_fn(state, *args, **kwargs):
+        out = inner(state, *args, **kwargs)
+        if state.step == step:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    trainer._step_fn = step_fn
+
+
+def _kill_at(trainer, step: int):
+    """Wrap the trainer's step so that its `step`-th call raises
+    KeyboardInterrupt before it runs: the process dies mid-epoch."""
+    inner, calls = trainer._step_fn, {"n": 0}
+
+    def step_fn(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == step:
+            raise KeyboardInterrupt
+        return inner(*args, **kwargs)
+
+    trainer._step_fn = step_fn
+
+
+def fit_runs(rank: int, overrides, workdir: str, sigterm_rank: int, sigterm_step: int, distributed: bool = True):
+    """The Trainer (configuration `overrides`, rootDirectory `workdir`) on a
+    synthetic corpus: an uninterrupted run, then a run that rank
+    `sigterm_rank` signals after step `sigterm_step`, resumed to the end,
+    and a run killed on every rank after step `sigterm_step`, resumed to
+    the end. Returns the steps each run reached, the complete runs' train
+    losses by step and their final parameters."""
+    import json
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.train import synthetic_dataset
+    from genie2_tpu_torch.train.loop import Trainer
+
+    def fit(name, resume=False, signal_step=None, kill_step=None):
+        trainer = Trainer(Config(overrides={**overrides, "name": name, "rootDirectory": workdir}), device="cpu",
+                          resume=resume)
+        if signal_step is not None and (not distributed or rank == sigterm_rank):
+            _signal_after(trainer, signal_step)
+        dataset = synthetic_dataset(12, max_n_res=24, rng=np.random.default_rng(1))
+        if kill_step is not None:
+            # Every rank dies at the same step (resume points every step).
+            _kill_at(trainer, kill_step)
+            try:
+                trainer.fit(dataset, save_state_every_n_step=1)
+            except KeyboardInterrupt:
+                return trainer.state.step, None, None
+            raise AssertionError("the run was not killed")
+        state = trainer.fit(dataset, resume=resume)
+        with open(os.path.join(trainer.workdir, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        losses = {r["step"]: r["weighted_loss"] for r in records if r.get("prefix") == "train"}
+        return state.step, losses, {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+    full = fit("full")
+    cut = fit("cut", signal_step=sigterm_step)
+    resumed = fit("cut", resume=True)
+    killed = fit("killed", kill_step=sigterm_step + 1)
+    killed_resumed = fit("killed", resume=True)
+    return {"full": full, "cut_steps": cut[0], "resumed": resumed, "killed_steps": killed[0],
+            "killed_resumed": killed_resumed}
+
+
+def cli_runs(rank: int, runs, patch_placement_seed=None):
+    """Each (module name, argv) of `runs` through its `main`; with
+    `patch_placement_seed`, ScaffoldSampler draws its placements from that
+    seed. Returns the CLIs' results (cli/train.py's: the step it reached)
+    and the batch sizes the denoiser was called with."""
+    from genie2_tpu_torch.nn import Denoiser
+
+    if patch_placement_seed is not None:
+        from genie2_tpu_torch.sampling import scaffold
+
+        init = scaffold.ScaffoldSampler.__init__
+
+        def seeded(self, *args, **kwargs):
+            kwargs["placement_seed"] = patch_placement_seed
+            init(self, *args, **kwargs)
+
+        scaffold.ScaffoldSampler.__init__ = seeded
+    sizes = set()
+    forward = Denoiser.forward
+
+    def counted(self, ts, timesteps, *args, **kwargs):
+        sizes.add(int(timesteps.shape[0]))
+        return forward(self, ts, timesteps, *args, **kwargs)
+
+    Denoiser.forward = counted
+    try:
+        results = [importlib.import_module(name).main(list(argv)) for name, argv in runs]
+    finally:
+        Denoiser.forward = forward
+    return [r.state.step if hasattr(r, "state") else r for r in results], sorted(sizes)
+
+
+def _model(config_path: str, state_dict):
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.nn import Denoiser
+
+    config = Config(config_path)
+    model = Denoiser.from_config(config)
+    model.load_state_dict(state_dict)
+    return model.eval(), config
+
+
+def tds_run(rank: int, config_path: str, state_dict, motif_dir: str, outdir: str, n_particles: int,
+            distributed: bool = True):
+    """SMCSampler on the motif problem of `motif_dir` with `n_particles`
+    over the ranks. Returns coordinates, placements and the trace."""
+    from genie2_tpu_torch.sampling import SMCSampler
+
+    model, config = _model(config_path, state_dict)
+    sampler = SMCSampler(model, config, mesh=_mesh(distributed))
+    sampler.untwist_below = 2
+    out = sampler.sample({"scale": 1.0, "outdir": outdir, "num_samples": n_particles, "prefix": "24", "offset": 0,
+                          "motif_index": 0, "motif_dir": motif_dir, "seed": 3})
+    return {"x": np.stack([f["atom_positions"] for f in out]), "placements": sampler.final_placements,
+            "ess": np.asarray(sampler.trace.ess), "resampled": np.asarray(sampler.trace.resampled),
+            "best": np.asarray(sampler.trace.best_placement), "dist": np.asarray(sampler.trace.motif_dist)}
+
+
+def sse_run(rank: int, config_path: str, state_dict, n_particles: int, length: int, strength: float,
+            distributed: bool = True):
+    """sse_guided_sample with `n_particles` over the ranks; returns the
+    final coordinates and the filter's traces."""
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.nn.policy import apply_denoiser
+    from genie2_tpu_torch.parallel import shard_batch
+    from genie2_tpu_torch.sampling import sse_guided_sample
+
+    mesh = _mesh(distributed)
+    model, config = _model(config_path, state_dict)
+    schedule = Schedule.create(config.diffusion["n_timestep"], config.diffusion["schedule"])
+    batch = batchify([create_empty_features([length]) for _ in range(n_particles)])
+    feats = to_device(shard_batch(batch, mesh), "cpu")
+    with torch.inference_mode():
+        def model_fn(frames, t):
+            return apply_denoiser(model, frames, t, feats)
+
+        trans, result = sse_guided_sample(model_fn, schedule, feats, 5, n_particles, target="helix",
+                                          strength=strength, mesh=mesh)
+    return {"x": trans.numpy(), "ess": result.ess_trace.numpy(), "resampled": result.resampled_trace.numpy(),
+            "log_w": result.log_weights.numpy()}

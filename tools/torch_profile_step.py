@@ -29,7 +29,9 @@ noise and dropout seed): the forward, remat's second forward of the pair
 layers during the backward (`remat_forward`, a range like the backward's),
 the backward families as `--tds` reports them, and the Adam update (its
 foreach kernels, family `optimizer`); peak memory. `--no_remat` turns
-remat off.
+remat off. The step runs as the one rank of a data-parallel NCCL group, so
+its gradient all-reduce (`grad_allreduce`, parallel/mesh.py) is a range
+of its own.
 
     python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh [--tri_att]
     python3 tools/torch_profile_step.py --tds
@@ -282,7 +284,9 @@ def summarize(prof, labels, steps, wall_ms):
     and for each labelled range its device ms (kernels that start inside
     it) and its span. The ranges appear on the device timeline as spans
     from their first kernel's start to their last one's end (idle gaps
-    included): they are not kernels."""
+    included): they are not kernels, and neither is any other range the
+    device timeline shows (`Optimizer.step#Adam.step` showed there in the
+    training step run as an NCCL rank)."""
     from torch.autograd import DeviceType
 
     spans = defaultdict(list)
@@ -293,6 +297,8 @@ def summarize(prof, labels, steps, wall_ms):
             continue
         if e.name in labels:
             spans[e.name].append((e.time_range.start, e.time_range.end))
+            continue
+        if getattr(e, "is_user_annotation", False):
             continue
         us = e.time_range.elapsed_us()
         by_family[family(e.name)] += us
@@ -337,13 +343,18 @@ def _label_remat():
 
 def profile_train(args):
     """One training step at full width, profiled: see the module docstring."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     from genie2_tpu_torch.config import Config
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.parallel import create_mesh
     from genie2_tpu_torch.train import create_train_state, make_train_step
     from genie2_tpu_torch.utils.model_io import init_model
     from genie2_tpu_torch.utils.weights import randomize_zero_init
@@ -363,9 +374,12 @@ def profile_train(args):
     args.quat = config.tpu["rot_to_quat_method"]
     model = randomize_zero_init(init_model(config, args.seed, "cpu"), args.seed).to(dev)
     state = create_train_state(model, config.optimization["lr"])
-    labels = _label_backwards() + _label_remat()
+    labels = _label_backwards() + _label_remat() + ["grad_allreduce"]
     schedule = Schedule.create(config.diffusion["n_timestep"], device=dev)
-    step = make_train_step(schedule, config.training["condition_loss_weight"], args.dtype)
+    store = tempfile.mkdtemp(prefix="profile_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    step = make_train_step(schedule, config.training["condition_loss_weight"], args.dtype,
+                           mesh=create_mesh(-1, dev))
 
     rng = np.random.default_rng(args.seed)
     feats = []
@@ -398,6 +412,8 @@ def profile_train(args):
            "wall_ms_per_step": wall_ms, "residues_per_s": batch * length / wall_ms * 1e3,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out.update(summarize(prof, labels, args.steps, wall_ms))
+    dist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
     print(json.dumps(out), flush=True)
     return out
 
