@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
                tensor-core instructions (HMMA, HGMMA) in each built library
                (cuobjdump -sass) and require them in every product kernel
                (TENSOR_CORE);
-  2. kernels   each kernel (three TriMul stages, the IPA attention core on
+  2. kernels   each kernel (three TriMul stages and the epilogue's partial
+               and finish modes on half the hidden channels, two ranks'
+               partial sums through the finish against the one-launch
+               epilogue, the IPA attention core on
                strided inputs as nn/structure.py passes them, the three
                standalone triangle contractions, the triangle attention
                core) against its plain PyTorch version on the card, float32
@@ -81,6 +84,20 @@ Phases, in order; any failure exits non-zero:
                placement); launches summed over the ranks; then
                cli/train.py under torchrun as one NCCL rank for 2 epochs
                and --resume to a third, checkpoints loaded back;
+ 10. tp        tensor parallelism (parallel/tensor_parallel.py): two
+               gloo ranks sharing the card as the model axis, held against
+               the one-process runs of the denoiser and parallel phases:
+               the denoiser forward at L=256, B=2, with and without
+               triangle attention (z, the ranks bit for bit, the bytes
+               all-reduced against `tp_volume`, the launches: the epilogue
+               as its two stages), three training steps of the parallel
+               phase's batch (metrics, gathered gradients, parameters),
+               one twisted TDS step from t = T, the unconditional CLI with
+               --mesh_model 2 (L=256, DDIM-10) against one process, and
+               cli/train.py with meshModel 2 on 10 of the corpus's files
+               for one epoch, its full checkpoint loaded in one process
+               against the sharded model's z; then one training step on a
+               (2 data x 2 model) grid of four ranks;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -143,6 +160,18 @@ KERNELS = [
         "source": "genie2_tpu_torch/csrc/trimul_epilogue.cu",
         "replaces": "genie2_tpu/ops/trimul_fused.py:279",
     },
+    # The epilogue's two stages around the all-reduce of tensor parallelism
+    # (the same source, other modes of its kernel).
+    {
+        "name": "trimul_epilogue_partial",
+        "source": "genie2_tpu_torch/csrc/trimul_epilogue.cu",
+        "replaces": "genie2_tpu/ops/trimul_fused.py:279",
+    },
+    {
+        "name": "trimul_epilogue_finish",
+        "source": "genie2_tpu_torch/csrc/trimul_epilogue.cu",
+        "replaces": "genie2_tpu/ops/trimul_fused.py:279",
+    },
     {
         "name": "ipa_attention",
         "source": "genie2_tpu_torch/csrc/ipa_attention.cu",
@@ -173,6 +202,8 @@ KERNELS = [
     },
 ]
 OFF_PATH = ("triangle_multiply_cm", "triangle_multiply_nlayout")
+# The epilogue's stages around the all-reduce: on the path of a model axis only.
+SPLIT_EPILOGUE = ("trimul_epilogue_partial", "trimul_epilogue_finish")
 # Kernels whose work is a per-channel contraction of [B, C, N, N] operands.
 CONTRACTIONS = (*OFF_PATH, "contract_cm_km")
 # How each kernel wrapper's autograd Function takes its backward (ops/).
@@ -180,11 +211,13 @@ BACKWARD_ROUTE = {
     "trimul_project": "gradient of the plain version, recomputed",
     "trimul_contract": "CUDA: contract_cm_km and trimul_contract (four contractions)",
     "trimul_epilogue": "gradient of the plain version, recomputed",
+    "trimul_epilogue_partial": "gradient of the plain version, recomputed",
+    "trimul_epilogue_finish": "gradient of the plain version, recomputed",
     "ipa_attention": "gradient of the plain version, recomputed",
     "tri_attention": "gradient of the plain version, recomputed",
 }
-# Kernels whose products must run on the tensor cores: all eight (the IPA
-# core's o_pair product among them).
+# Kernels whose products must run on the tensor cores: all ten (the IPA
+# core's o_pair product among them; the epilogue's modes share its library).
 TENSOR_CORE = tuple(k["name"] for k in KERNELS)
 
 
@@ -350,6 +383,12 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
         bytes_ = esize * (pair * C + pair * h + rows + outs) + 4 * B * N + 4 * h
         # Every key is computed, masked or not: q.k, the point distances, p.v, p.v_pts, p.z.
         return bytes_, 2 * B * h * N * N * (2 * c + 3 * pq + 3 * pv + C)
+    if name == "trimul_epilogue_partial":  # H: this rank's channels; D = C
+        part = 4 * (pair * (C + 2) + 2 * C)
+        return pair * H * esize + 4 * (C * H + 2 * H) + part, 2 * pair * H * (C + 1)
+    if name == "trimul_epilogue_finish":  # the reduced partial sums, z -> out
+        part = 4 * (pair * (C + 2) + 2 * C)
+        return part + 2 * pair * C * esize + 4 * (C * C + 5 * C), 2 * pair * C * C
     if name == "tri_attention":
         h, c = TRI_ATT["H"], TRI_ATT["c"]
         # q, k, v read and o written, the triangle bias, the float32 mask;
@@ -372,7 +411,7 @@ def phase_kernels(state):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {k["name"]: {} for k in KERNELS}
-    failed = []
+    failed, split_records = [], []
     trimul.reset_launch_counts()
     for N, B in KERNEL_SHAPES:
         w32 = random_trimul_weights(C_P, H_MUL, gen, dev)
@@ -405,6 +444,18 @@ def phase_kernels(state):
             x_p = trimul.contract_cm_plain(a_p, b_p, True)
             cases.append(("trimul_epilogue", None, lambda: trimul.epilogue_cm(x_p, z, w),
                           lambda: trimul.epilogue_cm_plain(x_p, z, w), None))
+            # The split epilogue, the hidden width over two model ranks:
+            # rank 0's partial sums, and the finish stage on two ranks'
+            # sums (each output held to its own scale).
+            halves = split_epilogue_inputs(x_p, w)
+            part_p = sum(trimul.epilogue_partial_plain(*h) for h in halves)
+            finish_w = [w[k] for k in trimul.FINISH_PARAMS]
+            cases.append(("trimul_epilogue_partial", None,
+                          lambda: partial_parts(trimul.epilogue_partial(*halves[0]), B, N),
+                          lambda: partial_parts(trimul.epilogue_partial_plain(*halves[0]), B, N), None))
+            cases.append(("trimul_epilogue_finish", None, lambda: trimul.epilogue_finish(part_p, z, w, H_MUL),
+                          lambda: trimul.epilogue_finish_plain(part_p, z, *finish_w, H_MUL), None))
+            split_records.append(split_against_one_launch(x_p, z, w, halves, dname, N, B))
             # The IPA core at full width, the padded tail masked on the key
             # side; the plain version follows the kernel on padded rows too.
             ipa_args = random_ipa_inputs(B, N, z, res_mask, gen)
@@ -441,10 +492,12 @@ def phase_kernels(state):
                 rel = max(e / max(sc, 1e-30) for e, sc in zip(errs, scales))
                 finite = all(torch.isfinite(g.float()).all().item() for g in got)
                 ok = finite and rel <= TOL[dname]
-                bytes_, ops = kernel_bytes_ops(name, B, N, C_P, H_MUL, z.element_size())
+                # The partial stage holds one rank's half of the hidden channels.
+                H = H_MUL // 2 if name == "trimul_epilogue_partial" else H_MUL
+                bytes_, ops = kernel_bytes_ops(name, B, N, C_P, H, z.element_size())
                 bound_bytes, bound_ops = bytes_ / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
                 rec = {
-                    "kernel": name, "N": N, "B": B, "dtype": dname, "outgoing": outgoing,
+                    "kernel": name, "N": N, "B": B, "H": H, "dtype": dname, "outgoing": outgoing,
                     "max_abs_err": err, "max_abs_plain": scale, "rel_err": rel, "tol": TOL[dname],
                     "ok": ok, "ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
                     "library_ms": cuda_time_ms(library) if library else None,
@@ -458,7 +511,7 @@ def phase_kernels(state):
                     failed.append(f"{name} N={N} {dname} outgoing={outgoing}: rel {rel:.3g}")
                 if N == 256 and dtype == torch.float32:
                     results[name][outgoing] = rec
-            grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen)
+            grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p)
             for rec in check_gradients(grad_cases, dname, N, B):
                 emit({"phase": "kernels", "gradient": True, **rec})
                 if not rec["ok"]:
@@ -468,15 +521,52 @@ def phase_kernels(state):
                     results[rec["kernel"]][rec["outgoing"]]["backward"] = rec
     state["kernel_main"] = results
     state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
+    for rec in split_records:
+        emit({"phase": "kernels", **rec})
+        if not rec["ok"]:
+            failed.append(f"split epilogue N={rec['N']} {rec['dtype']}: rel {rec['rel_err']:.3g}")
     if failed:
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
+
+
+def split_epilogue_inputs(x, w):
+    """Each of two model ranks' epilogue_partial arguments: its half of
+    x's hidden channels, W_z's columns and the LN_out scale and bias."""
+    h = x.shape[1] // 2
+    return [(x[:, sl].contiguous(), w["w_z"][:, sl], w["ln_out_scale"][sl], w["ln_out_bias"][sl])
+            for sl in (slice(0, h), slice(h, 2 * h))]
+
+
+def partial_parts(part, B, N, D=C_P):
+    """epilogue_partial's flat output as (x.ws, sum x, sum x^2, weight sums)."""
+    from genie2_tpu_torch.ops import trimul
+
+    per_pos, sums = trimul.split_part(part, B, N, D)
+    return per_pos[..., :D], per_pos[..., D], per_pos[..., D + 1], sums
+
+
+def split_against_one_launch(x, z, w, halves, dname, N, B):
+    """Two ranks' partial sums (kernels, summed here) through the finish
+    kernel against the one-launch epilogue kernel on all channels."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+
+    got = trimul.epilogue_finish(sum(trimul.epilogue_partial(*h) for h in halves), z, w, x.shape[1])
+    want = trimul.epilogue_cm(x, z, w)
+    torch.cuda.synchronize()
+    err, scale = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+    rel = err / max(scale, 1e-30)
+    return {"kernel": "trimul_epilogue partial + finish vs one launch", "N": N, "B": B, "dtype": dname,
+            "max_abs_err": err, "max_abs_one_launch": scale, "rel_err": rel, "tol": TOL[dname],
+            "ok": bool(torch.isfinite(got.float()).all().item()) and rel <= TOL[dname]}
 
 
 def _leaf(t):
     return t.detach().clone().requires_grad_(True)
 
 
-def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen):
+def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p):
     """Each autograd Function of ops/ at the kernels phase's shapes, as
     (kernel, outgoing, kernel forward, plain forward, inputs, activations,
     cotangents): both forwards are functions of `inputs`, leaves that
@@ -499,6 +589,14 @@ def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen):
                       lambda o=outgoing: trimul.contract_cm_plain(ag, bg, o), [ag, bg], [ag, bg], (cot(a_p),)))
     cases.append(("trimul_epilogue", None, lambda: trimul.epilogue_cm(xg, zg, wg),
                   lambda: trimul.epilogue_cm_plain(xg, zg, wg), [xg, zg, *epilogue_w], [xg, zg], (cot(z),)))
+    hg = [_leaf(t) for t in halves[0]]
+    cases.append(("trimul_epilogue_partial", None, lambda: trimul.epilogue_partial(*hg),
+                  lambda: trimul.epilogue_partial_plain(*hg), hg, hg[:1], (cot(part_p),)))
+    pg = _leaf(part_p)
+    finish_w = [wg[k] for k in trimul.FINISH_PARAMS]
+    cases.append(("trimul_epilogue_finish", None, lambda: trimul.epilogue_finish(pg, zg, wg, H_MUL),
+                  lambda: trimul.epilogue_finish_plain(pg, zg, *finish_w, H_MUL), [pg, zg, *finish_w], [pg, zg],
+                  (cot(z),)))
     # The IPA core on k / v and points strided as nn/structure.py passes them.
     q, k, v, q_pts, k_pts, v_pts, bias, zz, hw, mask = ipa_args
     kv, kv_pts = _leaf(torch.cat([k, v], -1)), _leaf(torch.cat([k_pts, v_pts], -2))
@@ -744,26 +842,35 @@ def eigh_tie_probe(L, B):
         raise PhaseFailed(f"TopEigenvector's gradient is not finite at L={L}, B={B}")
 
 
-def compare_denoiser(config, model, tri_att):
-    """One denoiser call at L=256, batch 2, with the kernels and with every
-    plain version swapped in: z compared, launches counted, both timed."""
+def denoiser_inputs(L=256, B=2):
+    """The denoiser phase's inputs: seeded translations (8 A steps), their
+    Frenet frames, timesteps 500 and 20, B chains of L residues."""
     import numpy as np
     import torch
 
     from genie2_tpu_torch.features import batchify, create_empty_features, to_device
     from genie2_tpu_torch.geometry import Rigid, frenet_frames
-    from genie2_tpu_torch.ops import trimul
 
     dev = torch.device("cuda")
-    L = 256
-    feats = to_device(batchify([create_empty_features([L]) for _ in range(2)]), dev)
+    feats = to_device(batchify([create_empty_features([L]) for _ in range(B)]), dev)
     rng = np.random.default_rng(SEED)
-    trans = torch.as_tensor(rng.normal(size=(2, L, 3)).astype(np.float32) * 8.0, device=dev)
-    t = torch.tensor([500, 20], dtype=torch.int32, device=dev)
-    rots = frenet_frames(trans, feats["chain_index"], feats["residue_mask"])
+    trans = torch.as_tensor(rng.normal(size=(B, L, 3)).astype(np.float32) * 8.0, device=dev)
+    t = torch.tensor([500, 20][:B], dtype=torch.int32, device=dev)
+    return Rigid(frenet_frames(trans, feats["chain_index"], feats["residue_mask"]), trans), t, feats
+
+
+def compare_denoiser(config, model, tri_att):
+    """One denoiser call at L=256, batch 2, with the kernels and with every
+    plain version swapped in: z compared, launches counted, both timed."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+
+    L = 256
+    frames, t, feats = denoiser_inputs(L)
 
     def run():
-        return model(Rigid(rots, trans), t, feats)["z"]
+        return model(frames, t, feats)["z"]
 
     with torch.inference_mode():
         trimul.reset_launch_counts()
@@ -1324,10 +1431,11 @@ def write_train_corpus(path):
         save_features_to_pdb(f, os.path.join(path, f"walk_{i:03d}.pdb"))
 
 
-def write_train_config(path, datadir, rootdir, epochs):
+def write_train_config(path, datadir, rootdir, epochs, val_split=TRAIN_VAL / TRAIN_STRUCTURES, extra=""):
     """configs/example.configuration pointed at the corpus, with a
-    validation split of TRAIN_VAL structures, `epochs` epochs, a checkpoint
-    every epoch and a log record every step."""
+    validation split of `val_split` (TRAIN_VAL structures of the corpus),
+    `epochs` epochs, a checkpoint every epoch, a log record every step and
+    the lines `extra`."""
     with open(os.path.join(HERE, "configs", "example.configuration")) as fh:
         text = fh.read()
     text = re.sub(r"(?m)^dataDirectory .*$", f"dataDirectory {datadir}", text)
@@ -1335,7 +1443,7 @@ def write_train_config(path, datadir, rootdir, epochs):
     text = re.sub(r"(?m)^numEpoches .*$", f"numEpoches {epochs}", text)
     text = re.sub(r"(?m)^checkpointEveryEpoches .*$", "checkpointEveryEpoches 1", text)
     text = re.sub(r"(?m)^logEverySteps .*$", "logEverySteps 1", text)
-    text += f"validationSplit {TRAIN_VAL / TRAIN_STRUCTURES}\n"
+    text += f"validationSplit {val_split}\n{extra}"
     with open(path, "w") as fh:
         fh.write(text)
 
@@ -1606,7 +1714,8 @@ def tds_segment(mesh, plan, steps, perturb=0.0):
     """`steps` steps of the tds phase's problem from t = T of the 1000-step
     release (tds_sample_injected with first_step=T: x_T and the noise from
     the (seed, particle, step) streams, the score proposal with cap 10, this
-    rank's particles), x_T moved by `perturb` times a seeded normal draw.
+    rank's particles, the model split over the mesh's model axis), x_T
+    moved by `perturb` times a seeded normal draw.
     Returns every particle's coordinates, each particle's best placement,
     the ESS and the resampling decisions."""
     import numpy as np
@@ -1623,7 +1732,7 @@ def tds_segment(mesh, plan, steps, perturb=0.0):
     from genie2_tpu_torch.utils.model_io import load_pretrained_model
 
     dev = torch.device("cuda")
-    model, config = load_pretrained_model(plan["rootdir"], plan["release"], 1, device=dev)
+    model, config = load_pretrained_model(plan["rootdir"], plan["release"], 1, device=dev, mesh=mesh)
     sampler = SMCSampler(model, config, mesh=mesh)
     segments, length = load_motif_target(0, plan["motif_dir"])
     placements = enumerate_motif_placements(length, [len(seg) for seg in segments], max_offsets=1000,
@@ -1894,6 +2003,8 @@ def phase_parallel(state):
     t0 = time.perf_counter()
     alone = parallel_rank(0, alone_plan)
     alone_s = time.perf_counter() - t0
+    # The tp phase holds its model ranks against the same one-process runs.
+    state["parallel_alone"], state["parallel_plan"] = alone, alone_plan
     t0 = time.perf_counter()
     ranks = run_ranks(parallel_rank, PARALLEL_RANKS, (ranks_plan,), deadline=480.0)
     ranks_s = time.perf_counter() - t0
@@ -2048,6 +2159,394 @@ def phase_parallel(state):
 
 
 # ------------------------------------------------------------------ #
+# Phase 10
+# ------------------------------------------------------------------ #
+
+TP_RANKS = 2  # model ranks over gloo sharing the one card
+TP_TRAIN_STEPS = 3
+TP_SAMPLES, TP_DDIM = 2, 10  # the CLI run: L=256, DDIM-10
+# cli/train.py under meshModel 2: the first files of the train corpus, 8
+# train and 2 validation structures (2 steps), one epoch.
+TP_TRAIN_FILES, TP_TRAIN_VAL = 10, 0.2
+# z of the model ranks against one process, relative to max |z| (the
+# kernels' 3xTF32 float32 sums in another order, and the partial sums).
+TP_Z_TOL = 1e-4
+
+
+def tp_volume(config, B, N):
+    """Bytes reduce_from_model all-reduces in one denoiser forward, float32:
+    each TriMul's partial sums, B N^2 (C_p + 2) + 2 C_p; each pair
+    transition's, and each triangle attention's, B N^2 C_p; each IPA's and
+    each structure transition's B N c_s."""
+    m = config.model
+    c_p, c_s = m["c_p"], m["c_s"]
+    pair = 2 * (B * N * N * (c_p + 2) + 2 * c_p) + (1 + 2 * m["include_tri_att"]) * B * N * N * c_p
+    structure = 2 * B * N * c_s
+    return 4 * (m["n_pair_transform_layer"] * pair + m["n_structure_layer"] * m["n_structure_block"] * structure)
+
+
+def split_epilogue(table):
+    """A launch table with the TriMul epilogue's launches moved to its two
+    stages, as a model split over a model axis launches them."""
+    out = dict(table)
+    out["trimul_epilogue_partial"] = out["trimul_epilogue_finish"] = out["trimul_epilogue"]
+    out["trimul_epilogue"] = 0
+    return out
+
+
+def tp_forward(model, inputs, n=3):
+    """One denoiser call (launches and bytes all-reduced counted), then the
+    wall ms of each of `n` more, synchronised."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.parallel import tensor_parallel as tp
+
+    with torch.inference_mode():
+        trimul.reset_launch_counts()
+        tp.reset_volume()
+        z = model(*inputs)["z"]
+        torch.cuda.synchronize()
+        rec = {"z": z.cpu(), "launches": dict(trimul.LAUNCHES), "volume": dict(tp.VOLUME), "ms": []}
+        for _ in range(n):
+            t0 = time.perf_counter()
+            model(*inputs)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+    return rec
+
+
+def tp_rank(rank, plan):
+    """The tp phase's work in one rank of a grid of plan["n_model"] model
+    ranks: the denoiser forward with and without triangle attention, the
+    training steps of `plan["train_steps"]` on this data index's rows of
+    the batch, then (where `plan` has them) one twisted TDS step from
+    t = T, the unconditional CLI and cli/train.py under the model axis and
+    the trained model's z. The heavy tensors (gradients and parameters,
+    gathered) from rank 0 only."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import sample_unconditional, train
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.parallel import create_mesh, shard_batch
+    from genie2_tpu_torch.parallel import tensor_parallel as tp
+    from genie2_tpu_torch.sampling import base
+    from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
+    from genie2_tpu_torch.utils.model_io import init_model
+    from genie2_tpu_torch.utils.weights import randomize_zero_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = create_mesh(-1, dev, plan["n_model"])
+    out = {"mesh": [mesh.data_rank, mesh.model_rank, mesh.n_data, mesh.n_model]}
+    if plan.get("forward"):
+        inputs = denoiser_inputs()
+        for tri_att in (False, True):
+            model = tp.shard_model(seeded_denoiser(example_config(tri_att), dev), mesh)
+            out[f"forward_{tri_att}"] = tp_forward(model, inputs)
+            del model
+
+    # Training steps.
+    config = Config(plan["train_config"])
+    model = tp.shard_model(randomize_zero_init(init_model(config, SEED, "cpu"), SEED).to(dev), mesh)
+    names, model_plan = [n for n, _ in model.named_parameters()], tp.tp_plan(model)
+    state = create_train_state(model, config.optimization["lr"])
+    step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=dev),
+                           config.training["condition_loss_weight"], mesh=mesh)
+    feats = to_device(shard_batch(plan["batch"], mesh), dev)
+    trimul.reset_launch_counts()
+    tp.reset_volume()
+    metrics, times, grads, before = [], [], [], []
+    for i in range(plan["train_steps"]):
+        full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
+        if rank == 0:
+            before.append(torch.cat([full[n].flatten() for n in names]).cpu())
+        rng, dropout_seed = step_randomness(SEED, 0, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, feats, rng=rng, dropout_seed=dropout_seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        full = tp.gather_state_dict({n: p.grad for n, p in model.named_parameters()}, model_plan)
+        if rank == 0:
+            grads.append(torch.cat([full[n].flatten() for n in names]).cpu())
+    launches, volume = dict(trimul.LAUNCHES), dict(tp.VOLUME)
+    full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
+    params = torch.cat([full[n].flatten() for n in names]).double()
+    local = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
+    out["train"] = {"metrics": metrics, "ms_steps": times, "launches": launches, "volume": volume,
+                    "rows": int(feats["residue_mask"].shape[0]), "param_checksum": [params.sum().item()],
+                    "local_checksum": [local.sum().item()]}
+    if rank == 0:
+        out["train"].update(grads=grads, params=params.float().cpu(), params_before=before)
+    del model, state, feats
+
+    if "tds_plan" in plan:
+        t0 = time.perf_counter()
+        trimul.reset_launch_counts()
+        out["tds"] = tds_segment(mesh, plan["tds_plan"], 1)
+        out["tds"].update(seconds=time.perf_counter() - t0, launches=dict(trimul.LAUNCHES))
+
+    if "sample_argv" in plan:
+        samples = []
+        sample = base.BaseSampler.sample
+
+        def capture(self, params):
+            result = sample(self, params)
+            samples.append(np.stack([f["atom_positions"] for f in result]))
+            return result
+
+        base.BaseSampler.sample = capture
+        try:
+            trimul.reset_launch_counts()
+            tp.reset_volume()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample_unconditional.main(plan["sample_argv"] + ["--num_devices", str(mesh.world_size), "--mesh_model",
+                                                             str(mesh.n_model)])
+            torch.cuda.synchronize()
+            out["sample"] = {"seconds": time.perf_counter() - t0, "launches": dict(trimul.LAUNCHES),
+                             "volume": dict(tp.VOLUME), "coords": np.concatenate(samples)}
+        finally:
+            base.BaseSampler.sample = sample
+
+    if "train_cli_config" in plan:
+        trimul.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(["-c", plan["train_cli_config"], "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(trimul.LAUNCHES)
+        rec = tp_forward(trainer.model.eval(), denoiser_inputs(), n=0)
+        out["train_cli"] = {"seconds": seconds, "steps": trainer.state.step, "version": trainer.version,
+                            "launches": launches, "z": rec["z"], "mesh": [trainer.mesh.n_data, trainer.mesh.n_model]}
+    return out
+
+
+def steps_from(config, batch, params_before):
+    """One process's training step from each of `params_before` (the full
+    parameters before each step of another run), with that step's t,
+    noise and dropout seed: (metrics, gradient vector) of each."""
+    import torch
+
+    from genie2_tpu_torch.diffusion import Schedule
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
+    from genie2_tpu_torch.utils.model_io import init_model
+
+    dev = torch.device("cuda")
+    model = init_model(config, SEED, dev)
+    step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=dev),
+                           config.training["condition_loss_weight"])
+    feats = to_device(batch, dev)
+    out = []
+    for i, flat in enumerate(params_before):
+        torch.nn.utils.vector_to_parameters(flat.to(dev), model.parameters())
+        rng, dropout_seed = step_randomness(SEED, 0, i, dev)
+        m = step(create_train_state(model, config.optimization["lr"]), feats, rng=rng, dropout_seed=dropout_seed)
+        out.append(({k: float(v) for k, v in m.items()}, torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()))
+    return out
+
+
+def phase_tp(state):
+    """Tensor parallelism: two model ranks over gloo sharing the card (NCCL
+    refuses two ranks on one GPU) against one process: the denoiser
+    forward, three training steps, one twisted TDS step, the unconditional
+    CLI and cli/train.py under --mesh_model 2 / meshModel 2; then one
+    training step on a (2 data x 2 model) grid of four ranks."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import sample_unconditional
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel.spawn import run_ranks
+    from genie2_tpu_torch.sampling import base
+    from genie2_tpu_torch.utils.model_io import load_model
+
+    work, rootdir, _ = release_dir(state)
+    pplan, alone = state["parallel_plan"], state["parallel_alone"]
+    config, tconfig = example_config(), Config(pplan["train_config"])
+    failures = []
+    note = "gloo ranks share one card: these numbers show correctness and the collectives' volume, not scaling"
+
+    # One process: the denoiser phase's models on the same inputs.
+    inputs = denoiser_inputs()
+    one = {tri_att: tp_forward(state["model_triatt" if tri_att else "model"], inputs) for tri_att in (False, True)}
+
+    # The CLI runs' inputs: DDIM-10 at L=256, and cli/train.py on a cut corpus.
+    outdir = os.path.join(work, "tp")
+
+    def sample_argv(label):
+        return common_argv(rootdir, os.path.join(outdir, label), "0.6") + [
+            "--num_samples", str(TP_SAMPLES), "--batch_size", str(TP_SAMPLES), "--min_length", "256",
+            "--max_length", "256", "--ddim_steps", str(TP_DDIM), "--ddim_eta", "0.5"]
+
+    datadir, tp_root = os.path.join(work, "tp_train_data"), os.path.join(work, "tp_train_runs")
+    os.makedirs(datadir)
+    for f in sorted(os.listdir(tconfig.io["datadir"]))[:TP_TRAIN_FILES]:
+        shutil.copy(os.path.join(tconfig.io["datadir"], f), datadir)
+    train_cli_config = os.path.join(work, "tp_train_configuration")
+    write_train_config(train_cli_config, datadir, tp_root, epochs=1, val_split=TP_TRAIN_VAL,
+                       extra=f"meshModel {TP_RANKS}\n")
+    plan = {"n_model": TP_RANKS, "forward": True, "train_config": pplan["train_config"], "batch": pplan["batch"],
+            "train_steps": TP_TRAIN_STEPS, "tds_plan": pplan, "sample_argv": sample_argv("sample"),
+            "train_cli_config": train_cli_config}
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, TP_RANKS, (plan,), deadline=600.0)
+    ranks_s = time.perf_counter() - t0
+
+    # Forward: z against one process, the ranks bit for bit, the volume.
+    for tri_att in (False, True):
+        want, got = one[tri_att], [r[f"forward_{tri_att}"] for r in ranks]
+        cfg = example_config(tri_att)
+        scale = want["z"].abs().max().item()
+        err = max((g["z"] - want["z"]).abs().max().item() for g in got)
+        volume = tp_volume(cfg, 2, 256)
+        launches = split_epilogue(expected_launches(cfg, 1))
+        rec = {"phase": "tp", "run": "forward", "ranks": TP_RANKS, "triangle_attention": tri_att, "L": 256, "B": 2,
+               "max_abs_err": err, "max_abs_z": scale, "rel_err": err / scale, "tol": TP_Z_TOL,
+               "ranks_bitwise_equal": all(torch.equal(g["z"], got[0]["z"]) for g in got),
+               "volume_bytes": [g["volume"] for g in got], "volume_formula_bytes": volume,
+               "ms_one_process": sorted(want["ms"])[len(want["ms"]) // 2],
+               "ms_ranks": max(sorted(g["ms"])[len(g["ms"]) // 2] for g in got), "ms_all": [g["ms"] for g in got],
+               "launches": [g["launches"] for g in got], "expected_launches": launches, "note": note,
+               "smi": state["smi"]}
+        emit(rec)
+        if rec["rel_err"] > TP_Z_TOL or not rec["ranks_bitwise_equal"] or \
+                any(g["volume"] != {"forward": volume, "backward": 0} for g in got) or \
+                any(g["launches"] != launches for g in got):
+            failures.append(f"forward (triangle attention {tri_att}): {rec}")
+
+    # Training: each step's metrics and gradient against one process's step
+    # from the ranks' own parameters before it (a rounding difference of one
+    # step moves the next one's parameters through Adam's first update,
+    # about lr sign(g)); the free-running runs' parameters after three
+    # steps against the parallel phase's one process, and their metrics
+    # and gradients reported.
+    a_train, r_train = alone["train"], ranks[0]["train"]
+    forced = steps_from(tconfig, pplan["batch"], r_train["params_before"])
+    metric_err = max(abs(r["train"]["metrics"][i][k] - v) / max(abs(v), 1e-12)
+                     for r in ranks for i, (m, _) in enumerate(forced) for k, v in m.items())
+    grad_errs = [(g - w).abs().max().item() / w.abs().max().item() for g, (_, w) in zip(r_train["grads"], forced)]
+    free_metric_err = [max(abs(r["train"]["metrics"][i][k] - v) / max(abs(v), 1e-12) for r in ranks
+                           for k, v in m.items()) for i, m in enumerate(a_train["metrics"])]
+    free_grad_errs = [(g - w).abs().max().item() / w.abs().max().item()
+                      for g, w in zip(r_train["grads"], a_train["grads"])]
+    adam = _params_against_adam(r_train["params"], a_train["params"], r_train["grads"], a_train["grads"],
+                                tconfig.optimization["lr"])
+    launches = split_epilogue(train_launches(config, TP_TRAIN_STEPS, eval_calls=0))
+    rec = {"phase": "tp", "run": "train", "ranks": TP_RANKS, "batch": len(pplan["batch"]["aatype"]),
+           "rows_per_rank": [r["train"]["rows"] for r in ranks], "steps": TP_TRAIN_STEPS,
+           "metric_rel_err": metric_err, "metric_tol": TRAIN_LOSS_TOL, "grad_rel_err_per_step": grad_errs,
+           "grad_tol": 1e-4, "free_running_metric_rel_err_per_step": free_metric_err,
+           "free_running_grad_rel_err_per_step": free_grad_errs, "params": adam,
+           "ranks_same_params": all(r["train"]["param_checksum"] == r_train["param_checksum"] for r in ranks),
+           "ms_per_step_one_process": sorted(a_train["ms_steps"][1:])[0],
+           "ms_per_step_two_ranks": max(sorted(r["train"]["ms_steps"][1:])[0] for r in ranks),
+           "ms_steps": [r["train"]["ms_steps"] for r in ranks],
+           "volume_bytes_per_step": {k: v / TP_TRAIN_STEPS for k, v in r_train["volume"].items()},
+           "launches": [r["train"]["launches"] for r in ranks], "expected_launches": launches, "note": note,
+           "smi": state["smi"]}
+    emit(rec)
+    if metric_err > TRAIN_LOSS_TOL or max(grad_errs) > 1e-4 or not rec["ranks_same_params"] \
+            or adam["max_err"] > adam["bound"] or adam["held_max_err_over_tol"] > 1 or adam["still_max_err"] > 0 \
+            or adam["held_share"] == 0 or any(r["train"]["launches"] != launches for r in ranks):
+        failures.append(f"train: metrics {metric_err:.3g}, gradients {grad_errs}, parameters {adam}, "
+                        f"same on every rank {rec['ranks_same_params']}")
+
+    # TDS: one twisted step from t = T against the parallel phase's one process.
+    a, got = alone["segments"]["one_step"], [r["tds"] for r in ranks]
+    rec = {"phase": "tp", "run": "tds", "ranks": TP_RANKS, "particles": TDS_PARTICLES, "length": TDS_LENGTH,
+           "coord_max_abs_err": max(float(np.abs(g["x"] - a["x"]).max()) for g in got), "coord_tol": PARALLEL_TDS_TOL,
+           "best_same": all(g["best"] == a["best"] for g in got),
+           "decisions_same": all(g["resampled"] == a["resampled"] for g in got),
+           "ranks_bitwise_equal": all(np.array_equal(g["x"], got[0]["x"]) for g in got),
+           "seconds_with_load": [g["seconds"] for g in got], "launches": [g["launches"] for g in got],
+           "smi": state["smi"]}
+    emit(rec)
+    if not (rec["best_same"] and rec["decisions_same"] and rec["ranks_bitwise_equal"]) \
+            or rec["coord_max_abs_err"] > PARALLEL_TDS_TOL:
+        failures.append(f"tds: {rec}")
+
+    # The unconditional CLI: complete finite files, the ranks' coordinates
+    # bit for bit, and one process's run of the same flags beside them.
+    files = sorted(os.listdir(os.path.join(outdir, "sample", "pdbs")))
+    for f in files:
+        check_ca_file(os.path.join(outdir, "sample", "pdbs", f), 256)
+    captured = []
+    sample = base.BaseSampler.sample
+
+    def capture(self, params):
+        result = sample(self, params)
+        captured.append(np.stack([f["atom_positions"] for f in result]))
+        return result
+
+    base.BaseSampler.sample = capture
+    try:
+        t0 = time.perf_counter()
+        sample_unconditional.main(sample_argv("sample_alone"))
+        alone_sample_s = time.perf_counter() - t0
+    finally:
+        base.BaseSampler.sample = sample
+    got = [r["sample"] for r in ranks]
+    launches = split_epilogue(expected_launches(config, TP_DDIM))
+    rec = {"phase": "tp", "run": "sample", "ranks": TP_RANKS, "samples": TP_SAMPLES, "L": 256, "ddim_steps": TP_DDIM,
+           "files": files, "ranks_bitwise_equal": all(np.array_equal(g["coords"], got[0]["coords"]) for g in got),
+           "coord_max_abs_err_one_process": float(np.abs(got[0]["coords"] - captured[0]).max()),
+           "seconds_ranks": [g["seconds"] for g in got], "seconds_one_process": alone_sample_s,
+           "volume_bytes": got[0]["volume"], "volume_formula_bytes": TP_DDIM * tp_volume(config, 2, 256),
+           "launches": [g["launches"] for g in got], "expected_launches": launches, "note": note,
+           "smi": state["smi"]}
+    emit(rec)
+    state["launches_tp"] = got[0]["launches"]
+    if files != [f"256_{i}.pdb" for i in range(TP_SAMPLES)] or not rec["ranks_bitwise_equal"] \
+            or any(g["launches"] != launches for g in got) or got[0]["volume"]["forward"] != rec["volume_formula_bytes"]:
+        failures.append(f"sample: {rec}")
+
+    # cli/train.py under meshModel 2: its full checkpoint in one process
+    # against the sharded model's z.
+    got = [r["train_cli"] for r in ranks]
+    model, _ = load_model(tp_root, Config(train_cli_config).io["name"], epoch=0, device="cuda")
+    z_one = tp_forward(model, inputs, n=0)["z"]
+    scale = z_one.abs().max().item()
+    rec = {"phase": "tp", "run": "train_cli", "ranks": TP_RANKS, "mesh_data_model": got[0]["mesh"],
+           "steps": [g["steps"] for g in got], "seconds": [g["seconds"] for g in got],
+           "checkpoint_z_rel_err": max((g["z"] - z_one).abs().max().item() for g in got) / scale,
+           "tol": TP_Z_TOL, "launches": got[0]["launches"], "smi": state["smi"]}
+    emit(rec)
+    if rec["checkpoint_z_rel_err"] > TP_Z_TOL or got[0]["mesh"] != [1, TP_RANKS]:
+        failures.append(f"train_cli: {rec}")
+
+    # One training step on a (2 data x 2 model) grid of four ranks.
+    grid_plan = {"n_model": TP_RANKS, "train_config": pplan["train_config"], "batch": pplan["batch"],
+                 "train_steps": 1}
+    t0 = time.perf_counter()
+    grid = run_ranks(tp_rank, 2 * TP_RANKS, (grid_plan,), deadline=300.0)
+    grid_s = time.perf_counter() - t0
+    g_train = grid[0]["train"]
+    metric_err = max(abs(r["train"]["metrics"][0][k] - v) / max(abs(v), 1e-12)
+                     for r in grid for k, v in a_train["metrics"][0].items())
+    grad_err = (g_train["grads"][0] - a_train["grads"][0]).abs().max().item() / a_train["grads"][0].abs().max().item()
+    rec = {"phase": "tp", "run": "grid_train", "ranks": 2 * TP_RANKS, "grid": [r["mesh"] for r in grid],
+           "rows_per_rank": [r["train"]["rows"] for r in grid], "metric_rel_err": metric_err,
+           "grad_rel_err": grad_err, "ms_step": [r["train"]["ms_steps"][0] for r in grid],
+           "ranks_same_params": all(r["train"]["param_checksum"] == g_train["param_checksum"] for r in grid),
+           "seconds_with_start": grid_s, "note": note, "smi": state["smi"]}
+    emit(rec)
+    if metric_err > TRAIN_LOSS_TOL or grad_err > 1e-4 or not rec["ranks_same_params"]:
+        failures.append(f"grid_train: {rec}")
+    emit({"phase": "tp", "seconds_two_ranks_with_start": ranks_s})
+    if failures:
+        raise PhaseFailed("; ".join(failures))
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
@@ -2056,6 +2555,7 @@ def kernels_line(state):
     scaffold = state.get("launches_scaffold", {})
     kernel_phase = state.get("kernel_phase_launches", {})
     tds = state.get("launches_tds", {})
+    tp_launches = state.get("launches_tp", {})
     out = []
     for k in KERNELS:
         name = k["name"]
@@ -2065,29 +2565,33 @@ def kernels_line(state):
         rs = list(recs.values())
         counters = ("trimul_contract_out", "trimul_contract_in") if name == "trimul_contract" else (name,)
         count = lambda table: sum(table.get(c, 0) for c in counters)
+        # On the main path: the unconditional sweep's count. On the path of
+        # the triangle attention configuration only: that configuration's
+        # 1000-step run. In the TDS gradient only (contract_cm_km): the
+        # 1000-step TDS run. Under a model axis only (the epilogue's two
+        # stages): the tp phase's unconditional CLI, rank 0. Off every
+        # path: the launches of the kernels phase (comparisons and timings).
+        source, table = ("kernels phase", kernel_phase) if name in OFF_PATH else \
+            ("triatt phase, unconditional", triatt) if name == "tri_attention" else \
+            ("tds phase, score_capped", tds.get("score_capped", {})) if name == "contract_cm_km" else \
+            ("tp phase, unconditional CLI --mesh_model 2, rank 0", tp_launches) if name in SPLIT_EPILOGUE else \
+            ("main phase", launches)
         entry = {
-            **k, "route": "cuda",
-            # On the main path: the unconditional sweep's count. On the
-            # path of the triangle attention configuration only: that
-            # configuration's 1000-step run. In the TDS gradient only
-            # (contract_cm_km): the 1000-step TDS run. Off every path: the
-            # launches of the kernels phase (comparisons and timings).
-            "launches": count(kernel_phase) if name in OFF_PATH else count(triatt) if name == "tri_attention"
-            else count(tds.get("score_capped", {})) if name == "contract_cm_km" else count(launches),
-            "launches_from": "kernels phase" if name in OFF_PATH else "triatt phase, unconditional"
-            if name == "tri_attention" else "tds phase, score_capped" if name == "contract_cm_km" else "main phase",
+            **k, "route": "cuda", "launches": count(table), "launches_from": source,
             "launches_scaffold": {run: count(table) for run, table in scaffold.items()},
             "launches_triatt": {"unconditional": count(triatt), "sse": count(state.get("launches_sse", {}))},
             "launches_tds": {run: count(table) for run, table in tds.items()},
             "launches_train": count(state.get("launches_train", {})),
             "launches_parallel": {run: count(table) for run, table in state.get("launches_parallel", {}).items()},
+            "launches_tp": count(tp_launches),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
             "bound_ms": rs[0]["bound_ms"], "bound_by": rs[0]["bound_by"],
             "library_ms": (sum(r["library_ms"] for r in rs) / len(rs)) if rs[0]["library_ms"] is not None else None,
             "tensor_core_instructions": state.get("sass", {}).get(name),
-            "shape": {"B": 2, "N": 256, "C": C_P, "H": H_MUL, "dtype": "float32", **(IPA if name == "ipa_attention" else TRI_ATT if name == "tri_attention" else {})},
+            "shape": {"B": 2, "N": 256, "C": C_P, "H": rs[0]["H"], "dtype": "float32",
+                      **(IPA if name == "ipa_attention" else TRI_ATT if name == "tri_attention" else {})},
         }
         if name == "trimul_project":
             entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
@@ -2112,7 +2616,7 @@ def kernels_line(state):
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
           "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds, "train": phase_train,
-          "parallel": phase_parallel}
+          "parallel": phase_parallel, "tp": phase_tp}
 
 
 def main() -> int:

@@ -1,9 +1,12 @@
 """Flags and set-up that the sampling CLIs share.
 
-Data parallel: `torchrun --nproc_per_node N -m genie2_tpu_torch.cli.<cli>
-... --num_devices N` (or -1) runs one process a card (cuda:LOCAL_RANK),
-each sampling its rows of every batch; rank 0 writes the files, which are
-those of one process (parallel/mesh.py, sampling/base.py).
+Data and tensor parallel: `torchrun --nproc_per_node N -m
+genie2_tpu_torch.cli.<cli> ... --num_devices N` (or -1) runs one process a
+card (cuda:LOCAL_RANK); with `--mesh_model M` (M dividing N) the N ranks
+are N / M data indices of M model ranks each, which split the weights
+(parallel/tensor_parallel.py). Each data index samples its rows of every
+batch; rank 0 writes the files, which are those of one process
+(parallel/mesh.py, sampling/base.py).
 """
 
 from __future__ import annotations
@@ -27,16 +30,19 @@ def add_checkpoint_arguments(parser: argparse.ArgumentParser):
     parser.add_argument("--ema", action="store_true", help="Sample from epoch.{E}.ema.ckpt")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; no card without --device cpu is an error")
-    parser.add_argument("--mesh_model", type=int, default=1, help="Only 1 is supported (tensor parallelism is not ported)")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="Tensor parallelism: split the weights over this many ranks of the launch (dividing "
+                             "--num_devices); the batch shards over the rest")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Shard every batch over the ranks of a torchrun launch: its world size or -1 "
+                        help="Run on every rank of a torchrun launch, data x model: its world size or -1 "
                              "(default: one process)")
 
 
 def add_model_arguments(parser: argparse.ArgumentParser):
     add_checkpoint_arguments(parser)
     parser.add_argument("--scale", type=float, required=True, help="Sampling noise scale")
-    parser.add_argument("--mesh_seq", type=int, default=1, help="Only 1 is supported (sequence sharding is not ported)")
+    parser.add_argument("--mesh_seq", type=int, default=1,
+                        help="Only 1 is supported (sequence sharding is not ported, ROADMAP A.5.2)")
 
 
 def add_solver_arguments(parser: argparse.ArgumentParser):
@@ -63,13 +69,15 @@ def load_model(args):
     """Resolve the parallelism flags into a mesh (parallel/mesh.py:
     `mesh_from_arg`, which joins the launcher's process group), fix the
     matmul precision and load the release-layout checkpoint onto
-    `args.device` (this rank's card under a launcher). Returns (model,
-    config, mesh); the mesh is None for one process."""
+    `args.device` (this rank's card under a launcher), sharded over the
+    mesh's model axis. Returns (model, config, mesh); the mesh is None for
+    one process."""
     from genie2_tpu_torch.parallel import mesh_from_arg
     from genie2_tpu_torch.utils.model_io import load_pretrained_model
 
     mesh = mesh_from_arg(args.num_devices, getattr(args, "mesh_seq", 1), args.mesh_model, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model, config = load_pretrained_model(args.rootdir, args.name, args.epoch, ema=args.ema, device=args.device)
+    model, config = load_pretrained_model(args.rootdir, args.name, args.epoch, ema=args.ema, device=args.device,
+                                          mesh=mesh)
     return model, config, mesh

@@ -9,8 +9,9 @@ trace `{outdir}/logs/metrics.jsonl` and, with --dump_trajectory_every,
 `{outdir}/test/{x0,xt}_predicted_test_{step}.pdb`. Flags as genie2_tpu's
 CLI, plus `--device` (default cuda; `--device cpu` runs the plain versions
 on the CPU). Under torchrun, `--num_devices N` (or -1) shards the particles
-over the N ranks (a count N does not divide raises) and rank 0 writes the
-files and the trace; `--mesh_seq` and `--mesh_model` other than 1 raise
+over the N ranks (a count N does not divide raises), or with `--mesh_model
+M` over N / M data indices of M model ranks that split the weights, and
+rank 0 writes the files and the trace; `--mesh_seq` other than 1 raises
 NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_motif_smc --name base --epoch 40 \
@@ -101,7 +102,8 @@ def main(argv=None):
                         help="tau^2 of the rotation term's x-start variance (with --twist_rotations)")
     parser.add_argument("--dump_trajectory_every", type=int, default=0,
                         help="Dump x0/xt PDB snapshots every K steps (0 = off)")
-    parser.add_argument("--mesh_seq", type=int, default=1, help="Only 1 is supported (sequence sharding is not ported)")
+    parser.add_argument("--mesh_seq", type=int, default=1,
+                        help="Only 1 is supported (sequence sharding is not ported, ROADMAP A.5.2)")
     parser.add_argument("--wandb_project", type=str, default=None,
                         help="Also stream the per-step trace to this wandb project; JSONL is always written "
                              "to {outdir}/logs")

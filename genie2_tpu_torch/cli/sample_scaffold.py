@@ -6,9 +6,10 @@ in --datadir, outputs under `{outdir}/motif={name}/pdbs` and `motif_pdbs`.
 eps_u), with the motif masks zeroed for the unconditional branch (two model
 calls per step); 0 is the plain conditional model. `--device` defaults to
 cuda; `--device cpu` runs the plain versions on the CPU. Under torchrun,
-`--num_devices N` (or -1) shards every batch over the N ranks and rank 0
-writes the files (cli/common.py); `--mesh_seq` and `--mesh_model` other
-than 1 raise NotImplementedError.
+`--num_devices N` (or -1) shards every batch over the N ranks, or with
+`--mesh_model M` over N / M data indices of M model ranks that split the
+weights, and rank 0 writes the files (cli/common.py); `--mesh_seq` other
+than 1 raises NotImplementedError.
 
     python -m genie2_tpu_torch.cli.sample_scaffold --name NAME --epoch E \
         --rootdir results --scale 0.4 --outdir out --datadir data/design25

@@ -8,8 +8,9 @@ the effective sample size; the final particles are written as
 reported. Flags as genie2_tpu's CLI, plus `--device` (default cuda;
 `--device cpu` runs the plain versions on the CPU). Under torchrun,
 `--num_devices N` (or -1) shards the particles over the N ranks (a count N
-does not divide raises) and rank 0 writes the files; `--mesh_model` other
-than 1 raises NotImplementedError.
+does not divide raises), or with `--mesh_model M` over N / M data indices
+of M model ranks that split the weights, and rank 0 writes the files; it
+has no `--mesh_seq`, as genie2_tpu's.
 
     python -m genie2_tpu_torch.cli.sample_sse --name base --epoch 40 \
         --outdir out --length 100 --num_particles 8 --target helix \

@@ -47,6 +47,23 @@
 // padded with zeros to the k step, where a row is not a multiple of 16
 // bytes the tiles are staged element by element with plain loads, and
 // nothing past N or D is stored.
+//
+// Two more modes of the same kernel split it around an all-reduce, for the
+// hidden channels of x split over the ranks of a model group (tensor
+// parallelism, parallel/tensor_parallel.py): each rank holds H_r of the H
+// channels and its columns of W_z.
+//   partial (trimul_epilogue_partial): x [B,H_r,N,N] alone. The consumers'
+//     x . ws product over this rank's channels and the producers' column
+//     sums sum_h x and sum_h x^2 are written in float32 to one buffer,
+//     part [B,N,N,D+2] (x . ws in channels 0..D-1, the sums in D and D+1),
+//     followed by the weight sums [2, D] of this rank's channels, sum_h ws
+//     and W_z . bias_out, which block 0 writes as it stages the weights;
+//     no z, no LN_in, no gate, no bias.
+//   finish (trimul_epilogue_finish): part summed over the ranks and z. The
+//     producers take mu = sum x / H and var = sum x^2 / H - mu^2 over all H
+//     channels from it, the consumers the gate product LN_in(z) . W_g as in
+//     the full mode, and the output is lin[d] = r * part[d] - r * mu * u[d]
+//     + vb[d] + b_z[d] times the gate, u and vb the reduced weight sums.
 
 #include <limits.h>
 #include <stdint.h>
@@ -85,13 +102,21 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The kernel's modes: one launch, or the two stages around an all-reduce.
+constexpr int FULL = 0, PARTIAL = 1, FINISH = 2;
+
 // The float32 parameters: LN_in scale and bias [C], W_z [D, H], LN_out
-// scale and bias [H], b_z [D], W_g [D, C], b_g [D].
+// scale and bias [H], b_z [D], W_g [D, C], b_g [D]; in the finish mode u and
+// vb [D] of all H channels in place of W_z and the LN_out ones; in the
+// partial mode `sums`, where it writes its weight sums [2, D]. A mode reads
+// only its own (the others may be null).
 struct Params {
-    const float *ln_s, *ln_b, *w_z, *lo_s, *lo_b, *b_z, *w_g, *b_g;
+    const float *ln_s, *ln_b, *w_z, *lo_s, *lo_b, *b_z, *w_g, *b_g, *u, *vb;
+    float* sums;
 };
 
-// Padded widths and the shared-memory plan of one launch.
+// Padded widths and the shared-memory plan of one launch; C and H are the
+// widths staged (0 for the tile a mode does not read).
 template <typename T>
 struct Plan {
     int Hp, Cp, ldh, ldc, DC;
@@ -113,24 +138,24 @@ struct Plan {
 
 // Channels d0 .. d0 + DC of the weights into shared memory, zero past D, H
 // and C: W_z folded with the LN_out scale and W_g, both rounded to T, and u,
-// vb and b_g. Warps w0, w0 + nw, ... take one channel each, its whole row in
-// registers first. Plain stores: visible after the caller's next barrier.
-template <typename T>
+// vb and b_g (the mode's own: the given u and vb plus b_z in the finish
+// mode; in the partial one u and W_z . bias_out go to p.sums from block 0).
+// Warps w0, w0 + nw, ... take one channel each, its whole row in registers
+// first. Plain stores: visible after the caller's next barrier.
+template <typename T, int MODE>
 __device__ void load_weights(const Params& p, int d0, int DC, int D, int H, int C, int Hp, int Cp, int ldh,
                              int ldc, T* wzs, T* wgs, float* us, float* vbs, float* bgs, int w0, int nw) {
     const int lane = threadIdx.x & 31;
     for (int d = w0; d < DC; d += nw) {
         const bool ok = d0 + d < D;
-        const float* wz = p.w_z + (size_t)(d0 + d) * H;
-        const float* wg = p.w_g + (size_t)(d0 + d) * C;
         float a[Q], b[Q], s[Q], o[Q];
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
             const int k = lane + 32 * q;
-            a[q] = ok && k < H ? wz[k] : 0.f;
+            a[q] = ok && k < H ? p.w_z[(size_t)(d0 + d) * H + k] : 0.f;
             s[q] = k < H ? p.lo_s[k] : 0.f;
             o[q] = k < H ? p.lo_b[k] : 0.f;
-            b[q] = ok && k < C ? wg[k] : 0.f;
+            b[q] = ok && k < C ? p.w_g[(size_t)(d0 + d) * C + k] : 0.f;
         }
         float su = 0.f, sv = 0.f;
 #pragma unroll
@@ -145,17 +170,31 @@ __device__ void load_weights(const Params& p, int d0, int DC, int D, int H, int 
         su = warp_sum(su);
         sv = warp_sum(sv);
         if (lane == 0) {
-            us[d] = su;
-            vbs[d] = ok ? sv + p.b_z[d0 + d] : 0.f;
-            bgs[d] = ok ? p.b_g[d0 + d] : 0.f;
+            if (MODE == PARTIAL && ok && blockIdx.x == 0) {
+                p.sums[d0 + d] = su;
+                p.sums[D + d0 + d] = sv;
+            }
+            if (MODE == FINISH) {
+                us[d] = ok ? p.u[d0 + d] : 0.f;
+                vbs[d] = ok ? p.vb[d0 + d] + p.b_z[d0 + d] : 0.f;
+            } else {
+                us[d] = su;
+                vbs[d] = ok && MODE == FULL ? sv + p.b_z[d0 + d] : 0.f;
+            }
+            bgs[d] = ok && MODE != PARTIAL ? p.b_g[d0 + d] : 0.f;
         }
     }
 }
 
-template <typename T, int DC>  // DC: output channels of a weight chunk, 32, 64 or 128
+// DC: output channels of a weight chunk, 32, 64 or 128. C and H: the widths
+// staged (z's and x's channels; 0 for a tile the mode does not read), Hn the
+// channel count of the LN_out statistics (H, or all ranks' in the finish
+// mode). part: the partial mode's output, the finish mode's input.
+template <typename T, int DC, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p, T* __restrict__ out,
-                int B, int N, int C, int H, int D, int vec_x, int vec_z, int vec_out) {
+                float* __restrict__ part, int B, int N, int C, int H, int Hn, int D, int vec_x, int vec_z,
+                int vec_out) {
     using M = tc::Mma<T>;
     constexpr int K = M::KSTEP;
     constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
@@ -183,7 +222,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
     const bool resident = D <= DC;
     const T zero = Cvt<T>::from_f(0.f);
 
-    if (resident) load_weights<T>(p, 0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp, THREADS / 32);
+    if (resident) load_weights<T, MODE>(p, 0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp, THREADS / 32);
     __syncthreads();
 
     if (warp >= CONSUMERS / 32) {
@@ -208,36 +247,40 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
             const size_t plane = (size_t)N * N;
             const T* xt = x + (size_t)bb * H * plane + (size_t)i * N + j0;  // + h * plane + j
             const T* zt = z + (((size_t)bb * N + i) * N + j0) * C;         // + r * C + c
-            if (vec_x) {
-                for (int idx = pt; idx < Hp * (TJ / V); idx += PRODUCERS) {
-                    const int h = idx / (TJ / V), c = (idx % (TJ / V)) * V;
-                    const bool ok = h < H && j0 + c < N;
-                    tc::cp_async16(xs + h * LDJ + c, ok ? xt + h * plane + c : x, ok ? 16 : 0);
-                }
-            } else {
-                for (int idx = pt; idx < Hp * TJ; idx += PRODUCERS) {
-                    const int h = idx / TJ, c = idx % TJ;
-                    xs[h * LDJ + c] = (h < H && j0 + c < N) ? xt[h * plane + c] : zero;
+            if constexpr (MODE != FINISH) {
+                if (vec_x) {
+                    for (int idx = pt; idx < Hp * (TJ / V); idx += PRODUCERS) {
+                        const int h = idx / (TJ / V), c = (idx % (TJ / V)) * V;
+                        const bool ok = h < H && j0 + c < N;
+                        tc::cp_async16(xs + h * LDJ + c, ok ? xt + h * plane + c : x, ok ? 16 : 0);
+                    }
+                } else {
+                    for (int idx = pt; idx < Hp * TJ; idx += PRODUCERS) {
+                        const int h = idx / TJ, c = idx % TJ;
+                        xs[h * LDJ + c] = (h < H && j0 + c < N) ? xt[h * plane + c] : zero;
+                    }
                 }
             }
-            if (vec_z) {
-                const int chunks = C / V;
-                for (int idx = pt; idx < TJ * chunks; idx += PRODUCERS) {
-                    const int r = idx / chunks, c = (idx % chunks) * V;
-                    const bool ok = j0 + r < N;
-                    tc::cp_async16(zs + r * ldc + c, ok ? zt + (size_t)r * C + c : z, ok ? 16 : 0);
-                }
-            } else {
-                for (int idx = pt; idx < TJ * C; idx += PRODUCERS) {
-                    const int r = idx / C, c = idx % C;
-                    zs[r * ldc + c] = (j0 + r < N) ? zt[(size_t)r * C + c] : zero;
+            if constexpr (MODE != PARTIAL) {
+                if (vec_z) {
+                    const int chunks = C / V;
+                    for (int idx = pt; idx < TJ * chunks; idx += PRODUCERS) {
+                        const int r = idx / chunks, c = (idx % chunks) * V;
+                        const bool ok = j0 + r < N;
+                        tc::cp_async16(zs + r * ldc + c, ok ? zt + (size_t)r * C + c : z, ok ? 16 : 0);
+                    }
+                } else {
+                    for (int idx = pt; idx < TJ * C; idx += PRODUCERS) {
+                        const int r = idx / C, c = idx % C;
+                        zs[r * ldc + c] = (j0 + r < N) ? zt[(size_t)r * C + c] : zero;
+                    }
                 }
             }
             tc::cp_async_commit();
             tc::cp_async_wait<0>();
             bar_sync(BAR_PRODUCERS, PRODUCERS);  // the tile has landed
 
-            {  // LN_in of this warp's rows, two passes over registers
+            if constexpr (MODE != PARTIAL) {  // LN_in of this warp's rows, two passes over registers
                 T* rows = zs + pw * RPW * ldc;
                 float v[RPW][Q], mu[RPW], rstd[RPW];
 #pragma unroll
@@ -270,7 +313,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
                             rows[r * ldc + c] = Cvt<T>::from_f((v[r][q] - mu[r]) * rstd[r] * lns[q] + lnb[q]);
                     }
             }
-            {  // LN_out partial sums: column j = lane, rows h = pw (mod PWARPS)
+            if constexpr (MODE != FINISH) {  // LN_out partial sums: column j = lane, rows h = pw (mod PWARPS)
                 float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
                 for (int h = pw; h < H; h += PWARPS) {
@@ -282,16 +325,32 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
                 red[(PWARPS + pw) * TJ + lane] = s2;
             }
             bar_sync(BAR_PRODUCERS, PRODUCERS);
-            if (pw == 0) {  // row j = lane: r and r * mu
+            if (pw == 0) {  // row j = lane: r and r * mu (the partial mode: the sums)
+                const bool in = j0 + lane < N;
+                float* sums = part + ((((size_t)bb * N + i) * N + j0 + lane) * (D + 2) + D);
                 float s1 = 0.f, s2 = 0.f;
+                if constexpr (MODE == FINISH) {
+                    if (in) {
+                        s1 = sums[0];
+                        s2 = sums[1];
+                    }
+                } else {
 #pragma unroll
-                for (int w = 0; w < PWARPS; ++w) {
-                    s1 += red[w * TJ + lane];
-                    s2 += red[(PWARPS + w) * TJ + lane];
+                    for (int w = 0; w < PWARPS; ++w) {
+                        s1 += red[w * TJ + lane];
+                        s2 += red[(PWARPS + w) * TJ + lane];
+                    }
                 }
-                const float mean = s1 / H, r = rsqrtf(s2 / H - mean * mean + LN_EPS);
-                rrs[s * TJ + lane] = r;
-                rmus[s * TJ + lane] = r * mean;
+                if constexpr (MODE == PARTIAL) {
+                    if (in) {
+                        sums[0] = s1;
+                        sums[1] = s2;
+                    }
+                } else {
+                    const float mean = s1 / Hn, r = rsqrtf(s2 / Hn - mean * mean + LN_EPS);
+                    rrs[s * TJ + lane] = r;
+                    rmus[s * TJ + lane] = r * mean;
+                }
             }
             bar_arrive(BAR_READY + s, THREADS);
         }
@@ -319,7 +378,8 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
         for (int d0 = 0; d0 < D; d0 += DC) {
             if (!resident) {
                 if (k > 0 || d0 > 0) bar_sync(BAR_CONSUMERS, CONSUMERS);  // the previous chunk is consumed
-                load_weights<T>(p, d0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp, CONSUMERS / 32);
+                load_weights<T, MODE>(p, d0, DC, D, H, C, Hp, Cp, ldh, ldc, wzs, wgs, us, vbs, bgs, warp,
+                                      CONSUMERS / 32);
                 bar_sync(BAR_CONSUMERS, CONSUMERS);
             }
             float am[NT][4], ag[NT][4];
@@ -328,26 +388,30 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
 #pragma unroll
                 for (int e = 0; e < 4; ++e) am[n][e] = ag[n][e] = 0.f;
 
+            if constexpr (MODE != FINISH) {
 #pragma unroll 4
-            for (int k0 = 0; k0 < Hp; k0 += K) {
-                typename M::A fa;
-                M::load_a(fa, tx, wm, k0, lane);
+                for (int k0 = 0; k0 < Hp; k0 += K) {
+                    typename M::A fa;
+                    M::load_a(fa, tx, wm, k0, lane);
 #pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    typename M::B fb;
-                    M::load_b(fb, twz, wn + n * 8, k0, lane);
-                    M::mma(am[n], fa, fb);
+                    for (int n = 0; n < NT; ++n) {
+                        typename M::B fb;
+                        M::load_b(fb, twz, wn + n * 8, k0, lane);
+                        M::mma(am[n], fa, fb);
+                    }
                 }
             }
+            if constexpr (MODE != PARTIAL) {
 #pragma unroll 4
-            for (int k0 = 0; k0 < Cp; k0 += K) {
-                typename M::A fa;
-                M::load_a(fa, tz, wm, k0, lane);
+                for (int k0 = 0; k0 < Cp; k0 += K) {
+                    typename M::A fa;
+                    M::load_a(fa, tz, wm, k0, lane);
 #pragma unroll
-                for (int n = 0; n < NT; ++n) {
-                    typename M::B fb;
-                    M::load_b(fb, twg, wn + n * 8, k0, lane);
-                    M::mma(ag[n], fa, fb);
+                    for (int n = 0; n < NT; ++n) {
+                        typename M::B fb;
+                        M::load_b(fb, twg, wn + n * 8, k0, lane);
+                        M::mma(ag[n], fa, fb);
+                    }
                 }
             }
 
@@ -362,10 +426,26 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
                 for (int half = 0; half < 2; ++half) {
                     const int row = wm + g + 8 * half;
                     if (j0 + row >= N) continue;
-                    const float o0 = (rr[half] * am[n][2 * half] - rmu[half] * u0 + vb0) * sigmoid(ag[n][2 * half] + bg0);
-                    const float o1 =
-                        (rr[half] * am[n][2 * half + 1] - rmu[half] * u1 + vb1) * sigmoid(ag[n][2 * half + 1] + bg1);
-                    T* po = out + (((size_t)bb * N + i) * N + j0 + row) * D + d;
+                    const size_t pos = ((size_t)bb * N + i) * N + j0 + row;
+                    if constexpr (MODE == PARTIAL) {  // the raw partial product, float32
+                        float* pp = part + pos * (D + 2) + d;
+                        if (vec_out) {  // D even: the pair is whole and 8-byte aligned
+                            tc::store_pair(pp, am[n][2 * half], am[n][2 * half + 1]);
+                        } else {
+                            pp[0] = am[n][2 * half];
+                            if (two) pp[1] = am[n][2 * half + 1];
+                        }
+                        continue;
+                    }
+                    float m0 = am[n][2 * half], m1 = am[n][2 * half + 1];
+                    if constexpr (MODE == FINISH) {  // x . ws summed over the ranks
+                        const float* pp = part + pos * (D + 2) + d;
+                        m0 = pp[0];
+                        m1 = two ? pp[1] : 0.f;
+                    }
+                    const float o0 = (rr[half] * m0 - rmu[half] * u0 + vb0) * sigmoid(ag[n][2 * half] + bg0);
+                    const float o1 = (rr[half] * m1 - rmu[half] * u1 + vb1) * sigmoid(ag[n][2 * half + 1] + bg1);
+                    T* po = out + pos * D + d;
                     if (vec_out) {  // D even: the pair is whole and aligned
                         tc::store_pair(po, o0, o1);
                     } else {
@@ -381,9 +461,9 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
     }
 }
 
-template <typename T, int DC>
-int launch_dc(const T* x, const T* z, const Params& p, T* out, int B, int N, int C, int H, int D, bool vec_x,
-              bool vec_z, bool vec_out, cudaStream_t stream) {
+template <typename T, int DC, int MODE>
+int launch_dc(const T* x, const T* z, const Params& p, T* out, float* part, int B, int N, int C, int H, int Hn,
+              int D, bool vec_x, bool vec_z, bool vec_out, cudaStream_t stream) {
     // The shared-memory allowance and the blocks an SM holds, set and asked
     // once per device and size: both are host calls the main path would
     // otherwise pay at every launch.
@@ -396,9 +476,9 @@ int launch_dc(const T* x, const T* z, const Params& p, T* out, int B, int N, int
     if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     if (smem_set[dev] != smem) {
         int per_sm = 0, sms = 0;
-        if ((err = cudaFuncSetAttribute(epilogue_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        if ((err = cudaFuncSetAttribute(epilogue_kernel<T, DC, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem)) != cudaSuccess ||
-            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel<T, DC>, THREADS,
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel<T, DC, MODE>, THREADS,
                                                                  smem)) != cudaSuccess ||
             (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
             return (int)err;
@@ -407,14 +487,15 @@ int launch_dc(const T* x, const T* z, const Params& p, T* out, int B, int N, int
     }
     const long long tiles = (long long)B * N * ((N + TJ - 1) / TJ);
     const int grid = (int)(tiles < blocks[dev] ? tiles : blocks[dev]);
-    epilogue_kernel<T, DC><<<grid, THREADS, smem, stream>>>(x, z, p, out, B, N, C, H, D, (int)vec_x, (int)vec_z,
-                                                            (int)vec_out);
+    epilogue_kernel<T, DC, MODE><<<grid, THREADS, smem, stream>>>(x, z, p, out, part, B, N, C, H, Hn, D, (int)vec_x,
+                                                                  (int)vec_z, (int)vec_out);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* x, const void* z, const Params& p, void* out, int B, int N, int C, int H, int D,
-           cudaStream_t stream) {
+// C and H: the widths staged (0 for the tile the mode does not read).
+template <typename T, int MODE>
+int launch(const void* x, const void* z, const Params& p, void* out, float* part, int B, int N, int C, int H,
+           int Hn, int D, cudaStream_t stream) {
     // The output chunk: all D channels where they fit (the weights then stay
     // for every tile), else the widest of 128, 64 and 32 channels that does.
     int dc = 0;
@@ -426,13 +507,13 @@ int launch(const void* x, const void* z, const Params& p, void* out, int B, int 
     if (dc == 0 || (long long)B * N * ((N + TJ - 1) / TJ) > INT_MAX) return (int)cudaErrorInvalidValue;
     const bool vec_x = (uintptr_t)x % 16 == 0 && (N * sizeof(T)) % 16 == 0;
     const bool vec_z = (uintptr_t)z % 16 == 0 && (C * sizeof(T)) % 16 == 0;
-    const bool vec_out = (uintptr_t)out % 16 == 0 && D % 2 == 0;
+    const bool vec_out = D % 2 == 0 && (MODE == PARTIAL ? (uintptr_t)part % 8 == 0 : (uintptr_t)out % 16 == 0);
     const T* px = static_cast<const T*>(x);
     const T* pz = static_cast<const T*>(z);
     T* po = static_cast<T*>(out);
-    if (dc == 32) return launch_dc<T, 32>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
-    if (dc == 64) return launch_dc<T, 64>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
-    return launch_dc<T, 128>(px, pz, p, po, B, N, C, H, D, vec_x, vec_z, vec_out, stream);
+    if (dc == 32) return launch_dc<T, 32, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
+    if (dc == 64) return launch_dc<T, 64, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
+    return launch_dc<T, 128, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
 }
 
 }  // namespace
@@ -449,9 +530,48 @@ extern "C" int trimul_epilogue(const void* x, const void* z, const void* ln_in_s
     const Params p{static_cast<const float*>(ln_in_scale), static_cast<const float*>(ln_in_bias),
                    static_cast<const float*>(w_z),         static_cast<const float*>(ln_out_scale),
                    static_cast<const float*>(ln_out_bias), static_cast<const float*>(b_z),
-                   static_cast<const float*>(w_g),         static_cast<const float*>(b_g)};
+                   static_cast<const float*>(w_g),         static_cast<const float*>(b_g),
+                   nullptr,                                nullptr,
+                   nullptr};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(x, z, p, out, B, N, C, H, D, s);
-    if (dtype == 1) return launch<__nv_bfloat16>(x, z, p, out, B, N, C, H, D, s);
+    if (dtype == 0) return launch<float, FULL>(x, z, p, out, nullptr, B, N, C, H, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, FULL>(x, z, p, out, nullptr, B, N, C, H, H, D, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The partial mode: x [B,H,N,N] (this rank's H channels, dtype as above),
+// W_z [D, H] (its columns) and the LN_out scale and bias [H] (its
+// channels), float32 -> part, float32: [B,N,N,D+2] then [2, D].
+extern "C" int trimul_epilogue_partial(const void* x, const void* w_z, const void* ln_out_scale,
+                                       const void* ln_out_bias, void* part, int B, int N, int H, int D, int dtype,
+                                       void* stream) {
+    if (B < 1 || N < 1 || H < 1 || H > MAX_CHANNELS || D < 1) return (int)cudaErrorInvalidValue;
+    float* pp = static_cast<float*>(part);
+    const Params p{nullptr, nullptr, static_cast<const float*>(w_z), static_cast<const float*>(ln_out_scale),
+                   static_cast<const float*>(ln_out_bias), nullptr, nullptr, nullptr, nullptr, nullptr,
+                   pp + (size_t)B * N * N * (D + 2)};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return launch<float, PARTIAL>(x, nullptr, p, nullptr, pp, B, N, 0, H, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, PARTIAL>(x, nullptr, p, nullptr, pp, B, N, 0, H, H, D, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The finish mode: part [B,N,N,D+2] float32 summed over the ranks, z
+// [B,N,N,C] and out [B,N,N,D] of dtype as above; H the channel count of all
+// ranks; LN_in scale and bias [C], u and vb [D] (sum_h ws and W_z . bias_out
+// over all H, the tail of part), b_z [D], W_g [D, C] and b_g [D], float32.
+extern "C" int trimul_epilogue_finish(const void* part, const void* z, const void* ln_in_scale,
+                                      const void* ln_in_bias, const void* u, const void* vb, const void* b_z,
+                                      const void* w_g, const void* b_g, void* out, int B, int N, int C, int H, int D,
+                                      int dtype, void* stream) {
+    if (B < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+    const Params p{static_cast<const float*>(ln_in_scale), static_cast<const float*>(ln_in_bias), nullptr,
+                   nullptr, nullptr, static_cast<const float*>(b_z), static_cast<const float*>(w_g),
+                   static_cast<const float*>(b_g), static_cast<const float*>(u), static_cast<const float*>(vb),
+                   nullptr};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* pp = const_cast<float*>(static_cast<const float*>(part));
+    if (dtype == 0) return launch<float, FINISH>(nullptr, z, p, out, pp, B, N, C, 0, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, FINISH>(nullptr, z, p, out, pp, B, N, C, 0, H, D, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,10 @@ class Denoiser(nn.Module):
     do not depend on how the global batch is split over ranks.
     `remat` checkpoints each pair layer in training (nn/pair_stack.py).
     `tri_att_chunk` is the row chunk of triangle attention's plain version
-    (0 = all rows at once)."""
+    (0 = all rows at once). Built whole, it is split over a mesh's model
+    axis in place by parallel/tensor_parallel.py:shard_model (the loaders
+    and the Trainer do so for a mesh that has one); its forward is then a
+    collective of the model group."""
 
     def __init__(
         self, c_s, c_p, n_timestep, rescale, c_pos_emb, c_chain_emb, c_timestep_emb, max_n_res,

@@ -15,6 +15,15 @@ through their plain versions. The kernels take any N and any hidden width,
 so there is no shape gate. `TriangleAttention` runs its attention core
 through `ops/tri_att.py` in the same way (one kernel launch per module call
 on the card).
+
+Under tensor parallelism (parallel/tensor_parallel.py) the TriMul splits
+its hidden channels: the projection and the contraction run on this rank's
+channels, the epilogue as its two stages around one all-reduce of their
+partial sums (ops/trimul.py); the pair transition splits its hidden
+channels (`linear_1` by columns, `linear_2` by rows) and triangle
+attention its heads. Each update leaves the module reduced and
+replicated, so the dropout after it draws the same masks on every model
+rank.
 """
 
 from __future__ import annotations
@@ -23,12 +32,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+import torch.nn.functional as F
+
 from genie2_tpu_torch.nn.primitives import Attention, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
 class TriangleMultiplicativeUpdate(nn.Module):
-    """AF2 Algorithms 11/12; `outgoing` picks the contracted index."""
+    """AF2 Algorithms 11/12; `outgoing` picks the contracted index. `tp`:
+    the model group its hidden channels are split over, or None."""
+
+    tp = None
 
     def __init__(self, c_z: int, c_hidden: int, outgoing: bool = True):
         super().__init__()
@@ -52,9 +67,29 @@ class TriangleMultiplicativeUpdate(nn.Module):
             w[f"w_{key}"], w[f"b_{key}"] = lin.weight, lin.bias
         return w
 
+    def tp_units(self) -> int:
+        return self.linear_a_p.weight.shape[0]
+
+    def shard_(self, tp):
+        self.tp = tp
+
     def forward(self, z: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
         """z [B,N,N,C], res_mask [B,N] -> the update before the residual."""
-        return trimul.trimul(z.contiguous(), res_mask.to(z.dtype), self.fused_weights(), self.outgoing)
+        z, res_mask, w = z.contiguous(), res_mask.to(z.dtype), self.fused_weights()
+        tp = self.tp
+        if tp is None:
+            return trimul.trimul(z, res_mask, w, self.outgoing)
+        # This rank's hidden channels: LN_in (fused into the projection) and
+        # LN_out read replicated parameters split by channel here, so they
+        # and z come in through copy_to_model; the gate reads them whole.
+        h = w["w_z"].shape[1]
+        mine = slice(tp.rank * h, (tp.rank + 1) * h)
+        split = dict(w, ln_in_scale=copy_to_model(w["ln_in_scale"], tp), ln_in_bias=copy_to_model(w["ln_in_bias"], tp))
+        a, b = trimul.project_gated_cm(copy_to_model(z, tp), res_mask, split)
+        x = trimul.contract_cm(a, b, self.outgoing)
+        part = trimul.epilogue_partial(x, w["w_z"], copy_to_model(w["ln_out_scale"], tp)[mine],
+                                       copy_to_model(w["ln_out_bias"], tp)[mine])
+        return trimul.epilogue_finish(reduce_from_model(part, tp), z, w, h * tp.size)
 
 
 class TriangleAttention(nn.Module):
@@ -62,6 +97,8 @@ class TriangleAttention(nn.Module):
     representation; the ending-node variant swaps the pair axes around the
     same computation (a copy on the way in, inside the layer norm, and a
     view on the way out)."""
+
+    tp = None
 
     def __init__(self, c_in: int, c_hidden: int, no_heads: int, starting: bool = True, inf: float = 1e9,
                  row_chunk: int = 0):
@@ -71,12 +108,21 @@ class TriangleAttention(nn.Module):
         self.linear = Linear(c_in, no_heads, bias=False, init="normal")
         self.mha = Attention(c_in, c_in, c_in, c_hidden, no_heads, row_chunk=row_chunk, inf=inf)
 
+    def tp_units(self) -> int:
+        return self.mha.no_heads
+
+    def shard_(self, tp):
+        self.tp = tp
+        self.mha.shard_(tp)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x [B,N,N,C], mask [B,N,N] (the pair mask) -> the update before
         the residual."""
         if not self.starting:
             x, mask = x.transpose(-2, -3), mask.transpose(-1, -2)
         x = self.layer_norm(x)
+        if self.tp is not None:  # this rank's heads: the bias heads and the attention's
+            x = copy_to_model(x, self.tp)
         # [B, I, J, H] -> [B, H, I, J]: the bias of query i and key j, for every row.
         tb = self.linear(x).permute(0, 3, 1, 2).contiguous()
         out = self.mha(x, x, x, tb, mask)
@@ -84,7 +130,11 @@ class TriangleAttention(nn.Module):
 
 
 class PairTransition(nn.Module):
-    """AF2 Algorithm 15."""
+    """AF2 Algorithm 15. Under tensor parallelism (`tp`) this rank's hidden
+    channels: `linear_1` by columns, `linear_2` by rows, its bias after the
+    reduction."""
+
+    tp = None
 
     def __init__(self, c_z: int, n: int):
         super().__init__()
@@ -92,9 +142,20 @@ class PairTransition(nn.Module):
         self.linear_1 = Linear(c_z, n * c_z, init="relu")
         self.linear_2 = Linear(n * c_z, c_z, init="final")
 
+    def tp_units(self) -> int:
+        return self.linear_1.weight.shape[0]
+
+    def shard_(self, tp):
+        self.tp = tp
+
     def forward(self, z, mask):
-        z = self.linear_1(self.layer_norm(z))
-        return self.linear_2(torch.relu(z)) * mask[..., None].to(z.dtype)
+        z = self.layer_norm(z)
+        if self.tp is None:
+            z = self.linear_2(torch.relu(self.linear_1(z)))
+        else:
+            h = torch.relu(self.linear_1(copy_to_model(z, self.tp)))
+            z = reduce_from_model(F.linear(h, self.linear_2.weight), self.tp) + self.linear_2.bias
+        return z * mask[..., None].to(z.dtype)
 
 
 class PairTransformLayer(nn.Module):

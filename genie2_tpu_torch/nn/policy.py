@@ -35,7 +35,8 @@ def cast_model(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     """The model with its floating parameters and buffers in `dtype`: the
     model itself where they already are, else a cast copy, so the caller's
     model keeps its weights (genie2_tpu's samplers cast a copy of the
-    parameter tree, `cast_floating`)."""
+    parameter tree, `cast_floating`). The copy of a model split over a
+    model group holds the same shards and shares the group."""
     tensors = [*model.parameters(), *model.buffers()]
     if all(t.dtype == dtype for t in tensors if t.is_floating_point()):
         return model

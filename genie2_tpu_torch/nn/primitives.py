@@ -13,9 +13,11 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from genie2_tpu_torch.ops.tri_att import tri_attention
+from genie2_tpu_torch.parallel.tensor_parallel import reduce_from_model
 
 # std of the standard normal truncated to [-2, 2]
 _TRUNCNORM_STD = 0.8796256610342398
@@ -116,7 +118,12 @@ class Attention(nn.Module):
     The projections are plain products; the attention core between them is
     `ops/tri_att.py:tri_attention`: the kernel on the card, the plain
     version on the CPU. `row_chunk` > 0 bounds the logits the plain version
-    holds at once to that many rows; the kernel holds none."""
+    holds at once to that many rows; the kernel holds none. Under tensor
+    parallelism (`tp`) it holds this rank's heads (`no_heads` of them):
+    q, k, v and g by columns, `linear_o` by rows, its bias after the
+    reduction; the caller passes the inputs through copy_to_model."""
+
+    tp = None
 
     def __init__(self, c_q: int, c_k: int, c_v: int, c_hidden: int, no_heads: int, gating: bool = True,
                  row_chunk: int = 0, inf: float = 1e9):
@@ -127,6 +134,10 @@ class Attention(nn.Module):
         self.linear_v = Linear(c_v, no_heads * c_hidden, bias=False, init="glorot")
         self.linear_g = Linear(c_q, no_heads * c_hidden, init="gating") if gating else None
         self.linear_o = Linear(no_heads * c_hidden, c_q, init="final")
+
+    def shard_(self, tp):
+        self.tp = tp
+        self.no_heads //= tp.size
 
     def forward(self, q_x: torch.Tensor, k_x: torch.Tensor, v_x: torch.Tensor, tb: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -139,4 +150,6 @@ class Attention(nn.Module):
         o = tri_attention(q, k, v, tb, mask, self.inf, self.row_chunk)
         if self.linear_g is not None:
             o = o * torch.sigmoid(self.linear_g(q_x)).unflatten(-1, heads)
-        return self.linear_o(o.flatten(-2))
+        if self.tp is None:
+            return self.linear_o(o.flatten(-2))
+        return reduce_from_model(F.linear(o.flatten(-2), self.linear_o.weight), self.tp) + self.linear_o.bias

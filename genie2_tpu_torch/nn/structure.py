@@ -3,7 +3,12 @@ the structure transition, the backbone update and the stack of layers that
 is reapplied per block (parameters shared across blocks). In training, the
 whole of s goes through dropout after s + IPA (before the layer norm) and
 after the transition's residual blocks (before its layer norm), as
-genie2_tpu places them; each application of a layer takes its own seed."""
+genie2_tpu places them; each application of a layer takes its own seed.
+
+Under tensor parallelism (parallel/tensor_parallel.py) the IPA splits its
+heads and the first block of the transition its hidden channels; both
+leave s reduced and replicated, so the dropout after them draws the same
+masks on every model rank."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from torch import nn
 from genie2_tpu_torch.geometry import Rigid, quat_to_rot
 from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops.ipa import ipa_attention
+from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
 def _to_points(x: torch.Tensor) -> torch.Tensor:
@@ -25,7 +31,16 @@ class InvariantPointAttention(nn.Module):
     """AF2 Algorithm 22 with the reference's output head, which concatenates
     the pair-attended features (width H * (c_z + c_hidden + 4 * P_v)). The
     attention core masks the key side only (ops/ipa.py): real rows equal the
-    square mask's, padded rows differ and are dead downstream."""
+    square mask's, padded rows differ and are dead downstream.
+
+    Under tensor parallelism (`tp`) it holds this rank's heads (`no_heads`
+    of them): every projection by columns, head by head (the point
+    projections from each of their thirds), `linear_out` by rows (its input
+    is six head-major blocks, `out_blocks`), its bias after the reduction;
+    `head_weights` stays whole and is sliced at use. s, z and the frames
+    come in through copy_to_model."""
+
+    tp = None
 
     def __init__(self, c_s, c_z, c_hidden, no_heads, no_qk_points, no_v_points, inf=1e5, eps=1e-8):
         super().__init__()
@@ -41,10 +56,28 @@ class InvariantPointAttention(nn.Module):
         self.head_weights = nn.Parameter(torch.full((no_heads,), SOFTPLUS_INVERSE_1))
         self.linear_out = Linear(no_heads * (c_z + c_hidden + no_v_points * 4), c_s, init="final")
 
+    def tp_units(self) -> int:
+        return self.no_heads
+
+    def out_blocks(self):
+        """The widths of `linear_out`'s input blocks, in the order of the concatenation below."""
+        h = self.no_heads
+        return (h * self.c_hidden, *(h * self.no_v_points,) * 4, h * self.c_z)
+
+    def shard_(self, tp):
+        self.tp = tp
+        self.no_heads //= tp.size
+
     def forward(self, s, z, t: Rigid, mask):
         h, c = self.no_heads, self.c_hidden
         pq, pv = self.no_qk_points, self.no_v_points
         B, N = s.shape[:2]
+        tp = self.tp
+        head_weights = self.head_weights
+        if tp is not None:
+            s, z = copy_to_model(s, tp), copy_to_model(z, tp)
+            t = Rigid(copy_to_model(t.rots, tp), copy_to_model(t.trans, tp))
+            head_weights = copy_to_model(head_weights, tp)[tp.rank * h:(tp.rank + 1) * h]
 
         q = self.linear_q(s).view(B, N, h, c)
         kv = self.linear_kv(s).view(B, N, h, 2 * c)
@@ -57,7 +90,7 @@ class InvariantPointAttention(nn.Module):
 
         # Logits, softmax and the three value sums: one kernel on the card.
         o, o_pt, o_pair = ipa_attention(
-            q, k, v, q_pts, k_pts, v_pts, self.linear_b(z), z, F.softplus(self.head_weights), mask, self.inf
+            q, k, v, q_pts, k_pts, v_pts, self.linear_b(z), z, F.softplus(head_weights), mask, self.inf
         )
         o = o.reshape(B, N, h * c)
         o_pt = frames.unsqueeze(-1).invert_apply(o_pt)
@@ -68,18 +101,37 @@ class InvariantPointAttention(nn.Module):
         out = torch.cat(
             [o, o_pt_flat[..., 0], o_pt_flat[..., 1], o_pt_flat[..., 2], o_pt_norm, o_pair], dim=-1
         )
-        return self.linear_out(out)
+        if tp is None:
+            return self.linear_out(out)
+        return reduce_from_model(F.linear(out, self.linear_out.weight), tp) + self.linear_out.bias
 
 
 class _TransitionBlock(nn.Module):
+    """Under tensor parallelism (`tp`; the first block of the transition
+    only) `linear_1` by columns, `linear_2` by rows, its bias after the
+    reduction; `linear_3` whole."""
+
+    tp = None
+
     def __init__(self, c):
         super().__init__()
         self.linear_1 = Linear(c, c, init="relu")
         self.linear_2 = Linear(c, c, init="relu")
         self.linear_3 = Linear(c, c, init="final")
 
+    def tp_units(self) -> int:
+        return self.linear_1.weight.shape[0]
+
+    def shard_(self, tp):
+        self.tp = tp
+
     def forward(self, s):
-        return self.linear_3(torch.relu(self.linear_2(torch.relu(self.linear_1(s))))) + s
+        if self.tp is None:
+            h = self.linear_2(torch.relu(self.linear_1(s)))
+        else:
+            h = torch.relu(self.linear_1(copy_to_model(s, self.tp)))
+            h = reduce_from_model(F.linear(h, self.linear_2.weight), self.tp) + self.linear_2.bias
+        return self.linear_3(torch.relu(h)) + s
 
 
 class StructureTransition(nn.Module):

@@ -29,6 +29,8 @@ LAUNCHES: Dict[str, int] = {
     "trimul_contract_out": 0,
     "trimul_contract_in": 0,
     "trimul_epilogue": 0,
+    "trimul_epilogue_partial": 0,
+    "trimul_epilogue_finish": 0,
     "ipa_attention": 0,
     "triangle_multiply_cm": 0,
     "triangle_multiply_nlayout": 0,

@@ -13,6 +13,18 @@ activations channel-major, [B, H, N, N], between them:
               LN_out folded into linear_z: r*(x.ws) - r*mu*u + vb,
               times sigmoid(LN_in(z).W_g + b_g) with LN_in recomputed.
 
+Under tensor parallelism (nn/pair_stack.py) each rank holds H_r of the H
+hidden channels, and the epilogue's LN_out statistics and x.ws product
+are sums over all of them. It then runs as two stages around one
+all-reduce of their partial sums (csrc/trimul_epilogue.cu's other modes):
+
+  epilogue_partial  x [B,H_r,N,N] -> part, float32, flat: [B,N,N,D+2]
+                      (x.ws over this rank's channels, sum_h x, sum_h x^2)
+                      then [2, D] (sum_h ws and W_z.ln_out_bias over them)
+  (all-reduce SUM of part over the model group, by the caller)
+  epilogue_finish   part, z -> out [B,N,N,C_out]: mu, var over all H,
+                      r*(x.ws) - r*mu*u + vb, times the gate as above.
+
 `contract_cm_km` is the same contraction with the right operand stored
 k-major, x[b,h,i,j] = sum_k a[b,h,i,k] b[b,h,k,j] (csrc/triangle_contract.cu);
 no module's forward calls it, as in genie2_tpu: it runs in the contraction's
@@ -120,6 +132,50 @@ def fold_ln_out(w: Weights, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Ten
     return ws, u, vb
 
 
+def part_size(B: int, N: int, D: int) -> int:
+    """The number of float32 values of `epilogue_partial`'s flat output."""
+    return B * N * N * (D + 2) + 2 * D
+
+
+def split_part(part: torch.Tensor, B: int, N: int, D: int):
+    """The flat partial sums as (per position [B,N,N,D+2], weight sums [2, D])."""
+    n = B * N * N * (D + 2)
+    return part[:n].view(B, N, N, D + 2), part[n:].view(2, D)
+
+
+def epilogue_partial_plain(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
+                           ln_out_bias: torch.Tensor) -> torch.Tensor:
+    """x [B,H_r,N,N], w_z [C_out,H_r], the LN_out scale and bias [H_r] of
+    this rank's channels -> the flat float32 partial sums (module
+    docstring): x.ws with ws = w_z * scale rounded to x's dtype, sum_h x,
+    sum_h x^2, then sum_h ws and w_z.bias."""
+    xf = x.float()
+    ws = (w_z.float() * ln_out_scale.float()[None, :]).to(x.dtype).float()
+    sums = torch.stack([ws.sum(1), torch.mv(w_z.float(), ln_out_bias.float())])
+    main = torch.matmul(xf.permute(0, 2, 3, 1), ws.t())
+    per_pos = torch.cat([main, xf.sum(1)[..., None], xf.square().sum(1)[..., None]], dim=-1)
+    return torch.cat([per_pos.reshape(-1), sums.reshape(-1)])
+
+
+def epilogue_finish_plain(part: torch.Tensor, z: torch.Tensor, ln_in_scale: torch.Tensor,
+                          ln_in_bias: torch.Tensor, b_z: torch.Tensor, w_g: torch.Tensor, b_g: torch.Tensor,
+                          H: int) -> torch.Tensor:
+    """The partial sums of all H channels (summed over the ranks) and z
+    [B,N,N,C] -> gated output [B,N,N,C_out] (row-major), as
+    `epilogue_cm_plain` computes it from x."""
+    dt = z.dtype
+    B, N = z.shape[:2]
+    D = w_g.shape[0]
+    per_pos, sums = split_part(part, B, N, D)
+    mu = per_pos[..., D] / H
+    var = per_pos[..., D + 1] / H - mu.square()
+    r = torch.rsqrt(var + LN_EPS)
+    lin = r[..., None] * per_pos[..., :D] - (r * mu)[..., None] * sums[0] + sums[1] + b_z.float()
+    zn = _ln_lane(z, ln_in_scale, ln_in_bias).to(dt).float()
+    g = torch.matmul(zn, w_g.to(dt).float().t()) + b_g.float()
+    return (lin * torch.sigmoid(g)).to(dt)
+
+
 def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] (row-major)."""
     dt = z.dtype
@@ -157,17 +213,22 @@ _ARGTYPES = {
     "trimul_project": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6,
     "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
     "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
+    "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
+    "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
 }
 
 # The parameters of the projection (float32 or bfloat16) and of the epilogue
 # (float32), in the order of their C entry points.
 PROJECT_PARAMS = ("ln_in_scale", "ln_in_bias", "w_ap", "w_ag", "w_bp", "w_bg", "b_ap", "b_ag", "b_bp", "b_bg")
 EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
+# The finish stage's parameters (float32 to its kernel), in the order of
+# `epilogue_finish_plain`'s arguments.
+FINISH_PARAMS = ("ln_in_scale", "ln_in_bias", "b_z", "w_g", "b_g")
 
 
-def _launch(name: str, device, *args):
-    """csrc/<name>.cu's entry point of the same name."""
-    launch(name, name, _ARGTYPES[name], device, *args)
+def _launch(name: str, device, *args, source: str = None):
+    """The entry point `name` of csrc/<source>.cu (default: of the same name)."""
+    launch(source or name, name, _ARGTYPES[name], device, *args)
 
 
 _TRIANGLE_CONTRACT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
@@ -286,6 +347,63 @@ def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.
     params = [_f32(w[k], dev) for k in EPILOGUE_PARAMS]
     _launch("trimul_epilogue", dev, x, z, *params, out, B, N, C, H, D, _DTYPE_CODES[x.dtype])
     LAUNCHES["trimul_epilogue"] += 1
+    return out
+
+
+def epilogue_partial(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
+                     ln_out_bias: torch.Tensor) -> torch.Tensor:
+    """x [B,H_r,N,N] and this rank's epilogue weights -> the flat float32
+    partial sums (`epilogue_partial_plain`)."""
+    if records_grad([x, w_z, ln_out_scale, ln_out_bias]) and not _on_cpu(x):
+        return Recomputed.apply(_epilogue_partial_forward, epilogue_partial_plain, x, w_z, ln_out_scale,
+                                ln_out_bias)
+    return _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias)
+
+
+def _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias) -> torch.Tensor:
+    if _on_cpu(x):
+        return epilogue_partial_plain(x, w_z, ln_out_scale, ln_out_bias)
+    _check_activation("epilogue_partial x", x, 4)
+    B, H, N, N2 = x.shape
+    D = w_z.shape[0]
+    if N2 != N or tuple(w_z.shape) != (D, H) or ln_out_scale.shape != (H,) or ln_out_bias.shape != (H,) \
+            or H > _MAX_CHANNELS:
+        raise ValueError(f"epilogue_partial: x {tuple(x.shape)}, w_z {tuple(w_z.shape)}")
+    dev = x.device
+    params = [_f32(t, dev) for t in (w_z, ln_out_scale, ln_out_bias)]
+    part = torch.empty(part_size(B, N, D), dtype=torch.float32, device=dev)
+    _launch("trimul_epilogue_partial", dev, x, *params, part, B, N, H, D, _DTYPE_CODES[x.dtype],
+            source="trimul_epilogue")
+    LAUNCHES["trimul_epilogue_partial"] += 1
+    return part
+
+
+def epilogue_finish(part: torch.Tensor, z: torch.Tensor, w: Weights, H: int) -> torch.Tensor:
+    """The partial sums of all H channels, summed over the ranks, and z
+    [B,N,N,C] -> gated output [B,N,N,C_out] (`epilogue_finish_plain`)."""
+    params = [w[k] for k in FINISH_PARAMS]
+    kernel, plain = functools.partial(_epilogue_finish_forward, H=H), functools.partial(epilogue_finish_plain, H=H)
+    if records_grad([part, z, *params]) and not _on_cpu(z):
+        return Recomputed.apply(kernel, plain, part, z, *params)
+    return kernel(part, z, *params)
+
+
+def _epilogue_finish_forward(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H: int) -> torch.Tensor:
+    if _on_cpu(z):
+        return epilogue_finish_plain(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H)
+    _check_activation("epilogue_finish z", z, 4)
+    B, N, N2, C = z.shape
+    D = w_g.shape[0]
+    if N2 != N or part.dtype != torch.float32 or part.shape != (part_size(B, N, D),) or not part.is_contiguous() \
+            or tuple(w_g.shape) != (D, C) or C > _MAX_CHANNELS or H < 1:
+        raise ValueError(f"epilogue_finish: part {tuple(part.shape)}, z {tuple(z.shape)}, C_out={D}")
+    dev = z.device
+    u, vb = split_part(part, B, N, D)[1]  # the weight sums, views into part
+    params = [_f32(t, dev) for t in (ln_in_scale, ln_in_bias)] + [u, vb] + [_f32(t, dev) for t in (b_z, w_g, b_g)]
+    out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
+    _launch("trimul_epilogue_finish", dev, part, z, *params, out, B, N, C, H, D, _DTYPE_CODES[z.dtype],
+            source="trimul_epilogue")
+    LAUNCHES["trimul_epilogue_finish"] += 1
     return out
 
 

@@ -1,15 +1,21 @@
-"""Data parallelism over torch.distributed: one process a card.
+"""The ranks of torch.distributed as a (data x model) grid: one process a card.
 
-Counterpart of genie2_tpu/parallel/mesh.py's `data` axis. genie2_tpu runs
-one controller over a jax Mesh and lets XLA insert the collectives; here
-every card has its own process (launched by `torchrun`, or by
-`parallel/spawn.py`), and the code calls the collectives itself:
+Counterpart of genie2_tpu/parallel/mesh.py's `data` and `model` axes.
+genie2_tpu runs one controller over a jax Mesh and lets XLA insert the
+collectives; here every card has its own process (launched by `torchrun`,
+or by `parallel/spawn.py`), and the code calls the collectives itself. The
+W ranks form a grid of n_data x n_model, `model` innermost as in
+genie2_tpu's `create_mesh`: rank r has model index r % n_model and data
+index r // n_model. The model ranks of one data index hold the same rows
+and split the weights (parallel/tensor_parallel.py); the helpers below
+shard and gather rows over the data axis only:
 
-  * training: each rank takes its rows of the global batch, and after the
-    backward the gradients are all-reduced and divided by the world size
-    (train/state.py), as XLA's psum does for genie2_tpu;
-  * sampling: each rank runs its rows of the sample batch (padded to a
-    multiple of the world size) or its particles, and the rows are
+  * training: each data index takes its rows of the global batch, and
+    after the backward the gradients are all-reduced over the data group
+    and divided by its size (train/state.py), as XLA's psum does for
+    genie2_tpu;
+  * sampling: each data index runs its rows of the sample batch (padded to
+    a multiple of the data axis) or its particles, and the rows are
     gathered where the samplers need them all.
 
 Every collective is an `all_reduce` or a `broadcast`: gathering rows is an
@@ -18,8 +24,9 @@ implements only those two for CUDA tensors, so the same code runs over
 NCCL, over gloo on the CPU and over gloo on CUDA tensors (two ranks on one
 card, which NCCL refuses).
 
-The `seq` and `model` axes (`pair_sharding`, parallel/tensor_parallel.py)
-are not ported: they raise NotImplementedError.
+Every rank creates every data group and every model group, in the same
+order (`dist.new_group` is a collective of the whole world). The `seq`
+axis (`pair_sharding`) is not ported: it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,20 +39,35 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from genie2_tpu_torch.utils.model_io import resolve_device
-
-UNPORTED_AXES = "ROADMAP A.5: tensor parallelism and sequence sharding are not ported to genie2_tpu_torch yet"
+UNPORTED_AXES = "ROADMAP A.5.2: sequence sharding is not ported to genie2_tpu_torch yet"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in the data-parallel world: its rank, the world
-    size and the device its tensors (and the collectives' buffers) live
-    on. The process group is torch.distributed's default group."""
+    """This process's place in the (data x model) grid: its rank, the world
+    size, the device its tensors (and the collectives' buffers) live on,
+    the model axis's size and the two process groups of this rank. A group
+    None is torch.distributed's default group (the data group where
+    n_model is 1); there is no model group where n_model is 1."""
 
     rank: int
     world_size: int
     device: torch.device
+    n_model: int = 1
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def n_data(self) -> int:
+        return self.world_size // self.n_model
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.n_model
 
 
 def launcher_world_size() -> Optional[int]:
@@ -69,62 +91,95 @@ def init_from_launcher(device) -> None:
     if missing:
         raise ValueError(f"no launcher environment ({', '.join(missing)} unset): start the processes with "
                          "torchrun --nproc_per_node N")
+    from genie2_tpu_torch.utils.model_io import resolve_device
+
     device = resolve_device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
 
 
-def create_mesh(n_data: int = -1, device=None) -> Mesh:
-    """The data-parallel mesh over every rank of the initialised process
-    group; `n_data` -1 or the world size (the data axis is the only one,
-    and a rank cannot hold a part of it)."""
+def create_mesh(n_data: int = -1, device=None, n_model: int = 1) -> Mesh:
+    """The (data x model) grid over every rank of the initialised process
+    group: `n_model` must divide the world size, and `n_data` is -1 or the
+    world size over it (every rank holds a part of the grid). Creates the
+    data and model groups on every rank."""
+    # model_io imports the modules, which import parallel/: resolved here.
+    from genie2_tpu_torch.utils.model_io import resolve_device
+
     if not dist.is_initialized():
         raise ValueError("create_mesh needs an initialised process group (torchrun, or init_from_launcher)")
     world = dist.get_world_size()
-    if n_data not in (-1, world):
-        raise ValueError(f"meshData {n_data} must be -1 or the world size ({world} ranks)")
-    return Mesh(dist.get_rank(), world, resolve_device(device))
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"meshModel {n_model} must divide the world size ({world} ranks)")
+    if n_data not in (-1, world // n_model):
+        raise ValueError(f"meshData {n_data} must be -1 or the world size over meshModel "
+                         f"({world} ranks / {n_model} = {world // n_model})")
+    rank = dist.get_rank()
+    data_group = model_group = None
+    if n_model > 1:
+        for d in range(world // n_model):
+            group = dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+            if rank // n_model == d:
+                model_group = group
+        for m in range(n_model):
+            group = dist.new_group(list(range(m, world, n_model)))
+            if rank % n_model == m:
+                data_group = group
+    return Mesh(rank, world, resolve_device(device), n_model, data_group, model_group)
 
 
-def mesh_from_config(n_data: int, device=None) -> Optional[Mesh]:
-    """The training mesh of `meshData`: over every rank of the initialised
-    process group, or None in a process started alone, where `n_data` must
-    be -1 or 1."""
+def mesh_from_config(n_data: int, device=None, n_model: int = 1) -> Optional[Mesh]:
+    """The training mesh of `meshData` x `meshModel`: over every rank of the
+    initialised process group, or None in a process started alone, where
+    `n_data` must be -1 or 1 and `n_model` 1."""
     if dist.is_available() and dist.is_initialized():
-        return create_mesh(n_data, device)
-    if n_data not in (-1, 1):
-        raise ValueError(f"meshData {n_data} needs {n_data} ranks, and this process is alone: launch with "
-                         f"torchrun --nproc_per_node {n_data}")
+        return create_mesh(n_data, device, n_model)
+    for key, n in (("meshData", n_data), ("meshModel", n_model)):
+        if n not in (-1, 1):
+            raise ValueError(f"{key} {n} needs {n} ranks, and this process is alone: launch with "
+                             f"torchrun --nproc_per_node {n}")
     return None
 
 
 def mesh_from_arg(num_devices: Optional[int] = None, n_seq: int = 1, n_model: int = 1, device=None) -> Optional[Mesh]:
-    """Resolve the CLIs' --num_devices (and --mesh_seq / --mesh_model) into
-    a mesh; None means one process, no sharding. -1 means every rank of the
+    """Resolve the CLIs' --num_devices and --mesh_model (and --mesh_seq)
+    into a mesh; None means one process, no sharding. --num_devices counts
+    every rank, data x model, as in genie2_tpu: -1 means every rank of the
     launch; any other count must equal the launch's world size, and a count
     other than 1 needs a launcher, as genie2_tpu refuses more devices than
-    it has."""
-    if n_seq != 1 or n_model != 1:
-        raise NotImplementedError(f"--mesh_seq {n_seq} / --mesh_model {n_model}: {UNPORTED_AXES}")
+    it has. --mesh_model must divide it."""
+    if n_seq != 1:
+        raise NotImplementedError(f"--mesh_seq {n_seq}: {UNPORTED_AXES}")
+    if n_model < 1:
+        raise ValueError(f"--mesh_model {n_model} must be at least 1")
     world = launcher_world_size()
     if num_devices in (None, 1):
         if world is not None and world > 1:
             raise ValueError(f"launched with {world} ranks: pass --num_devices {world} (or -1)")
+        if n_model != 1:
+            raise ValueError(f"--mesh_model {n_model} needs a torchrun launch of at least {n_model} ranks: "
+                             f"torchrun --nproc_per_node {n_model} ... --num_devices {n_model}")
         return None
     if world is None:
         raise ValueError(f"--num_devices {num_devices} needs one process a device: launch with "
                          "torchrun --nproc_per_node N")
     if num_devices not in (-1, world):
         raise ValueError(f"--num_devices {num_devices} but the launch has {world} ranks")
+    if world < n_model:
+        raise ValueError(f"--mesh_seq {n_seq} x --mesh_model {n_model} needs at least {n_model} devices; "
+                         f"--num_devices resolves to {world}")
+    if world % n_model:
+        raise ValueError(f"--num_devices {world} not divisible by --mesh_seq {n_seq} x --mesh_model {n_model} = "
+                         f"{n_model}")
     init_from_launcher(device)
-    return create_mesh(-1, device)
+    return create_mesh(-1, device, n_model)
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
-    """The divisor of batch and particle counts: the world size, 1 without
-    a mesh."""
-    return 1 if mesh is None else mesh.world_size
+    """The divisor of batch and particle counts: the data axis's size, 1
+    without a mesh (the model axis replicates rows)."""
+    return 1 if mesh is None else mesh.n_data
 
 
 def is_main(mesh: Optional[Mesh]) -> bool:
@@ -133,11 +188,12 @@ def is_main(mesh: Optional[Mesh]) -> bool:
 
 
 def local_rows(n: int, mesh: Optional[Mesh]) -> slice:
-    """This rank's rows of a global axis of `n` (divisible by the world size)."""
+    """This rank's rows of a global axis of `n` (divisible by the data
+    axis): those of its data index, the same on every model rank."""
     if mesh is None:
         return slice(0, n)
-    per = n // mesh.world_size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    per = n // mesh.n_data
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
 
 
 def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
@@ -157,8 +213,8 @@ def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
 
 
 def check_particles(n_particles: int, mesh: Optional[Mesh]):
-    """Particles shard over the ranks and are never padded (a padded
-    particle would join the resampling population): a count the world size
+    """Particles shard over the data axis and are never padded (a padded
+    particle would join the resampling population): a count the data axis
     does not divide is an error, as in genie2_tpu."""
     n_data = data_axis_size(mesh)
     if n_particles % n_data:
@@ -169,29 +225,29 @@ def check_particles(n_particles: int, mesh: Optional[Mesh]):
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The sum of `x` over the ranks (in place); `x` itself without a mesh."""
+    """The sum of `x` over the data axis (in place); `x` itself without a mesh."""
     if mesh is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.data_group)
     return x
 
 
 def gather_rows(mesh: Optional[Mesh], *tensors: torch.Tensor) -> List[torch.Tensor]:
-    """Each rank's rows of each tensor, stacked in rank order: the global
-    tensors, on every rank. One all-reduce SUM of a zero-padded float32
-    buffer carries all of them: exact for float32 values and for integers
-    below 2^24, since every entry is one value plus zeros. Without a mesh,
-    the tensors."""
+    """Each data index's rows of each tensor, stacked in its order: the
+    global tensors, on every rank. One all-reduce SUM over the data group
+    of a zero-padded float32 buffer carries all of them: exact for float32
+    values and for integers below 2^24, since every entry is one value plus
+    zeros. Without a mesh, the tensors."""
     if mesh is None:
         return list(tensors)
     flat = [t.reshape(t.shape[0], -1).float() for t in tensors]
-    n = flat[0].shape[0]
+    n, n_data, d = flat[0].shape[0], mesh.n_data, mesh.data_rank
     widths = [f.shape[1] for f in flat]
-    buf = torch.zeros(n * mesh.world_size, sum(widths), dtype=torch.float32, device=flat[0].device)
-    buf[mesh.rank * n:(mesh.rank + 1) * n] = torch.cat(flat, dim=1)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    buf = torch.zeros(n * n_data, sum(widths), dtype=torch.float32, device=flat[0].device)
+    buf[d * n:(d + 1) * n] = torch.cat(flat, dim=1)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.data_group)
     out = []
     for t, part in zip(tensors, buf.split(widths, dim=1)):
-        out.append(part.reshape(n * mesh.world_size, *t.shape[1:]).to(t.dtype))
+        out.append(part.reshape(n * n_data, *t.shape[1:]).to(t.dtype))
     return out
 
 
@@ -199,9 +255,11 @@ GRAD_BUCKET_BYTES = 32 << 20  # the flattened gradient buckets of one all-reduce
 
 
 def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
-    """Replace each gradient by its mean over the ranks (in place), in a few
-    flattened buckets, each one all-reduce SUM divided by the world size,
-    as genie2_tpu's psum over the data axis; nothing without a mesh. Every
+    """Replace each gradient by its mean over the data axis (in place), in a
+    few flattened buckets, each one all-reduce SUM over the data group
+    divided by its size, as genie2_tpu's psum over the data axis; nothing
+    without a mesh. A sharded gradient is this model rank's shard, reduced
+    with the same shard of the other data indices. Every
     rank passes the same list: a gradient that is None on one rank is None
     on all (the same model and path) and is left out by the caller, since
     Adam skips a None gradient but would update its moments on a zero one."""
@@ -218,8 +276,8 @@ def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
             size += g.numel() * g.element_size()
         for bucket in buckets:
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-            flat.div_(mesh.world_size)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+            flat.div_(mesh.n_data)
             for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
                 g.copy_(part.view_as(g))
 
@@ -267,7 +325,7 @@ def barrier(mesh: Optional[Mesh]):
 
 
 def pad_to_ranks(n: int, mesh: Optional[Mesh]) -> int:
-    """`n` rounded up to a multiple of the world size."""
+    """`n` rounded up to a multiple of the data axis."""
     n_data = data_axis_size(mesh)
     return -(-n // n_data) * n_data
 

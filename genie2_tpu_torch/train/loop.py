@@ -17,12 +17,17 @@
 `scanSteps` K runs K single steps: the numerics are those of K steps
 whatever K is, and preemption and mid-epoch saves act at every step.
 
-Data parallel: in a process group (torchrun, `cli/train.py
---distributed`), `meshData` -1 or the world size makes every rank build the
-same global batch and train on its rows (train/state.py). Rank 0 picks the
-version directory and writes the logs, checkpoints and resume points; the
-others wait for it at a barrier before anything reads them. SIGTERM on any
-rank stops every rank at the same step boundary.
+Data and tensor parallel: in a process group (torchrun, `cli/train.py
+--distributed`), the ranks form a grid of `meshData` x `meshModel`
+(parallel/mesh.py; `meshData` -1 takes the world size over `meshModel`):
+every rank builds the same global batch and trains on its data index's
+rows (train/state.py), and the model ranks of one data index split the
+weights (parallel/tensor_parallel.py). Rank 0 picks the version directory
+and writes the logs, checkpoints and resume points, all of them full (every
+rank gathers the shards first, so a file written under one grid loads
+under any other, or in one process); the others wait for it at a barrier
+before anything reads them. SIGTERM on any rank stops every rank at the
+same step boundary.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from genie2_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from genie2_tpu_torch.parallel.tensor_parallel import gather_state_dict, shard_model, tp_plan
 from genie2_tpu_torch.train.data import StructureDataset
 from genie2_tpu_torch.train.loss import genie_loss
 from genie2_tpu_torch.train.prefetch import prefetch
@@ -113,13 +119,14 @@ def latest_version(basedir: str) -> Optional[int]:
 class Trainer:
     """Epoch loop and checkpointing over the training step, on one device
     (`device`: cuda unless the caller names the CPU), or on each rank of an
-    initialised process group, data parallel (`meshData`)."""
+    initialised process group, data and tensor parallel (`meshData`,
+    `meshModel`)."""
 
     def __init__(self, config: Config, model: Optional[Denoiser] = None, version: Optional[int] = None,
                  resume: bool = False, init_from: Optional[str] = None, device=None):
         self.config = config
         self.device = resolve_device(device)
-        self.mesh = mesh_from_config(config.tpu.get("mesh_data", -1), self.device)
+        self.mesh = mesh_from_config(config.tpu.get("mesh_data", -1), self.device, config.tpu.get("mesh_model", 1))
         cfg = config.training
         n_data = data_axis_size(self.mesh)
         if cfg["batch_size"] % n_data:
@@ -155,6 +162,7 @@ class Trainer:
                 print(f"[finetune] initializing weights from {init_from}", flush=True)
             self.model.load_state_dict(load_state_dict_file(init_from))
         replicate(self.model, self.mesh)
+        shard_model(self.model, self.mesh)
         self.state = create_train_state(self.model, config.optimization["lr"], ema_decay=cfg.get("ema_decay", 0.0))
         self._step_fn = make_train_step(self.schedule, cfg["condition_loss_weight"],
                                         config.tpu.get("compute_dtype", "fp32"), cfg.get("ema_decay", 0.0),
@@ -176,14 +184,17 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int) -> str:
         """epoch={E}.ckpt (and .ema.ckpt), each with its .meta.json sidecar,
-        written by rank 0."""
+        full (gathered over the model group by every rank), written by rank 0."""
         method = self.config.tpu.get("rot_to_quat_method", "closed")
         path = os.path.join(self.ckpt_dir, f"epoch={epoch}.ckpt")
+        plan = tp_plan(self.model)
+        params = gather_state_dict(self.model.state_dict(), plan)
+        ema = gather_state_dict(self.state.ema, plan) if self.state.ema is not None else None
         if not is_main(self.mesh):
             return path
-        save_params(path, self.model.state_dict(), method, self._save)
-        if self.state.ema is not None:
-            save_params(os.path.join(self.ckpt_dir, f"epoch={epoch}.ema.ckpt"), self.state.ema, method, self._save)
+        save_params(path, params, method, self._save)
+        if ema is not None:
+            save_params(os.path.join(self.ckpt_dir, f"epoch={epoch}.ema.ckpt"), ema, method, self._save)
         return path
 
     def _promote_resume(self):
@@ -196,11 +207,13 @@ class Trainer:
             os.replace(base + ".new", base)
 
     def save_state(self, epoch: int, step_in_epoch: int = 0) -> str:
-        """resume_state, written by rank 0 (every rank holds the same state)."""
+        """resume_state, full (every rank gathers it: the model ranks hold
+        its shards, the data indices the same state), written by rank 0."""
         path = os.path.join(self.ckpt_dir, "resume_state")
+        state = self.state.state_dict()
         if not is_main(self.mesh):
             return path
-        blob = {**self.state.state_dict(), "epoch": epoch, "step_in_epoch": step_in_epoch}
+        blob = {**state, "epoch": epoch, "step_in_epoch": step_in_epoch}
         self._ckpt_wait()
         self._promote_resume()
         self._save(path + ".new", blob)
@@ -208,7 +221,8 @@ class Trainer:
 
     def restore_state(self):
         """Restore resume_state if present: (start_epoch, start_step_in_epoch),
-        or None; every rank reads it once rank 0 has settled it."""
+        or None; every rank reads it once rank 0 has settled it, and keeps
+        its shards of it."""
         if is_main(self.mesh):
             self._ckpt_wait()  # an async save in flight lands first
             self._promote_resume()

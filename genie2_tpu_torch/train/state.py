@@ -20,11 +20,15 @@ tests inject genie2_tpu's). `step_randomness` derives both from (seed,
 epoch, batch index) through `np.random.SeedSequence`, as the samplers seed
 their noise streams.
 
-Data parallel (`mesh`): each rank runs its rows of the global batch and
-the gradients are all-reduced by hand after the backward, not by
-DistributedDataParallel: the bf16 policy calls the model through
-`torch.func.functional_call`, which bypasses a DDP wrapper's forward, so
-DDP's reducer would never be prepared.
+Data parallel (`mesh`): each data index runs its rows of the global batch
+and the gradients are all-reduced over the data group by hand after the
+backward, not by DistributedDataParallel: the bf16 policy calls the model
+through `torch.func.functional_call`, which bypasses a DDP wrapper's
+forward, so DDP's reducer would never be prepared. Tensor parallel (a
+model sharded by parallel/tensor_parallel.py:shard_model): the parameters,
+their gradients, Adam's moments and the EMA are this rank's shards;
+`grad_norm` is the full model's, and `state_dict` / `load_state_dict`
+read and write the full state (collectives over the model group).
 """
 
 from __future__ import annotations
@@ -38,13 +42,15 @@ from genie2_tpu_torch.diffusion import Schedule, q_sample
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
 from genie2_tpu_torch.nn.policy import apply_denoiser_cast, compute_dtype
 from genie2_tpu_torch.parallel.mesh import Mesh, average_gradients, data_axis_size, local_rows
+from genie2_tpu_torch.parallel.tensor_parallel import gather_train_state, grad_norm, place_train_state
 from genie2_tpu_torch.train.loss import genie_loss
 
 
 class TrainState:
     """The model (float32 master weights), its Adam optimizer, the step
     count and the weights' EMA (a dict of tensors keyed like the model's
-    state_dict, or None where `ema_decay` is 0)."""
+    state_dict, or None where `ema_decay` is 0); of a sharded model, this
+    rank's shards of each."""
 
     def __init__(self, model: torch.nn.Module, lr: float, ema_decay: float = 0.0):
         self.model = model
@@ -53,12 +59,15 @@ class TrainState:
         self.ema = ({n: p.detach().clone() for n, p in model.named_parameters()} if ema_decay > 0 else None)
 
     def state_dict(self) -> Dict:
+        """The full state (gathered over the model group: every model rank calls it)."""
         blob = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(), "step": self.step}
         if self.ema is not None:
             blob["ema"] = self.ema
-        return blob
+        return gather_train_state(blob, self.model)
 
     def load_state_dict(self, blob: Dict):
+        """From a full state, this rank's shards of it."""
+        blob = place_train_state(blob, self.model)
         self.model.load_state_dict(blob["params"])
         self.optimizer.load_state_dict(blob["opt_state"])
         self.step = int(blob["step"])
@@ -136,7 +145,7 @@ def make_train_step(schedule: Schedule, condition_loss_weight: float, compute_dt
         params = [p for p in model.parameters() if p.grad is not None]
         average_gradients([p.grad for p in params], mesh)
         # The global norm of the gradients (optax.global_norm), before the update.
-        metrics["grad_norm"] = torch.sqrt(torch.stack([p.grad.square().sum() for p in params]).sum())
+        metrics["grad_norm"] = grad_norm(model)
         state.optimizer.step()
         if state.ema is not None:
             with torch.no_grad():

@@ -69,10 +69,19 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return {k[len("model."):] if k.startswith("model.") else k: v for k, v in state.items()}
 
 
+def _placed(model: Denoiser, device, mesh) -> Denoiser:
+    """The full model on `device` in eval mode, sharded over the mesh's
+    model group where it has one (parallel/tensor_parallel.py)."""
+    from genie2_tpu_torch.parallel.tensor_parallel import shard_model
+
+    return shard_model(model.to(device).eval(), mesh)
+
+
 def load_pretrained_model(
-    rootdir: str, name: str, epoch: int, ema: bool = False, device=None
+    rootdir: str, name: str, epoch: int, ema: bool = False, device=None, mesh=None
 ) -> Tuple[Denoiser, Config]:
-    """Release-layout loader; returns (model in eval mode on `device`, config)."""
+    """Release-layout loader; returns (model in eval mode on `device`, this
+    rank's shards of it under a mesh with a model axis, config)."""
     device = resolve_device(device)
     config = load_config(rootdir, name)
     stem = f"epoch.{epoch}.ema.ckpt" if ema else f"epoch.{epoch}.ckpt"
@@ -84,7 +93,7 @@ def load_pretrained_model(
     state = load_state_dict_file(path)
     model = Denoiser.from_config(config)
     model.load_state_dict(state)
-    return model.to(device).eval(), config
+    return _placed(model, device, mesh), config
 
 
 # ------------------------------------------------------------------ #
@@ -194,17 +203,18 @@ def _select_quat_method(config: Config, path: str):
 
 
 def load_model(rootdir: str, name: str, version: Optional[int] = None, epoch: Optional[int] = None,
-               device=None) -> Tuple[Denoiser, Config]:
+               device=None, mesh=None) -> Tuple[Denoiser, Config]:
     """Training-layout loader: the latest version and epoch unless given,
     an untrained model (`init_model`, seed 0) where there is no
-    checkpoint. Returns (model in eval mode on `device`, config)."""
+    checkpoint. Returns (model in eval mode on `device`, this rank's
+    shards of it under a mesh with a model axis, config)."""
     device = resolve_device(device)
     config = load_config(rootdir, name)
     versions = get_versions(rootdir, name)
     if version is None:
         if not versions:
             print("No checkpoint available (version); using untrained model", flush=True)
-            return init_model(config, 0, device).eval(), config
+            return _placed(init_model(config, 0, device), device, mesh), config
         version = max(versions)
     elif version not in versions:
         raise FileNotFoundError(f"Missing checkpoint version: {version}")
@@ -212,7 +222,7 @@ def load_model(rootdir: str, name: str, version: Optional[int] = None, epoch: Op
     if epoch is None:
         if not epochs:
             print("No checkpoint available (epoch); using untrained model", flush=True)
-            return init_model(config, 0, device).eval(), config
+            return _placed(init_model(config, 0, device), device, mesh), config
         epoch = max(epochs)
     elif epoch not in epochs:
         raise FileNotFoundError(f"Missing checkpoint epoch: {epoch}")
@@ -221,4 +231,4 @@ def load_model(rootdir: str, name: str, version: Optional[int] = None, epoch: Op
     print(f"Loading checkpoint: {path} (rot_to_quat={config.tpu['rot_to_quat_method']})", flush=True)
     model = Denoiser.from_config(config)
     model.load_state_dict(load_state_dict_file(path))
-    return model.to(device).eval(), config
+    return _placed(model, device, mesh), config

@@ -78,6 +78,33 @@ def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
     assert trimul.LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] == 1
 
 
+@pytest.mark.parametrize("dtype,weight_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                                (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,c,h,d", [(256, 128, 128, 128), (70, 40, 48, 24), (224, 48, 256, 200), (17, 256, 40, 72),
+                                     (1, 32, 32, 33)])
+def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d):
+    """The partial and finish modes against their plain versions, each
+    rank's partial on half the hidden channels; their sum through the
+    finish kernel against the one-launch epilogue kernel. D off the even
+    pair (33) stores element by element."""
+    gen = torch.Generator(device=device).manual_seed(n + h + d)
+    w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device, d).items()}
+    z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
+    x = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype)
+    trimul.reset_launch_counts()
+    part = 0
+    for sl in (slice(0, h // 2), slice(h // 2, h)):
+        args = (x[:, sl].contiguous(), w["w_z"][:, sl], w["ln_out_scale"][sl], w["ln_out_bias"][sl])
+        got = trimul.epilogue_partial(*args)
+        _close(got, trimul.epilogue_partial_plain(*args), torch.float32)
+        part = part + got
+    _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_finish_plain(
+        part, z, *(w[k] for k in trimul.FINISH_PARAMS), h), dtype)
+    _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_cm(x, z, w), dtype)
+    torch.cuda.synchronize()
+    assert trimul.LAUNCHES["trimul_epilogue_partial"] == 2 and trimul.LAUNCHES["trimul_epilogue_finish"] == 2
+
+
 def test_wrapper_rejects_bad_input(device):
     w = _weights(16, 8, torch.Generator(device=device).manual_seed(0), device)
     z = torch.randn(1, 8, 8, 16, device=device)

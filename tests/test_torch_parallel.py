@@ -38,13 +38,27 @@ def no_launcher(monkeypatch):
     (-1, 1, 1, None, ValueError, "torchrun"),
     (None, 1, 1, "2", ValueError, "--num_devices 2"),
     (3, 1, 1, "2", ValueError, "has 2 ranks"),
-    (1, 2, 1, None, NotImplementedError, "ROADMAP A.5"),
-    (-1, 1, 2, "2", NotImplementedError, "ROADMAP A.5"),
+    (1, 2, 1, None, NotImplementedError, "ROADMAP A.5.2"),
+    (-1, 1, 2, "2", None, None),
+    (-1, 1, 2, "4", None, None),
+    (None, 1, 2, None, ValueError, "torchrun --nproc_per_node 2"),
+    (-1, 1, 3, "2", ValueError, "needs at least 3 devices"),
+    (-1, 1, 2, "3", ValueError, "not divisible by --mesh_seq 1 x --mesh_model 2"),
 ])
 def test_mesh_from_arg(no_launcher, monkeypatch, num_devices, n_seq, n_model, world, error, match):
     """None or 1 is one process; a count other than 1 needs a launch of
-    that many ranks (or -1 for all of them); --mesh_seq / --mesh_model other
-    than 1 are not ported."""
+    that many ranks (or -1 for all of them), --mesh_model a launch it
+    divides, and then the ranks form a grid of data x model, model
+    innermost, with its groups; --mesh_seq other than 1 is not ported."""
+    if error is None and world is not None:
+        grids = run_ranks(torch_ranks.mesh_grid, int(world), (num_devices, n_seq, n_model))
+        n = int(world)
+        for r, grid in enumerate(grids):
+            d, m = divmod(r, n_model)
+            assert grid == {"rank": r, "world": n, "n_model": n_model, "model_rank": m, "data_rank": d,
+                            "n_data": n // n_model, "model_group_sum": sum(range(d * n_model, (d + 1) * n_model)),
+                            "data_group_sum": sum(range(m, n, n_model))}
+        return
     if world is not None:
         monkeypatch.setenv("WORLD_SIZE", world)
     if error is None:

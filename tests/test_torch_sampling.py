@@ -166,12 +166,12 @@ def test_cli_cpu_writes_pdbs(models, tmp_path):
     (sample_sse, ["--mesh_model", "2"]), (sample_sse, ["--num_devices", "2"]), (sample_sse, ["--num_devices", "-1"]),
 ])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    """Sequence sharding and tensor parallelism are not ported: every CLI
-    refuses their flags, naming the ROADMAP item; --num_devices other than
-    1 needs a torchrun launch, and without one is an error naming it."""
+    """Sequence sharding is not ported: every CLI refuses its flag, naming
+    the ROADMAP item; --num_devices other than 1 and --mesh_model other
+    than 1 need a torchrun launch, and without one are an error naming it."""
     cli, flags = flag
     argv = ["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--scale", "1", "--device", "cpu"]
-    error, match = (ValueError, "torchrun") if "--num_devices" in flags else (NotImplementedError, "ROADMAP A.5")
+    error, match = (NotImplementedError, "ROADMAP A.5.2") if "--mesh_seq" in flags else (ValueError, "torchrun")
     with pytest.raises(error, match=match):
         cli.main(argv + flags)
 

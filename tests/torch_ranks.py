@@ -1,4 +1,5 @@
-"""Rank bodies of the data-parallel tests (tests/test_torch_parallel*.py).
+"""Rank bodies of the parallel tests (tests/test_torch_parallel*.py,
+tests/test_torch_tp.py).
 
 `genie2_tpu_torch.parallel.spawn.run_ranks` runs each of them in spawned
 processes joined into one gloo group; the tests call the same functions
@@ -16,10 +17,10 @@ import numpy as np
 import torch
 
 
-def _mesh(distributed: bool, device="cpu"):
+def _mesh(distributed: bool, device="cpu", n_model: int = 1):
     from genie2_tpu_torch.parallel import create_mesh
 
-    return create_mesh(-1, device) if distributed else None
+    return create_mesh(-1, device, n_model) if distributed else None
 
 
 def seeded_model(config, seed: int = 3):
@@ -67,6 +68,23 @@ def collectives(rank: int):
     }
 
 
+def mesh_grid(rank: int, num_devices, n_seq: int, n_model: int):
+    """This rank's place in the grid of `mesh_from_arg`, and the sums of
+    the ranks in its model and data groups."""
+    import torch.distributed as dist
+
+    from genie2_tpu_torch.parallel import mesh_from_arg
+
+    mesh = mesh_from_arg(num_devices, n_seq, n_model, "cpu")
+    sums = {}
+    for name, group in (("model_group_sum", mesh.model_group), ("data_group_sum", mesh.data_group)):
+        x = torch.tensor([float(rank)])
+        dist.all_reduce(x, group=group)
+        sums[name] = int(x.item())
+    return {"rank": mesh.rank, "world": mesh.world_size, "n_model": mesh.n_model, "model_rank": mesh.model_rank,
+            "data_rank": mesh.data_rank, "n_data": mesh.n_data, **sums}
+
+
 def hang_or_raise(rank: int, mode: str):
     """Rank 1 raises or sleeps; the others wait in a collective for it."""
     import time
@@ -82,25 +100,29 @@ def hang_or_raise(rank: int, mode: str):
 
 
 def train_steps(rank: int, config_overrides, state_dict, batch, steps: int, lr: float, inject=None,
-                distributed: bool = True, device: str = "cpu"):
+                distributed: bool = True, device: str = "cpu", n_model: int = 1):
     """`steps` training steps on `device`, on this rank's rows of `batch`
-    (the whole of it without `distributed`): t and the noise injected
-    (`inject`, the global batch's, one pair a step, dropout seed the step's
-    index) or drawn from `step_randomness(0, 0, step)`. Returns per-step
-    (metrics, gradients), the parameters and Adam's second moments after
-    the last, on the CPU."""
+    (the whole of it without `distributed`), the model split over
+    `n_model` model ranks: t and the noise injected (`inject`, the global
+    batch's, one pair a step, dropout seed the step's index) or drawn from
+    `step_randomness(0, 0, step)`. Returns per-step (metrics, gradients),
+    the parameters and Adam's second moments after the last, on the CPU,
+    each full (gathered over the model ranks)."""
     from genie2_tpu_torch.config import Config
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import to_device
     from genie2_tpu_torch.nn import Denoiser
     from genie2_tpu_torch.parallel import shard_batch
+    from genie2_tpu_torch.parallel.tensor_parallel import gather_state_dict, shard_model, tp_plan
     from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
 
-    mesh = _mesh(distributed, device)
+    mesh = _mesh(distributed, device, n_model)
     config = Config(overrides=config_overrides)
     model = Denoiser.from_config(config)
     model.load_state_dict(state_dict)
-    state = create_train_state(model.to(device), lr)
+    shard_model(model.to(device), mesh)
+    plan = tp_plan(model)
+    state = create_train_state(model, lr)
     step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=device), 1.0, mesh=mesh)
     feats = to_device(shard_batch(batch, mesh), device)
     records = []
@@ -111,11 +133,11 @@ def train_steps(rank: int, config_overrides, state_dict, batch, steps: int, lr: 
         else:
             rng, dropout_seed = step_randomness(0, 0, i, device)
             metrics = step(state, feats, rng=rng, dropout_seed=dropout_seed)
-        records.append(({k: float(v) for k, v in metrics.items()},
-                        {n: p.grad.cpu() for n, p in model.named_parameters()}))
-    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    nu = {n: state.optimizer.state[p]["exp_avg_sq"].cpu() for n, p in model.named_parameters()}
-    return records, params, nu
+        grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()}, plan)
+        records.append(({k: float(v) for k, v in metrics.items()}, {n: g.cpu() for n, g in grads.items()}))
+    params = gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, plan)
+    nu = gather_state_dict({n: state.optimizer.state[p]["exp_avg_sq"] for n, p in model.named_parameters()}, plan)
+    return records, {n: p.cpu() for n, p in params.items()}, {n: v.cpu() for n, v in nu.items()}
 
 
 def _signal_after(trainer, step: int):
@@ -188,6 +210,21 @@ def fit_runs(rank: int, overrides, workdir: str, sigterm_rank: int, sigterm_step
             "killed_resumed": killed_resumed}
 
 
+def _seed_placements(seed: int):
+    """Make ScaffoldSampler draw its placements from `seed` (in this
+    process); returns the function that undoes it."""
+    from genie2_tpu_torch.sampling import scaffold
+
+    init = scaffold.ScaffoldSampler.__init__
+
+    def seeded(self, *args, **kwargs):
+        kwargs["placement_seed"] = seed
+        init(self, *args, **kwargs)
+
+    scaffold.ScaffoldSampler.__init__ = seeded
+    return lambda: setattr(scaffold.ScaffoldSampler, "__init__", init)
+
+
 def cli_runs(rank: int, runs, patch_placement_seed=None):
     """Each (module name, argv) of `runs` through its `main`; with
     `patch_placement_seed`, ScaffoldSampler draws its placements from that
@@ -196,15 +233,7 @@ def cli_runs(rank: int, runs, patch_placement_seed=None):
     from genie2_tpu_torch.nn import Denoiser
 
     if patch_placement_seed is not None:
-        from genie2_tpu_torch.sampling import scaffold
-
-        init = scaffold.ScaffoldSampler.__init__
-
-        def seeded(self, *args, **kwargs):
-            kwargs["placement_seed"] = patch_placement_seed
-            init(self, *args, **kwargs)
-
-        scaffold.ScaffoldSampler.__init__ = seeded
+        _seed_placements(patch_placement_seed)
     sizes = set()
     forward = Denoiser.forward
 
@@ -269,3 +298,112 @@ def sse_run(rank: int, config_path: str, state_dict, n_particles: int, length: i
                                           strength=strength, mesh=mesh)
     return {"x": trans.numpy(), "ess": result.ess_trace.numpy(), "resampled": result.resampled_trace.numpy(),
             "log_w": result.log_weights.numpy()}
+
+
+def train_runs(rank: int, runs):
+    """`train_steps` of each (args, kwargs) of `runs` in turn."""
+    return [train_steps(rank, *args, **kwargs) for args, kwargs in runs]
+
+
+def tp_forward(rank: int, cases, n_model: int, distributed: bool = True):
+    """Each case (configuration overrides, state_dict, (translations, t,
+    host batch), compute dtype name) through a denoiser split over
+    `n_model` model ranks (every rank a model rank of one data index where
+    the world is `n_model`), in bf16 through its cast copy (nn/policy.py):
+    z, the names of the split parameters, the state dict gathered back from
+    the shards, the bytes all-reduced over the model group in the forward
+    and whether the cast copy holds the same shards in its dtype while the
+    model keeps its own."""
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.geometry import Rigid, frenet_frames
+    from genie2_tpu_torch.nn import Denoiser
+    from genie2_tpu_torch.nn.policy import apply_denoiser, cast_model, compute_dtype
+    from genie2_tpu_torch.parallel import local_rows, shard_batch
+    from genie2_tpu_torch.parallel import tensor_parallel as tp
+
+    mesh = _mesh(distributed, "cpu", n_model)
+    out = []
+    for overrides, state_dict, (trans, t, batch), dtype_name in cases:
+        model = Denoiser.from_config(Config(overrides=overrides))
+        model.load_state_dict(state_dict)
+        tp.shard_model(model, mesh)
+        plan = tp.tp_plan(model)
+        dtype = compute_dtype(dtype_name)
+        run = cast_model(model, dtype)
+        feats = to_device(shard_batch(batch, mesh), "cpu")
+        rows = local_rows(len(trans), mesh)
+        x = torch.as_tensor(trans)[rows]
+        tp.reset_volume()
+        with torch.no_grad():
+            z = apply_denoiser(run, Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x),
+                               torch.as_tensor(t)[rows], feats, dtype=dtype)
+        copy_keeps = all(q.dtype == dtype and q.shape == p.shape for p, q in zip(model.parameters(), run.parameters()))
+        out.append({"z": z, "split": sorted(plan.params) if plan else [], "volume": dict(tp.VOLUME),
+                    "gathered": tp.gather_state_dict(model.state_dict(), plan),
+                    "copy_keeps_shards": copy_keeps and tp.tp_plan(run) == plan
+                    and all(p.dtype == torch.float32 for p in model.parameters())})
+    return out
+
+
+def tp_fit(rank: int, overrides, workdir: str, n_model: int, distributed: bool = True):
+    """The Trainer (`overrides`, meshModel `n_model`) on a synthetic corpus:
+    2 epochs, then a run to 3 epochs resumed from the first run's
+    resume_state. Returns each run's steps, train losses by step and full
+    parameters (gathered)."""
+    import json
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel.tensor_parallel import gather_state_dict, tp_plan
+    from genie2_tpu_torch.train import synthetic_dataset
+    from genie2_tpu_torch.train.loop import Trainer
+
+    runs = {}
+    for label, epochs, resume in (("two", 2, False), ("three", 3, True)):
+        config = Config(overrides={**overrides, "rootDirectory": workdir, "numEpoches": epochs,
+                                   "meshModel": n_model if distributed else 1})
+        trainer = Trainer(config, device="cpu", resume=resume)
+        dataset = synthetic_dataset(8, max_n_res=24, rng=np.random.default_rng(1))
+        state = trainer.fit(dataset, resume=resume)
+        with open(os.path.join(trainer.workdir, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        model = state.model
+        params = gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, tp_plan(model))
+        runs[label] = {"step": state.step, "version": trainer.version, "workdir": trainer.workdir,
+                       "losses": {r["step"]: r["weighted_loss"] for r in records if r.get("prefix") == "train"},
+                       "params": {n: p.clone() for n, p in params.items()},
+                       "local": {n: p.detach().clone() for n, p in model.named_parameters()}}
+    return runs
+
+
+def tp_cli_runs(rank: int, runs, placement_seed: int = 7):
+    """Each (module name, argv) of `runs` through its `main`, the scaffold
+    placements drawn from `placement_seed`; returns the coordinates each
+    run sampled (every sample of every sampler batch, or the SSE
+    particles), flattened, as this rank holds them."""
+    from genie2_tpu_torch import sampling
+    from genie2_tpu_torch.sampling import base
+
+    unseed = _seed_placements(placement_seed)
+    coords = []
+    sample, sse = base.BaseSampler.sample, sampling.sse_guided_sample
+
+    def capture(self, params):
+        result = sample(self, params)
+        coords[-1].extend(f["atom_positions"].reshape(-1) for f in result)
+        return result
+
+    def capture_sse(*args, **kwargs):
+        trans, result = sse(*args, **kwargs)
+        coords[-1].append(trans.numpy().reshape(-1).copy())
+        return trans, result
+
+    base.BaseSampler.sample, sampling.sse_guided_sample = capture, capture_sse
+    try:
+        for name, argv in runs:
+            coords.append([])
+            importlib.import_module(name).main(list(argv))
+    finally:
+        base.BaseSampler.sample, sampling.sse_guided_sample = sample, sse
+        unseed()
+    return [np.concatenate(c) for c in coords]
