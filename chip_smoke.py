@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero:
                core) against its plain PyTorch version on the card, float32
                and bfloat16, at N=256 and the ragged N=224 with B=2 and at
                the tds phase's N=75 with B=4; times of the
-               kernel, the plain version and a library call; then each
+               kernel, the plain version and a library call; at N=256 the
+               row-block cases of sequence parallelism (I=128 rows of
+               N=256, the incoming partial sums over K=128, the IPA's and
+               the ending node's I queries against N keys), forward and
+               gradient against the plain versions, timed; then each
                autograd Function's gradients (every input, one seeded
                cotangent) against autograd of the plain version, and the
                time of each backward beside its forward;
@@ -98,6 +102,20 @@ Phases, in order; any failure exits non-zero:
                for one epoch, its full checkpoint loaded in one process
                against the sharded model's z; then one training step on a
                (2 data x 2 model) grid of four ranks;
+ 11. seq       sequence parallelism (parallel/sequence_parallel.py): two
+               gloo ranks sharing the card as the seq axis, each holding
+               half the pair representation's rows, held against one
+               process: the denoiser forward at L=256, B=2, with and without
+               triangle attention (z, each rank's rows of p, the bytes
+               all-reduced against `seq_volume`, the launches), at L=255
+               (padded to 256) and at L=1024, B=1 (maximumNumResidues 1024;
+               peak memory of each rank beside one process's), three
+               training steps of the parallel phase's batch, one twisted
+               TDS step from t = T (length 75, padded to 76), the
+               unconditional CLI with --mesh_seq 2 (L=256, DDIM-10) and
+               cli/train.py with meshSeq 2 (its checkpoint's z in one
+               process); then one training step on a (2 seq x 2 model)
+               grid of four ranks;
 then one JSON line of the kernels and, last, the device line.
 
 Imports torch and the port only.
@@ -511,6 +529,11 @@ def phase_kernels(state):
                     failed.append(f"{name} N={N} {dname} outgoing={outgoing}: rel {rel:.3g}")
                 if N == 256 and dtype == torch.float32:
                     results[name][outgoing] = rec
+            if N == ROW_BLOCK_N:
+                row_failed, row_results = check_row_blocks(z, res_mask, w, ipa_args, ta_args, dname, gen)
+                failed += row_failed
+                if dtype == torch.float32:
+                    state["kernel_rows"] = row_results
             grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p)
             for rec in check_gradients(grad_cases, dname, N, B):
                 emit({"phase": "kernels", "gradient": True, **rec})
@@ -614,6 +637,125 @@ def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves
     return cases
 
 
+# The row-block cases of sequence parallelism: at N = 256, B = 2, the rows
+# of the second of two seq ranks, I = 128 (the incoming partial sums: K =
+# 128 rows of k).
+ROW_BLOCK_N, ROW_BLOCK_I = 256, 128
+
+
+def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
+    """Each kernel's row-block case (nn/pair_stack.py, nn/structure.py under
+    a seq axis of 2, this rank the second) as (kernel, case, kernel forward,
+    plain forward, inputs that require grad, cotangents): the projection of
+    I rows of z with their own row mask; the outgoing contraction of I rows
+    of a against all of b; the incoming partial sums over K rows; the
+    epilogue and its two stages on I rows; contract_cm_km at (I, J, K) =
+    (128, 256, 256), the outgoing block's backward; the IPA core with I
+    query rows against N keys; the ending node's triangle attention with I
+    queries against N keys."""
+    import torch
+
+    from genie2_tpu_torch.ops import ipa, tri_att, trimul
+
+    N, I = ROW_BLOCK_N, ROW_BLOCK_I
+    rows = slice(N - I, N)
+
+    def cot(t):
+        return torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
+
+    zr = _leaf(z[:, rows])
+    row_mask = res_mask[:, rows].contiguous()
+    wg = {k: _leaf(v) for k, v in w.items()}
+    project_w = [wg[k] for k in trimul.PROJECT_PARAMS]
+    a_p, b_p = trimul.project_gated_cm_plain(z, res_mask, w)
+    ar, b_full, bk = _leaf(a_p[:, :, rows]), _leaf(b_p), _leaf(b_p[:, :, rows])
+    x_r = _leaf(trimul.contract_cm_plain(a_p[:, :, rows], b_p, True))
+    halves = split_epilogue_inputs(x_r.detach(), w)
+    part_p = sum(trimul.epilogue_partial_plain(*h) for h in halves)
+    hg, pg = [_leaf(t) for t in halves[0]], _leaf(part_p)
+    epilogue_w, finish_w = [wg[k] for k in trimul.EPILOGUE_PARAMS], [wg[k] for k in trimul.FINISH_PARAMS]
+    dx = _leaf(cot(x_r))
+    cases = [
+        ("trimul_project", "rows", lambda: trimul.project_gated_cm(zr, row_mask, wg, res_mask),
+         lambda: trimul.project_gated_cm_plain(zr, row_mask, wg, res_mask), [zr, *project_w], (cot(ar), cot(ar))),
+        ("trimul_contract", "outgoing_rows", lambda: trimul.contract_cm(ar, b_full, True),
+         lambda: trimul.contract_cm_plain(ar, b_full, True), [ar, b_full], (cot(x_r),)),
+        ("trimul_contract", "incoming_partial", lambda: trimul.contract_cm(ar, bk, False),
+         lambda: trimul.contract_cm_plain(ar, bk, False), [ar, bk], (cot(b_full),)),
+        ("trimul_epilogue", "rows", lambda: trimul.epilogue_cm(x_r, zr, wg),
+         lambda: trimul.epilogue_cm_plain(x_r, zr, wg), [x_r, zr, *epilogue_w], (cot(zr),)),
+        ("trimul_epilogue_partial", "rows", lambda: trimul.epilogue_partial(*hg),
+         lambda: trimul.epilogue_partial_plain(*hg), hg, (cot(part_p),)),
+        ("trimul_epilogue_finish", "rows", lambda: trimul.epilogue_finish(pg, zr, wg, H_MUL),
+         lambda: trimul.epilogue_finish_plain(pg, zr, *finish_w, H_MUL), [pg, zr, *finish_w], (cot(zr),)),
+        ("contract_cm_km", "rows", lambda: trimul.contract_cm_km(dx, b_full),
+         lambda: trimul.contract_cm_km_plain(dx, b_full), [], ()),
+    ]
+    # The IPA core: this rank's query rows (q, q points, bias, z) against
+    # every key, k / v and points strided as nn/structure.py passes them.
+    q, k, v, q_pts, k_pts, v_pts, bias, zz, hw, mask = ipa_args
+    kv, kv_pts = _leaf(torch.cat([k, v], -1)), _leaf(torch.cat([k_pts, v_pts], -2))
+    qg, qpg, biasg, zzg = (_leaf(t[:, rows]) for t in (q, q_pts, bias, zz))
+    hwg = _leaf(hw)
+    c, pq = k.shape[-1], k_pts.shape[-2]
+    args = (qg, kv[..., :c], kv[..., c:], qpg, kv_pts[..., :pq, :], kv_pts[..., pq:, :], biasg, zzg, hwg, mask)
+    cases.append(("ipa_attention", "rows", lambda: ipa.ipa_attention(*args), lambda: ipa.ipa_attention_plain(*args),
+                  [qg, kv, qpg, kv_pts, biasg, zzg, hwg], tuple(cot(o) for o in ipa.ipa_attention_plain(*args))))
+    # The ending node: every row of the swapped pair representation, this
+    # rank's I query positions against all N keys, the bias of its queries.
+    tq, tk, tv, ttb, tmask = ta_args
+    tq, ttb = _leaf(tq[:, :, rows]), _leaf(ttb[:, :, rows])
+    tk, tv = _leaf(tk), _leaf(tv)
+    cases.append(("tri_attention", "ending_queries", lambda: tri_att.tri_attention(tq, tk, tv, ttb, tmask),
+                  lambda: tri_att.tri_attention_plain(tq, tk, tv, ttb, tmask), [tq, tk, tv, ttb], (cot(tq),)))
+    return cases
+
+
+def check_row_blocks(z, res_mask, w, ipa_args, ta_args, dname, gen):
+    """Every row-block case's forward and (through its autograd Function)
+    gradient against its plain version on the card, each output and each
+    input's gradient relative to max |plain| of it, with the times of the
+    kernel, the plain version and the backward. Returns (failures, {kernel:
+    {case: record}})."""
+    import torch
+
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def rel_err(got, want):
+        errs = [(g.float() - p.float()).abs().max().item() for g, p in zip(got, want)]
+        scales = [p.float().abs().max().item() for p in want]
+        finite = all(torch.isfinite(g.float()).all().item() for g in got)
+        return max(errs), max(e / max(sc, 1e-30) for e, sc in zip(errs, scales)), finite
+
+    failed, results = [], {}
+    for name, case, kern, plain, inputs, cots in row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
+        with torch.no_grad():
+            got, want = as_tuple(kern()), as_tuple(plain())
+            torch.cuda.synchronize()
+            err, rel, finite = rel_err(got, want)
+            ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+        rec = {"kernel": name, "case": case, "N": ROW_BLOCK_N, "I": ROW_BLOCK_I, "dtype": dname, "shapes":
+               [tuple(t.shape) for t in got], "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
+               "ms": ms, "plain_ms": plain_ms}
+        ok = finite and rel <= TOL[dname]
+        if inputs:
+            g_got = torch.autograd.grad(as_tuple(kern()), inputs, cots)
+            g_want = torch.autograd.grad(as_tuple(plain()), inputs, cots)
+            torch.cuda.synchronize()
+            g_err, g_rel, g_finite = rel_err(g_got, g_want)
+            out_k = as_tuple(kern())
+            rec.update(grad_max_abs_err=g_err, grad_rel_err=g_rel, backward_ms=cuda_time_ms(
+                lambda: torch.autograd.grad(out_k, inputs, cots, retain_graph=True), iters=10, warmup=2))
+            ok = ok and g_finite and g_rel <= TOL[dname]
+        rec["ok"] = ok
+        emit({"phase": "kernels", "row_block": True, **rec})
+        if not ok:
+            failed.append(f"{name} row block {case} {dname}: rel {rel:.3g}, gradient {rec.get('grad_rel_err')}")
+        results.setdefault(name, {})[case] = rec
+    return failed, results
+
+
 def check_gradients(cases, dname, N, B):
     """Gradients of every input through the kernel wrapper (its autograd
     Function) against autograd of the plain version, each relative to max
@@ -680,13 +822,16 @@ def plain_kernels():
          primitives.tri_attention) = saved
 
 
-def example_config(tri_att: bool = False):
+def example_config(tri_att: bool = False, max_n_res: int = None):
     """configs/example.configuration with eigh quaternions, as its seeded
     checkpoints load (utils/model_io.py); with `tri_att`, the same file with
-    triangle attention on (4 heads of 32, the configuration's defaults)."""
+    triangle attention on (4 heads of 32, the configuration's defaults);
+    with `max_n_res`, that maximumNumResidues."""
     from genie2_tpu_torch.config import Config
 
     overrides = {"rotToQuatMethod": "eigh", "includeTriangularAttention": tri_att}
+    if max_n_res is not None:
+        overrides["maximumNumResidues"] = max_n_res
     return Config(os.path.join(HERE, "configs", "example.configuration"), overrides=overrides)
 
 
@@ -2194,20 +2339,31 @@ def split_epilogue(table):
     return out
 
 
-def tp_forward(model, inputs, n=3):
-    """One denoiser call (launches and bytes all-reduced counted), then the
-    wall ms of each of `n` more, synchronised."""
+def tp_forward(model, inputs, n=3, keep_p=False):
+    """One denoiser call (launches, bytes all-reduced over the model and the
+    seq group and the peak memory counted; with `keep_p` this process's rows
+    of p kept), then the wall ms of each of `n` more, synchronised."""
     import torch
 
     from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.parallel import sequence_parallel as sp
     from genie2_tpu_torch.parallel import tensor_parallel as tp
 
     with torch.inference_mode():
         trimul.reset_launch_counts()
         tp.reset_volume()
-        z = model(*inputs)["z"]
+        sp.reset_volume()
         torch.cuda.synchronize()
-        rec = {"z": z.cpu(), "launches": dict(trimul.LAUNCHES), "volume": dict(tp.VOLUME), "ms": []}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = model(*inputs)
+        torch.cuda.synchronize()
+        rec = {"z": out["z"].cpu(), "launches": dict(trimul.LAUNCHES), "volume": dict(tp.VOLUME),
+               "seq_volume": dict(sp.VOLUME), "peak_bytes": torch.cuda.max_memory_allocated(),
+               "peak_bytes_over_start": torch.cuda.max_memory_allocated() - base, "ms": []}
+        if keep_p:
+            rec["p"] = out["p"].cpu()
+        del out
         for _ in range(n):
             t0 = time.perf_counter()
             model(*inputs)
@@ -2217,13 +2373,14 @@ def tp_forward(model, inputs, n=3):
 
 
 def tp_rank(rank, plan):
-    """The tp phase's work in one rank of a grid of plan["n_model"] model
-    ranks: the denoiser forward with and without triangle attention, the
-    training steps of `plan["train_steps"]` on this data index's rows of
-    the batch, then (where `plan` has them) one twisted TDS step from
-    t = T, the unconditional CLI and cli/train.py under the model axis and
-    the trained model's z. The heavy tensors (gradients and parameters,
-    gathered) from rank 0 only."""
+    """The tp (and seq) phase's work in one rank of a grid of
+    plan["n_seq"] (default 1) x plan["n_model"] ranks: the denoiser forward
+    with and without triangle attention (and those of plan["forwards"]),
+    the training steps of `plan["train_steps"]` on this data index's rows
+    of the batch, then (where `plan` has them) one twisted TDS step from
+    t = T, the unconditional CLI and cli/train.py on the grid and the
+    trained model's z. The heavy tensors (gradients and parameters,
+    gathered) from rank 0 only; under a seq axis each rank's rows of p."""
     import numpy as np
     import torch
 
@@ -2233,6 +2390,7 @@ def tp_rank(rank, plan):
     from genie2_tpu_torch.features import to_device
     from genie2_tpu_torch.ops import trimul
     from genie2_tpu_torch.parallel import create_mesh, shard_batch
+    from genie2_tpu_torch.parallel import sequence_parallel as sp
     from genie2_tpu_torch.parallel import tensor_parallel as tp
     from genie2_tpu_torch.sampling import base
     from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
@@ -2242,14 +2400,20 @@ def tp_rank(rank, plan):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    mesh = create_mesh(-1, dev, plan["n_model"])
+    n_seq = plan.get("n_seq", 1)
+    mesh = create_mesh(-1, dev, plan["n_model"], n_seq)
     out = {"mesh": [mesh.data_rank, mesh.model_rank, mesh.n_data, mesh.n_model]}
     if plan.get("forward"):
         inputs = denoiser_inputs()
         for tri_att in (False, True):
             model = tp.shard_model(seeded_denoiser(example_config(tri_att), dev), mesh)
-            out[f"forward_{tri_att}"] = tp_forward(model, inputs)
+            out[f"forward_{tri_att}"] = tp_forward(model, inputs, keep_p=n_seq > 1)
             del model
+    for label, (L, B, overrides) in plan.get("forwards", {}).items():
+        model = tp.shard_model(seeded_denoiser(example_config(**overrides), dev), mesh)
+        out[f"forward_{label}"] = tp_forward(model, denoiser_inputs(L, B), n=1)
+        del model
+        torch.cuda.empty_cache()
 
     # Training steps.
     config = Config(plan["train_config"])
@@ -2261,6 +2425,7 @@ def tp_rank(rank, plan):
     feats = to_device(shard_batch(plan["batch"], mesh), dev)
     trimul.reset_launch_counts()
     tp.reset_volume()
+    sp.reset_volume()
     metrics, times, grads, before = [], [], [], []
     for i in range(plan["train_steps"]):
         full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
@@ -2276,11 +2441,12 @@ def tp_rank(rank, plan):
         full = tp.gather_state_dict({n: p.grad for n, p in model.named_parameters()}, model_plan)
         if rank == 0:
             grads.append(torch.cat([full[n].flatten() for n in names]).cpu())
-    launches, volume = dict(trimul.LAUNCHES), dict(tp.VOLUME)
+    launches, volume, seq_volume = dict(trimul.LAUNCHES), dict(tp.VOLUME), dict(sp.VOLUME)
     full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
     params = torch.cat([full[n].flatten() for n in names]).double()
     local = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
     out["train"] = {"metrics": metrics, "ms_steps": times, "launches": launches, "volume": volume,
+                    "seq_volume": seq_volume,
                     "rows": int(feats["residue_mask"].shape[0]), "param_checksum": [params.sum().item()],
                     "local_checksum": [local.sum().item()]}
     if rank == 0:
@@ -2306,13 +2472,15 @@ def tp_rank(rank, plan):
         try:
             trimul.reset_launch_counts()
             tp.reset_volume()
+            sp.reset_volume()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sample_unconditional.main(plan["sample_argv"] + ["--num_devices", str(mesh.world_size), "--mesh_model",
-                                                             str(mesh.n_model)])
+                                                             str(mesh.n_model), "--mesh_seq", str(n_seq)])
             torch.cuda.synchronize()
             out["sample"] = {"seconds": time.perf_counter() - t0, "launches": dict(trimul.LAUNCHES),
-                             "volume": dict(tp.VOLUME), "coords": np.concatenate(samples)}
+                             "volume": dict(tp.VOLUME), "seq_volume": dict(sp.VOLUME),
+                             "coords": np.concatenate(samples)}
         finally:
             base.BaseSampler.sample = sample
 
@@ -2325,7 +2493,8 @@ def tp_rank(rank, plan):
         launches = dict(trimul.LAUNCHES)
         rec = tp_forward(trainer.model.eval(), denoiser_inputs(), n=0)
         out["train_cli"] = {"seconds": seconds, "steps": trainer.state.step, "version": trainer.version,
-                            "launches": launches, "z": rec["z"], "mesh": [trainer.mesh.n_data, trainer.mesh.n_model]}
+                            "launches": launches, "z": rec["z"],
+                            "mesh": [trainer.mesh.n_data, trainer.mesh.n_model] + ([n_seq] if n_seq > 1 else [])}
     return out
 
 
@@ -2547,6 +2716,243 @@ def phase_tp(state):
 
 
 # ------------------------------------------------------------------ #
+# Phase 11
+# ------------------------------------------------------------------ #
+
+SEQ_RANKS = 2  # seq ranks over gloo sharing the one card
+SEQ_TRAIN_STEPS = 3
+SEQ_SAMPLES, SEQ_DDIM = 2, 10  # the CLI run: L=256, DDIM-10
+SEQ_PAD_L = 255  # a length the seq axis does not divide
+SEQ_LONG_L = 1024  # the memory story: B=1, maximumNumResidues 1024
+# z and p of the seq ranks against one process, relative to max |z| or |p|
+# (the kernels' 3xTF32 float32 sums in another order, the incoming
+# TriMul's partial sums over each rank's k).
+SEQ_TOL = 1e-4
+
+
+def seq_volume(config, B, N):
+    """Bytes the seq group all-reduces in one denoiser forward, float32, N
+    the residues padded to the seq axis: each pair layer's outgoing TriMul
+    gathers b and its incoming one reduces its partial sums, B H N^2 each
+    (H the TriMul's hidden channels); with triangle attention the starting
+    node gathers its bias, B H_tri N^2, and the ending node the layer-normed
+    rows, B N^2 c_p; each structure layer gathers s and the frames, B N
+    (c_s + 9 + 3)."""
+    m = config.model
+    pair = 2 * B * m["c_hidden_mul"] * N * N
+    if m["include_tri_att"]:
+        pair += B * m["n_head_tri"] * N * N + B * N * N * m["c_p"]
+    structure = B * N * (m["c_s"] + 12)
+    return 4 * (m["n_pair_transform_layer"] * pair + m["n_structure_layer"] * m["n_structure_block"] * structure)
+
+
+def phase_seq(state):
+    """Sequence parallelism: two seq ranks over gloo sharing the card (NCCL
+    refuses two ranks on one GPU) against one process: the denoiser forward
+    at L=256, B=2, with and without triangle attention, at L=255 (padded)
+    and at L=1024, B=1 (peak memory); three training steps; one twisted TDS
+    step; the unconditional CLI with --mesh_seq 2 and cli/train.py with
+    meshSeq 2; then one training step on a (2 seq x 2 model) grid of four
+    ranks."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import sample_unconditional
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.parallel.spawn import run_ranks
+    from genie2_tpu_torch.sampling import base
+    from genie2_tpu_torch.utils.model_io import load_model
+
+    work, rootdir, _ = release_dir(state)
+    pplan, alone = state["parallel_plan"], state["parallel_alone"]
+    config, tconfig = example_config(), Config(pplan["train_config"])
+    failures = []
+    note = "gloo ranks share one card: these numbers show correctness, the collectives' volume and memory, not scaling"
+    dev = torch.device("cuda")
+
+    # One process: the same inputs through the denoiser phase's models, and
+    # the padded and long forwards.
+    inputs = denoiser_inputs()
+    one = {tri_att: tp_forward(state["model_triatt" if tri_att else "model"], inputs, keep_p=True)
+           for tri_att in (False, True)}
+    forwards = {"pad": (SEQ_PAD_L, 2, {}), "long": (SEQ_LONG_L, 1, {"max_n_res": SEQ_LONG_L})}
+    for label, (L, B, overrides) in forwards.items():
+        model = seeded_denoiser(example_config(**overrides), dev)
+        one[label] = tp_forward(model, denoiser_inputs(L, B), n=1)
+        del model
+        torch.cuda.empty_cache()
+
+    outdir = os.path.join(work, "seq")
+
+    def sample_argv(label):
+        return common_argv(rootdir, os.path.join(outdir, label), "0.6") + [
+            "--num_samples", str(SEQ_SAMPLES), "--batch_size", str(SEQ_SAMPLES), "--min_length", "256",
+            "--max_length", "256", "--ddim_steps", str(SEQ_DDIM), "--ddim_eta", "0.5"]
+
+    datadir, seq_root = os.path.join(work, "seq_train_data"), os.path.join(work, "seq_train_runs")
+    os.makedirs(datadir)
+    for f in sorted(os.listdir(tconfig.io["datadir"]))[:TP_TRAIN_FILES]:
+        shutil.copy(os.path.join(tconfig.io["datadir"], f), datadir)
+    train_cli_config = os.path.join(work, "seq_train_configuration")
+    write_train_config(train_cli_config, datadir, seq_root, epochs=1, val_split=TP_TRAIN_VAL,
+                       extra=f"meshSeq {SEQ_RANKS}\n")
+    plan = {"n_model": 1, "n_seq": SEQ_RANKS, "forward": True, "forwards": forwards,
+            "train_config": pplan["train_config"], "batch": pplan["batch"], "train_steps": SEQ_TRAIN_STEPS,
+            "tds_plan": pplan, "sample_argv": sample_argv("sample"), "train_cli_config": train_cli_config}
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, SEQ_RANKS, (plan,), deadline=600.0)
+    ranks_s = time.perf_counter() - t0
+
+    # Forward: z against one process, each rank's rows of p against one
+    # process's rows, the bytes against seq_volume, the launches.
+    for label in (False, True, "pad", "long"):
+        want, got = one[label], [r[f"forward_{label}"] for r in ranks]
+        L, B, overrides = (256, 2, {"tri_att": label}) if isinstance(label, bool) else forwards[label]
+        cfg = example_config(**overrides)
+        n_pad = -(-L // SEQ_RANKS) * SEQ_RANKS
+        scale = want["z"].abs().max().item()
+        err = max((g["z"] - want["z"]).abs().max().item() for g in got)
+        rec = {"phase": "seq", "run": "forward", "ranks": SEQ_RANKS, "label": str(label), "L": L, "B": B,
+               "padded_L": n_pad, "triangle_attention": cfg.model["include_tri_att"],
+               "max_abs_err": err, "max_abs_z": scale, "rel_err": err / scale, "tol": SEQ_TOL,
+               "volume_bytes": [g["seq_volume"] for g in got], "volume_formula_bytes": seq_volume(cfg, B, n_pad),
+               "ms_one_process": sorted(want["ms"])[len(want["ms"]) // 2],
+               "ms_ranks": max(sorted(g["ms"])[len(g["ms"]) // 2] for g in got), "ms_all": [g["ms"] for g in got],
+               "peak_bytes_one_process": want["peak_bytes"], "peak_bytes_ranks": [g["peak_bytes"] for g in got],
+               "launches": [g["launches"] for g in got], "expected_launches": expected_launches(cfg, 1),
+               "note": note, "smi": state["smi"]}
+        ok = rec["rel_err"] <= SEQ_TOL and all(g["seq_volume"] == {"forward": rec["volume_formula_bytes"],
+                                                                   "backward": 0} for g in got) \
+            and all(g["launches"] == rec["expected_launches"] for g in got)
+        if isinstance(label, bool):  # each rank's rows of p, each held to max |p|
+            p_scale = want["p"].abs().max().item()
+            per = 256 // SEQ_RANKS
+            rec["p_rel_err"] = max((g["p"] - want["p"][:, r * per:(r + 1) * per]).abs().max().item()
+                                   for r, g in enumerate(got)) / p_scale
+            rec["p_shapes"] = [list(g["p"].shape) for g in got]
+            ok = ok and rec["p_rel_err"] <= SEQ_TOL and all(list(g["p"].shape) == [2, per, 256, cfg.model["c_p"]]
+                                                            for g in got)
+        emit(rec)
+        if not ok:
+            failures.append(f"forward {label}: {rec}")
+
+    # Training: as the tp phase, each step against one process's step from
+    # the ranks' parameters before it, and the free-running parameters
+    # after three steps against the parallel phase's one process.
+    a_train, r_train = alone["train"], ranks[0]["train"]
+    forced = steps_from(tconfig, pplan["batch"], r_train["params_before"])
+    metric_err = max(abs(r["train"]["metrics"][i][k] - v) / max(abs(v), 1e-12)
+                     for r in ranks for i, (m, _) in enumerate(forced) for k, v in m.items())
+    grad_errs = [(g - w).abs().max().item() / w.abs().max().item() for g, (_, w) in zip(r_train["grads"], forced)]
+    adam = _params_against_adam(r_train["params"], a_train["params"], r_train["grads"], a_train["grads"],
+                                tconfig.optimization["lr"])
+    launches = train_launches(config, SEQ_TRAIN_STEPS, eval_calls=0)
+    rec = {"phase": "seq", "run": "train", "ranks": SEQ_RANKS, "batch": len(pplan["batch"]["aatype"]),
+           "steps": SEQ_TRAIN_STEPS, "metric_rel_err": metric_err, "metric_tol": TRAIN_LOSS_TOL,
+           "grad_rel_err_per_step": grad_errs, "grad_tol": 1e-4, "params": adam,
+           "ranks_same_params": all(r["train"]["param_checksum"] == r_train["param_checksum"] for r in ranks),
+           "ms_per_step_one_process": sorted(a_train["ms_steps"][1:])[0],
+           "ms_per_step_two_ranks": max(sorted(r["train"]["ms_steps"][1:])[0] for r in ranks),
+           "ms_steps": [r["train"]["ms_steps"] for r in ranks],
+           "volume_bytes_per_step": {k: v / SEQ_TRAIN_STEPS for k, v in r_train["seq_volume"].items()},
+           "launches": [r["train"]["launches"] for r in ranks], "expected_launches": launches, "note": note,
+           "smi": state["smi"]}
+    emit(rec)
+    if metric_err > TRAIN_LOSS_TOL or max(grad_errs) > 1e-4 or not rec["ranks_same_params"] \
+            or adam["max_err"] > adam["bound"] or adam["held_max_err_over_tol"] > 1 or adam["still_max_err"] > 0 \
+            or adam["held_share"] == 0 or any(r["train"]["launches"] != launches for r in ranks):
+        failures.append(f"train: metrics {metric_err:.3g}, gradients {grad_errs}, parameters {adam}, "
+                        f"same on every rank {rec['ranks_same_params']}")
+
+    # TDS: one twisted step from t = T against the parallel phase's one process.
+    a, got = alone["segments"]["one_step"], [r["tds"] for r in ranks]
+    rec = {"phase": "seq", "run": "tds", "ranks": SEQ_RANKS, "particles": TDS_PARTICLES, "length": TDS_LENGTH,
+           "coord_max_abs_err": max(float(np.abs(g["x"] - a["x"]).max()) for g in got),
+           "coord_tol": PARALLEL_TDS_TOL, "best_same": all(g["best"] == a["best"] for g in got),
+           "decisions_same": all(g["resampled"] == a["resampled"] for g in got),
+           "ranks_bitwise_equal": all(np.array_equal(g["x"], got[0]["x"]) for g in got),
+           "seconds_with_load": [g["seconds"] for g in got], "launches": [g["launches"] for g in got],
+           "smi": state["smi"]}
+    emit(rec)
+    if not (rec["best_same"] and rec["decisions_same"] and rec["ranks_bitwise_equal"]) \
+            or rec["coord_max_abs_err"] > PARALLEL_TDS_TOL:
+        failures.append(f"tds: {rec}")
+
+    # The unconditional CLI against one process's run of the same flags.
+    files = sorted(os.listdir(os.path.join(outdir, "sample", "pdbs")))
+    for f in files:
+        check_ca_file(os.path.join(outdir, "sample", "pdbs", f), 256)
+    captured = []
+    sample = base.BaseSampler.sample
+
+    def capture(self, params):
+        result = sample(self, params)
+        captured.append(np.stack([f["atom_positions"] for f in result]))
+        return result
+
+    base.BaseSampler.sample = capture
+    try:
+        t0 = time.perf_counter()
+        sample_unconditional.main(sample_argv("sample_alone"))
+        alone_sample_s = time.perf_counter() - t0
+    finally:
+        base.BaseSampler.sample = sample
+    got = [r["sample"] for r in ranks]
+    launches = expected_launches(config, SEQ_DDIM)
+    rec = {"phase": "seq", "run": "sample", "ranks": SEQ_RANKS, "samples": SEQ_SAMPLES, "L": 256,
+           "ddim_steps": SEQ_DDIM, "files": files,
+           "ranks_bitwise_equal": all(np.array_equal(g["coords"], got[0]["coords"]) for g in got),
+           "coord_max_abs_err_one_process": float(np.abs(got[0]["coords"] - captured[0]).max()),
+           "seconds_ranks": [g["seconds"] for g in got], "seconds_one_process": alone_sample_s,
+           "volume_bytes": got[0]["seq_volume"], "volume_formula_bytes": SEQ_DDIM * seq_volume(config, 2, 256),
+           "launches": [g["launches"] for g in got], "expected_launches": launches, "note": note,
+           "smi": state["smi"]}
+    emit(rec)
+    state["launches_seq"] = got[0]["launches"]
+    if files != [f"256_{i}.pdb" for i in range(SEQ_SAMPLES)] or not rec["ranks_bitwise_equal"] \
+            or any(g["launches"] != launches for g in got) or got[0]["seq_volume"]["forward"] != rec["volume_formula_bytes"]:
+        failures.append(f"sample: {rec}")
+
+    # cli/train.py under meshSeq 2: its full checkpoint in one process
+    # against the seq-sharded model's z.
+    got = [r["train_cli"] for r in ranks]
+    model, _ = load_model(seq_root, Config(train_cli_config).io["name"], epoch=0, device="cuda")
+    z_one = tp_forward(model, inputs, n=0)["z"]
+    scale = z_one.abs().max().item()
+    rec = {"phase": "seq", "run": "train_cli", "ranks": SEQ_RANKS, "mesh_data_model_seq": got[0]["mesh"],
+           "steps": [g["steps"] for g in got], "seconds": [g["seconds"] for g in got],
+           "checkpoint_z_rel_err": max((g["z"] - z_one).abs().max().item() for g in got) / scale,
+           "tol": SEQ_TOL, "launches": got[0]["launches"], "smi": state["smi"]}
+    emit(rec)
+    if rec["checkpoint_z_rel_err"] > SEQ_TOL or got[0]["mesh"] != [1, 1, SEQ_RANKS]:
+        failures.append(f"train_cli: {rec}")
+
+    # One training step on a (2 seq x 2 model) grid of four ranks.
+    grid_plan = {"n_model": TP_RANKS, "n_seq": SEQ_RANKS, "train_config": pplan["train_config"],
+                 "batch": pplan["batch"], "train_steps": 1}
+    t0 = time.perf_counter()
+    grid = run_ranks(tp_rank, SEQ_RANKS * TP_RANKS, (grid_plan,), deadline=300.0)
+    grid_s = time.perf_counter() - t0
+    g_train = grid[0]["train"]
+    metric_err = max(abs(r["train"]["metrics"][0][k] - v) / max(abs(v), 1e-12)
+                     for r in grid for k, v in a_train["metrics"][0].items())
+    grad_err = (g_train["grads"][0] - a_train["grads"][0]).abs().max().item() / a_train["grads"][0].abs().max().item()
+    rec = {"phase": "seq", "run": "grid_train", "ranks": SEQ_RANKS * TP_RANKS, "grid": [r["mesh"] for r in grid],
+           "metric_rel_err": metric_err, "grad_rel_err": grad_err, "ms_step": [r["train"]["ms_steps"][0] for r in grid],
+           "ranks_same_params": all(r["train"]["param_checksum"] == g_train["param_checksum"] for r in grid),
+           "launches": [r["train"]["launches"] for r in grid],
+           "expected_launches": split_epilogue(train_launches(config, 1, eval_calls=0)),
+           "seconds_with_start": grid_s, "note": note, "smi": state["smi"]}
+    emit(rec)
+    if metric_err > TRAIN_LOSS_TOL or grad_err > 1e-4 or not rec["ranks_same_params"] \
+            or any(r["train"]["launches"] != rec["expected_launches"] for r in grid):
+        failures.append(f"grid_train: {rec}")
+    emit({"phase": "seq", "seconds_two_ranks_with_start": ranks_s})
+    if failures:
+        raise PhaseFailed("; ".join(failures))
+
+
+# ------------------------------------------------------------------ #
 
 
 def kernels_line(state):
@@ -2584,6 +2990,7 @@ def kernels_line(state):
             "launches_train": count(state.get("launches_train", {})),
             "launches_parallel": {run: count(table) for run, table in state.get("launches_parallel", {}).items()},
             "launches_tp": count(tp_launches),
+            "launches_seq": count(state.get("launches_seq", {})),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs) / len(rs),
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
@@ -2595,6 +3002,11 @@ def kernels_line(state):
         }
         if name == "trimul_project":
             entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
+        rows = state.get("kernel_rows", {}).get(name)
+        if rows:  # the row-block cases of sequence parallelism, float32, beside the square one
+            entry["row_blocks"] = {case: {k: r.get(k) for k in ("I", "shapes", "ms", "plain_ms", "max_abs_err",
+                                                                "rel_err", "grad_rel_err", "backward_ms")}
+                                   for case, r in rows.items()}
         if name == "trimul_contract":
             entry["launches_out"] = launches.get("trimul_contract_out", 0)
             entry["launches_in"] = launches.get("trimul_contract_in", 0)
@@ -2616,7 +3028,7 @@ def kernels_line(state):
 
 PHASES = {"device": phase_device, "kernels": phase_kernels, "denoiser": phase_denoiser, "main": phase_main,
           "scaffold": phase_scaffold, "triatt": phase_triatt, "tds": phase_tds, "train": phase_train,
-          "parallel": phase_parallel, "tp": phase_tp}
+          "parallel": phase_parallel, "tp": phase_tp, "seq": phase_seq}
 
 
 def main() -> int:

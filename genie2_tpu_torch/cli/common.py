@@ -1,11 +1,13 @@
 """Flags and set-up that the sampling CLIs share.
 
-Data and tensor parallel: `torchrun --nproc_per_node N -m
+Data, sequence and tensor parallel: `torchrun --nproc_per_node N -m
 genie2_tpu_torch.cli.<cli> ... --num_devices N` (or -1) runs one process a
-card (cuda:LOCAL_RANK); with `--mesh_model M` (M dividing N) the N ranks
-are N / M data indices of M model ranks each, which split the weights
-(parallel/tensor_parallel.py). Each data index samples its rows of every
-batch; rank 0 writes the files, which are those of one process
+card (cuda:LOCAL_RANK); with `--mesh_seq S` and `--mesh_model M` (S M
+dividing N) the N ranks are N / (S M) data indices of S seq ranks, which
+split each sample's pair representation by residue rows
+(parallel/sequence_parallel.py), each of M model ranks, which split the
+weights (parallel/tensor_parallel.py). Each data index samples its rows of
+every batch; rank 0 writes the files, which are those of one process
 (parallel/mesh.py, sampling/base.py).
 """
 
@@ -34,7 +36,7 @@ def add_checkpoint_arguments(parser: argparse.ArgumentParser):
                         help="Tensor parallelism: split the weights over this many ranks of the launch (dividing "
                              "--num_devices); the batch shards over the rest")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Run on every rank of a torchrun launch, data x model: its world size or -1 "
+                        help="Run on every rank of a torchrun launch, data x seq x model: its world size or -1 "
                              "(default: one process)")
 
 
@@ -42,7 +44,8 @@ def add_model_arguments(parser: argparse.ArgumentParser):
     add_checkpoint_arguments(parser)
     parser.add_argument("--scale", type=float, required=True, help="Sampling noise scale")
     parser.add_argument("--mesh_seq", type=int, default=1,
-                        help="Only 1 is supported (sequence sharding is not ported, ROADMAP A.5.2)")
+                        help="Sequence parallelism: split each sample's pair representation by residue rows over "
+                             "this many ranks of the launch (with --mesh_model dividing --num_devices)")
 
 
 def add_solver_arguments(parser: argparse.ArgumentParser):
@@ -69,8 +72,8 @@ def load_model(args):
     """Resolve the parallelism flags into a mesh (parallel/mesh.py:
     `mesh_from_arg`, which joins the launcher's process group), fix the
     matmul precision and load the release-layout checkpoint onto
-    `args.device` (this rank's card under a launcher), sharded over the
-    mesh's model axis. Returns (model, config, mesh); the mesh is None for
+    `args.device` (this rank's card under a launcher), placed on the
+    mesh's seq and model axes. Returns (model, config, mesh); the mesh is None for
     one process."""
     from genie2_tpu_torch.parallel import mesh_from_arg
     from genie2_tpu_torch.utils.model_io import load_pretrained_model

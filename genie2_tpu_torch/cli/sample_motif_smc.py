@@ -9,10 +9,10 @@ trace `{outdir}/logs/metrics.jsonl` and, with --dump_trajectory_every,
 `{outdir}/test/{x0,xt}_predicted_test_{step}.pdb`. Flags as genie2_tpu's
 CLI, plus `--device` (default cuda; `--device cpu` runs the plain versions
 on the CPU). Under torchrun, `--num_devices N` (or -1) shards the particles
-over the N ranks (a count N does not divide raises), or with `--mesh_model
-M` over N / M data indices of M model ranks that split the weights, and
-rank 0 writes the files and the trace; `--mesh_seq` other than 1 raises
-NotImplementedError.
+over the N ranks (a count N does not divide raises), or with `--mesh_seq
+S` and `--mesh_model M` over N / (S M) data indices of S seq ranks that
+split the pair representation's rows, each of M model ranks that split the
+weights, and rank 0 writes the files and the trace.
 
     python -m genie2_tpu_torch.cli.sample_motif_smc --name base --epoch 40 \
         --outdir out --motif_index 0 --motif_dir motifbench/pdbs
@@ -103,7 +103,8 @@ def main(argv=None):
     parser.add_argument("--dump_trajectory_every", type=int, default=0,
                         help="Dump x0/xt PDB snapshots every K steps (0 = off)")
     parser.add_argument("--mesh_seq", type=int, default=1,
-                        help="Only 1 is supported (sequence sharding is not ported, ROADMAP A.5.2)")
+                        help="Sequence parallelism: split the pair representation by residue rows over this many "
+                             "ranks of the launch (the particles shard over the data axis only)")
     parser.add_argument("--wandb_project", type=str, default=None,
                         help="Also stream the per-step trace to this wandb project; JSONL is always written "
                              "to {outdir}/logs")

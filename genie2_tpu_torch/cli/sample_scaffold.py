@@ -7,9 +7,9 @@ eps_u), with the motif masks zeroed for the unconditional branch (two model
 calls per step); 0 is the plain conditional model. `--device` defaults to
 cuda; `--device cpu` runs the plain versions on the CPU. Under torchrun,
 `--num_devices N` (or -1) shards every batch over the N ranks, or with
-`--mesh_model M` over N / M data indices of M model ranks that split the
-weights, and rank 0 writes the files (cli/common.py); `--mesh_seq` other
-than 1 raises NotImplementedError.
+`--mesh_seq S` and `--mesh_model M` over N / (S M) data indices of S seq
+ranks that split the pair representation's rows, each of M model ranks
+that split the weights, and rank 0 writes the files (cli/common.py).
 
     python -m genie2_tpu_torch.cli.sample_scaffold --name NAME --epoch E \
         --rootdir results --scale 0.4 --outdir out --datadir data/design25

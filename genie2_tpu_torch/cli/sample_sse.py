@@ -8,9 +8,10 @@ the effective sample size; the final particles are written as
 reported. Flags as genie2_tpu's CLI, plus `--device` (default cuda;
 `--device cpu` runs the plain versions on the CPU). Under torchrun,
 `--num_devices N` (or -1) shards the particles over the N ranks (a count N
-does not divide raises), or with `--mesh_model M` over N / M data indices
-of M model ranks that split the weights, and rank 0 writes the files; it
-has no `--mesh_seq`, as genie2_tpu's.
+does not divide raises), or with `--mesh_seq S` and `--mesh_model M` over
+N / (S M) data indices of S seq ranks that split the pair
+representation's rows, each of M model ranks that split the weights, and
+rank 0 writes the files (genie2_tpu's CLI has no `--mesh_seq`).
 
     python -m genie2_tpu_torch.cli.sample_sse --name base --epoch 40 \
         --outdir out --length 100 --num_particles 8 --target helix \
@@ -52,7 +53,7 @@ def run(args):
     t0 = time.perf_counter()
     with torch.inference_mode():
         # The step-invariant pair bias is computed once, as the samplers do.
-        static_bias = model.pair_feature_net.static_bias(feats, dtype)
+        static_bias = model.static_bias(feats, dtype)
 
         def model_fn(frames, t_vec):
             return apply_denoiser(model, frames, t_vec, feats, static_bias, dtype)
@@ -96,6 +97,9 @@ def main(argv=None):
     parser.add_argument("--strength", type=float, default=20.0, help="Tempering strength of the SSE potential")
     parser.add_argument("--scale", type=float, default=0.6, help="Reverse-kernel noise temperature (gamma)")
     parser.add_argument("--ess_threshold", type=float, default=0.5, help="Resample when ESS < threshold * P")
+    parser.add_argument("--mesh_seq", type=int, default=1,
+                        help="Sequence parallelism: split the pair representation by residue rows over this many "
+                             "ranks of the launch (the particles shard over the data axis only)")
     return run(parser.parse_args(argv))
 
 

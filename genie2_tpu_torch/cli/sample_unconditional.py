@@ -5,9 +5,10 @@ plus `--device` (default cuda; `--device cpu` runs the plain versions on the
 CPU). Lengths run max -> min, shuffled unless --sequential_order; `--pack`
 fills every batch with samples of mixed lengths grouped by padding bucket.
 Under torchrun, `--num_devices N` (or -1) shards every batch over the N
-ranks, or with `--mesh_model M` over N / M data indices of M model ranks
-that split the weights, and rank 0 writes the files (cli/common.py);
-`--mesh_seq` other than 1 raises NotImplementedError.
+ranks, or with `--mesh_seq S` and `--mesh_model M` over N / (S M) data
+indices of S seq ranks that split the pair representation's rows, each of
+M model ranks that split the weights, and rank 0 writes the files
+(cli/common.py).
 
     python -m genie2_tpu_torch.cli.sample_unconditional --name NAME --epoch E \
         --rootdir results --scale 0.6 --outdir out --num_samples 2 --batch_size 2

@@ -9,15 +9,16 @@ configuration is copied next to the run, where the loaders read it. `-t`
 trains on a 16-file subset (with its own cache). TF32 is off, as in the
 sampling CLIs.
 
-Data and tensor parallel: under torchrun (`torchrun --nproc_per_node N -m
-genie2_tpu_torch.cli.train -c CONFIG`) every process joins the process
-group from the launcher's environment, as `jax.distributed.initialize()`
-does (`--distributed`, implied where WORLD_SIZE > 1; NCCL on the card,
-gloo on the CPU) and takes the card LOCAL_RANK. The ranks form a grid of
-`meshData` x `meshModel` (`meshModel` must divide N; `meshData` -1 or N /
-`meshModel`): each data index trains on its rows of each global batch, the
-model ranks of one split the weights. `meshSeq` other than 1 raises
-NotImplementedError (not ported, ROADMAP A.5.2).
+Data, sequence and tensor parallel: under torchrun (`torchrun
+--nproc_per_node N -m genie2_tpu_torch.cli.train -c CONFIG`) every process
+joins the process group from the launcher's environment, as
+`jax.distributed.initialize()` does (`--distributed`, implied where
+WORLD_SIZE > 1; NCCL on the card, gloo on the CPU) and takes the card
+LOCAL_RANK. The ranks form a grid of `meshData` x `meshSeq` x `meshModel`
+(`meshSeq` x `meshModel` must divide N; `meshData` -1 or N over it): each
+data index trains on its rows of each global batch, its seq ranks split
+the pair representation's residue rows and the model ranks of one split
+the weights.
 """
 
 from __future__ import annotations
@@ -30,12 +31,10 @@ import torch
 
 
 def check_mesh(args, config):
-    """Refuse the sequence axis, which is not ported; join the launcher's
-    process group where asked or launched with more than one rank."""
-    from genie2_tpu_torch.parallel.mesh import UNPORTED_AXES, init_from_launcher
+    """Join the launcher's process group where asked or launched with more
+    than one rank."""
+    from genie2_tpu_torch.parallel.mesh import init_from_launcher
 
-    if config.tpu.get("mesh_seq", 1) != 1:
-        raise NotImplementedError(f"meshSeq {config.tpu['mesh_seq']}: {UNPORTED_AXES}")
     if args.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         init_from_launcher(args.device)
 
@@ -52,7 +51,8 @@ def run(args):
     config = Config(args.config)
     check_mesh(args, config)
     device = resolve_device(args.device)
-    mesh = mesh_from_config(config.tpu.get("mesh_data", -1), device, config.tpu.get("mesh_model", 1))
+    mesh = mesh_from_config(config.tpu.get("mesh_data", -1), device, config.tpu.get("mesh_model", 1),
+                            config.tpu.get("mesh_seq", 1))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = config.io["name"] or "run"
@@ -86,8 +86,11 @@ def run(args):
         barrier(mesh)
     trainer = Trainer(config, resume=args.resume, init_from=args.init_from, device=device)
     if is_main(mesh):
+        grid = f"{data_axis_size(mesh)} x {mesh.n_model if mesh else 1} (data x model)"
+        if mesh is not None and mesh.n_seq > 1:
+            grid = f"{mesh.n_data} x {mesh.n_seq} x {mesh.n_model} (data x seq x model)"
         print(f"dataset: {len(dataset)} train / {len(val_dataset) if val_dataset else 0} val structures on "
-              f"{data_axis_size(mesh)} x {mesh.n_model if mesh else 1} (data x model) x {device}", flush=True)
+              f"{grid} x {device}", flush=True)
         shutil.copyfile(args.config, os.path.join(rootdir, name, "configuration"))
     trainer.fit(dataset, resume=args.resume, val_dataset=val_dataset,
                 save_state_every_n_step=config.training["save_state_every_n_step"])

@@ -1,5 +1,7 @@
 // The per-channel contraction x[i,j] = sum_k A[i,k] B[j,k] of one plane on
-// the tensor cores, as a 128 x 128 output tile of 8 warps: the tile code
+// the tensor cores, i < I, j < J, k < K (I = J = K = N for the square
+// planes; a row block of sequence parallelism has I or K < N), as a 128 x
+// 128 output tile of 8 warps: the tile code
 // that csrc/trimul_contract.cu (both directions) and variants 0 and 1 of
 // csrc/triangle_contract.cu share.
 //
@@ -21,10 +23,11 @@
 // float32's loads by index). Each warp owns a 64 x 32 block of the output:
 // 4 x 4 mma.sync tiles, m16n8k8 TF32 three times over (3xTF32) for float32,
 // m16n8k16 once for bf16, fragments loaded with ldmatrix (.trans for
-// [k][row] bf16 tiles; [k][row] float32 tiles by index). Any N: where a row
-// stride or a base is not a multiple of 16 bytes, or N is not, the same
-// kernel stages element by element with plain loads (`vec` 0); rows,
-// columns and k past N are zero and nothing past N is stored.
+// [k][row] bf16 tiles; [k][row] float32 tiles by index). Any I, J, K: where
+// a row stride or a base is not a multiple of 16 bytes, or I, J or K is
+// not, the same kernel stages element by element with plain loads (`vec`
+// 0); rows past I or J and k past K are zero and nothing past I or J is
+// stored.
 #pragma once
 
 #include <stdint.h>
@@ -68,19 +71,19 @@ struct Params {
     const T* a;
     const T* b;
     T* out;
-    int N, C;  // matrix size; planes per batch (channels)
+    int I, J, K, C;  // output rows and columns, contraction depth; planes per batch (channels)
     stride_t a_b, a_c, a_ld;  // A: batch, channel, row stride of its stored matrix
     stride_t b_b, b_c, b_ld;
     stride_t o_b, o_c, o_r, o_k;
     int vec;  // 16-byte staging and pair stores
 };
 
-// An R x W block of a matrix (row stride ld_src, unit column stride, N x N)
-// at (row0, col0) into dst (row stride ld), zero past N. vec: 16-byte
-// cp.async copies; otherwise plain loads element by element.
+// An R x W block of a matrix (row stride ld_src, unit column stride, rows x
+// cols) at (row0, col0) into dst (row stride ld), zero past its edges. vec:
+// 16-byte cp.async copies; otherwise plain loads element by element.
 template <typename T, int R, int W>
-__device__ __forceinline__ void stage_block(T* dst, int ld, const T* src, stride_t ld_src, int N, int row0,
-                                            int col0, bool vec) {
+__device__ __forceinline__ void stage_block(T* dst, int ld, const T* src, stride_t ld_src, int rows, int cols,
+                                            int row0, int col0, bool vec) {
     if (vec) {
         constexpr int V = 16 / sizeof(T);
         constexpr int CHUNKS = R * W / V;
@@ -89,14 +92,14 @@ __device__ __forceinline__ void stage_block(T* dst, int ld, const T* src, stride
             const int idx = threadIdx.x + e * THREADS;
             if (CHUNKS % THREADS != 0 && idx >= CHUNKS) break;
             const int r = idx / (W / V), c = (idx % (W / V)) * V;
-            const bool ok = row0 + r < N && col0 + c < N;
+            const bool ok = row0 + r < rows && col0 + c < cols;
             const T* p = ok ? src + (row0 + r) * ld_src + col0 + c : src;
             tc::cp_async16(dst + r * ld + c, p, ok ? 16 : 0);
         }
     } else {
         for (int idx = threadIdx.x; idx < R * W; idx += THREADS) {
             const int r = idx / W, c = idx % W;
-            const bool ok = row0 + r < N && col0 + c < N;
+            const bool ok = row0 + r < rows && col0 + c < cols;
             dst[r * ld + c] = ok ? src[(row0 + r) * ld_src + col0 + c] : Cvt<T>::from_f(0.f);
         }
     }
@@ -109,8 +112,8 @@ __global__ void __launch_bounds__(THREADS) contract_kernel(Params<T> p) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* smem = reinterpret_cast<T*>(smem_raw);
 
-    const int N = p.N;
-    const int tiles_n = (N + BN - 1) / BN;
+    const int I = p.I, J = p.J, K = p.K;
+    const int tiles_n = (J + BN - 1) / BN;
     const int i0 = (blockIdx.x / tiles_n) * BM, j0 = (blockIdx.x % tiles_n) * BN;
     const int bi = blockIdx.y / p.C, ci = blockIdx.y % p.C;
     const T* A = p.a + bi * p.a_b + ci * p.a_c;
@@ -118,20 +121,20 @@ __global__ void __launch_bounds__(THREADS) contract_kernel(Params<T> p) {
     const bool vec = p.vec;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wm = (warp % WARPS_M) * WM, wn = (warp / WARPS_M) * WN;
-    const int KT = (N + BK - 1) / BK;
+    const int KT = (K + BK - 1) / BK;
 
     auto stage = [&](int s, int kt) {
         T* As = smem + s * L::STAGE;
         T* Bs = As + L::LA::TILE;
         const int k0 = kt * BK;
         if constexpr (AK)
-            stage_block<T, BM, BK>(As, L::LA::LD, A, p.a_ld, N, i0, k0, vec);
+            stage_block<T, BM, BK>(As, L::LA::LD, A, p.a_ld, I, K, i0, k0, vec);
         else
-            stage_block<T, BK, BM>(As, L::LA::LD, A, p.a_ld, N, k0, i0, vec);
+            stage_block<T, BK, BM>(As, L::LA::LD, A, p.a_ld, K, I, k0, i0, vec);
         if constexpr (BKM)
-            stage_block<T, BN, BK>(Bs, L::LB::LD, Bm, p.b_ld, N, j0, k0, vec);
+            stage_block<T, BN, BK>(Bs, L::LB::LD, Bm, p.b_ld, J, K, j0, k0, vec);
         else
-            stage_block<T, BK, BN>(Bs, L::LB::LD, Bm, p.b_ld, N, k0, j0, vec);
+            stage_block<T, BK, BN>(Bs, L::LB::LD, Bm, p.b_ld, K, J, k0, j0, vec);
     };
 
 #pragma unroll
@@ -174,24 +177,24 @@ __global__ void __launch_bounds__(THREADS) contract_kernel(Params<T> p) {
     tc::cp_async_wait<0>();
 
     T* X = p.out + bi * p.o_b + ci * p.o_c;
-    const bool pairs = vec && p.o_k == 1;  // N even: j < N implies j + 1 < N, and the pair is aligned
+    const bool pairs = vec && p.o_k == 1;  // J even: j < J implies j + 1 < J, and the pair is aligned
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const int i = i0 + wm + m * 16 + g + 8 * half;
-            if (i >= N) continue;
+            if (i >= I) continue;
             T* row = X + i * p.o_r;
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
                 const int j = j0 + wn + n * 8 + 2 * t;
                 const float v0 = acc[m][n][2 * half], v1 = acc[m][n][2 * half + 1];
                 if (pairs) {
-                    if (j < N) tc::store_pair(row + j, v0, v1);
+                    if (j < J) tc::store_pair(row + j, v0, v1);
                 } else {
-                    if (j < N) row[j * p.o_k] = Cvt<T>::from_f(v0);
-                    if (j + 1 < N) row[(j + 1) * p.o_k] = Cvt<T>::from_f(v1);
+                    if (j < J) row[j * p.o_k] = Cvt<T>::from_f(v0);
+                    if (j + 1 < J) row[(j + 1) * p.o_k] = Cvt<T>::from_f(v1);
                 }
             }
         }
@@ -214,18 +217,18 @@ int launch(const Params<T>& p, int planes, cudaStream_t stream) {
         if (err != cudaSuccess) return (int)err;
         allowed[dev] = true;
     }
-    const int tiles = ((p.N + BM - 1) / BM) * ((p.N + BN - 1) / BN);
+    const int tiles = ((p.I + BM - 1) / BM) * ((p.J + BN - 1) / BN);
     contract_kernel<T, AK, BKM><<<dim3(tiles, planes), THREADS, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-// 16-byte staging is possible: N, every row stride and base stride a
+// 16-byte staging is possible: I, J, K, every row stride and base stride a
 // multiple of 16 bytes and the pointers aligned.
 template <typename T>
 bool vec_ok(const Params<T>& p) {
     const stride_t V = 16 / sizeof(T);
     const bool aligned = ((uintptr_t)p.a | (uintptr_t)p.b | (uintptr_t)p.out) % 16 == 0;
-    const stride_t strides[] = {p.N, p.a_b, p.a_c, p.a_ld, p.b_b, p.b_c, p.b_ld, p.o_b, p.o_c, p.o_r};
+    const stride_t strides[] = {p.I, p.J, p.K, p.a_b, p.a_c, p.a_ld, p.b_b, p.b_c, p.b_ld, p.o_b, p.o_c, p.o_r};
     bool ok = aligned;
     for (stride_t s : strides) ok = ok && s % V == 0;
     return ok;

@@ -9,6 +9,10 @@
 //   o[i,h,:]      = sum_j p v[j,h,:]
 //   o_pt[i,h,:]   = sum_j p vp[j,h,:]
 //   o_pair[i,h,:] = sum_j p z[i,j,:]
+// for NI query rows i against N keys j: NI = N, or under sequence
+// parallelism this rank's residues as the queries (q, q points, bias and z
+// [B,NI,..]) against every residue as the keys (k, v, their points and
+// the mask [B,N,..]).
 // where qp and kp are the points multiplied by f_h = sqrt(w_h s_pt) in
 // float32 and rounded to the activation dtype (genie2_tpu's hm(), and
 // ops/ipa.py:scale_points), so the squared distance carries the head
@@ -53,8 +57,8 @@
 //            and z in bf16; o, o_pt and the softmax denominator in SIMT: a
 //            thread owns (head, column) items for all rows, p read as
 //            float4 over rows, the column of ones being the last.
-// Two consumer barriers a tile. Any N: keys past N get a logit of -1e30,
-// rows past N are computed on a clamped index and not stored. wgmma, TMA
+// Two consumer barriers a tile. Any N and NI: keys past N get a logit of
+// -1e30, rows past NI are computed on a clamped index and not stored. wgmma, TMA
 // tensor maps and cluster multicast are left out.
 
 #include <stdint.h>
@@ -103,6 +107,7 @@ struct Span {
 
 struct Dims {
     int B, N, H, C, PQ3, PV3, CZ, TI, HB;
+    int NI;  // query rows (N: the keys)
     int CP, QP, VP, KVS, CQ, QS;  // padded widths in elements (CQ, QS: floats)
     // Key data: element e of part p (k, k points, v, v points) of head h and
     // key jj of a tile lies at byte jj JS + h HS[p] + OFF[p] + e sizeof(T)
@@ -336,7 +341,7 @@ struct Smem {
 template <typename T, int HB>
 __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__ Args<T> a, const __grid_constant__ Dims d) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int N = d.N, H = d.H, C = d.C, CZ = d.CZ, TI = d.TI;
+    const int N = d.N, NI = d.NI, H = d.H, C = d.C, CZ = d.CZ, TI = d.TI;
     const int es = sizeof(T);
     const Smem<T> L(d, TI);
     float* q_s = reinterpret_cast<float*>(smem + L.q);      // [TI][H][QS]: q, then points at CQ
@@ -370,7 +375,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
     __syncthreads();  // f_s, the barriers
     for (int e = tid; e < TI * H * d.QS; e += THREADS) {
         const int dd = e % d.QS, h = (e / d.QS) % H, r = e / (d.QS * H);
-        const int i = min(i0 + r, N - 1);
+        const int i = min(i0 + r, NI - 1);
         float val = 0.f;
         if (dd < C)
             val = load_run<T>(a.run[Q], b, i, h, dd);
@@ -410,7 +415,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
                                   &full[s]);
                 } else {
                     const int r = (job - kv_jobs) % TI, which = (job - kv_jobs) / TI;  // 0 z, 1 bias
-                    const int i = min(i0 + r, N - 1);
+                    const int i = min(i0 + r, NI - 1);
                     const Run& rr = a.run[which ? BIAS : Z];
                     if (which ? bias_bulk : d.bulk_z)
                         bulk_copy(base + (which ? L.bias + r * TJ * H * es : L.z + r * TJ * CZ * es),
@@ -435,7 +440,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
             }
             if (!d.bulk_z || !bias_bulk) {
                 for (int row = 0; row < TI * TJ; ++row) {
-                    const int jj = row % TJ, i = min(i0 + row / TJ, N - 1);
+                    const int jj = row % TJ, i = min(i0 + row / TJ, NI - 1);
                     if (jj >= n_keys) continue;
                     if (!d.bulk_z)
                         for (int slot = lane; slot < d.z_slots; slot += 32)
@@ -611,7 +616,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
                 if (r < TI) l_s[r * HB + od_h[m]] = acc_o[m][r];
     consumers_sync();
 
-    const size_t bN = (size_t)b * N;
+    const size_t bN = (size_t)b * NI;  // the outputs' rows of sample b
 #pragma unroll
     for (int m = 0; m < ITEMS; ++m) {
         if (od_on[m] && od_d[m] < DV) {
@@ -619,7 +624,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
 #pragma unroll
             for (int r = 0; r < TI_MAX; ++r) {
                 const int i = i0 + r;
-                if (r >= TI || i >= N) continue;
+                if (r >= TI || i >= NI) continue;
                 const T val = Cvt<T>::from_f(acc_o[m][r] / fmaxf(l_s[r * HB + h], 1e-20f));
                 const size_t ih = (bN + i) * H + h;
                 if (dd < C)
@@ -634,7 +639,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
         const int u = warp + k * (CONSUMERS / 32);
         if (u >= units) break;
         const int r = u / NTZ, c = (u % NTZ) * 8 + 2 * tq;
-        if (i0 + r >= N) continue;
+        if (i0 + r >= NI) continue;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
             const int h = g + 8 * (e >> 1), cc = c + (e & 1);
@@ -745,7 +750,7 @@ int launch_hb(Args<T> a, Dims d, cudaStream_t stream) {
         if (err != cudaSuccess) return (int)err;
         allowed[dev] = true;
     }
-    const dim3 grid((d.N + ti - 1) / ti, d.B);
+    const dim3 grid((d.NI + ti - 1) / ti, d.B);
     kernel<<<grid, THREADS, smem, stream>>>(a, d);
     return (int)cudaGetLastError();
 }
@@ -776,7 +781,7 @@ int launch(const void* const* ptr, const long long* st, const int* dims, float i
     a.o_pair = static_cast<T*>(const_cast<void*>(ptr[12]));
 
     Dims d{};
-    d.B = B; d.N = N; d.H = H; d.C = C; d.PQ3 = 3 * PQ; d.PV3 = 3 * PV; d.CZ = CZ;
+    d.B = B; d.N = N; d.NI = dims[7]; d.H = H; d.C = C; d.PQ3 = 3 * PQ; d.PV3 = 3 * PV; d.CZ = CZ;
     d.HB = 4 * ((H + 3) / 4);
     // The slot layout: key rows [h][jj] of [k CP][k points QP][v CP][v
     // points VP], runs on 16 bytes, rows an odd number of 16-byte chunks
@@ -827,22 +832,22 @@ int launch(const void* const* ptr, const long long* st, const int* dims, float i
 
 }  // namespace
 
-// ptr: q, k, v [B,N,H,C]; q_pts, k_pts [B,N,H,PQ,3]; v_pts [B,N,H,PV,3];
-// bias [B,N,N,H]; z [B,N,N,CZ] (all of dtype 0 = float32 or 1 =
-// bfloat16); head_weights [H] (softplus applied) of hw_dtype and mask
-// [B,N] of mask_dtype (0 float32, 1 bfloat16, 2 int32, 3 int64, 4 bool /
-// uint8); then the outputs o [B,N,H,C], o_pt [B,N,H,PV,3], o_pair
-// [B,N,H,CZ], contiguous, of the activation dtype.
+// ptr: q [B,NI,H,C], k, v [B,N,H,C]; q_pts [B,NI,H,PQ,3], k_pts
+// [B,N,H,PQ,3]; v_pts [B,N,H,PV,3]; bias [B,NI,N,H]; z [B,NI,N,CZ] (all of
+// dtype 0 = float32 or 1 = bfloat16); head_weights [H] (softplus applied)
+// of hw_dtype and mask [B,N] of mask_dtype (0 float32, 1 bfloat16, 2
+// int32, 3 int64, 4 bool / uint8); then the outputs o [B,NI,H,C], o_pt
+// [B,NI,H,PV,3], o_pair [B,NI,H,CZ], contiguous, of the activation dtype.
 // strides: element strides, four a tensor for the first eight (q, k, v:
 // batch, row, head, channel; points: batch, row, head, coordinate, the 3 P
 // values of a head one run of that stride; bias: batch, i, j, head; z:
 // batch, i, j, channel), then the mask's batch and row strides.
-// dims: B, N, H, C, PQ, PV, CZ. Returns the cudaError_t of the launch (0 on
-// success).
+// dims: B, N, H, C, PQ, PV, CZ, NI. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int ipa_attention(const void* const* ptr, const long long* strides, const int* dims, float inf,
                              float s_pt, int dtype, int mask_dtype, int hw_dtype, void* stream) {
     const int B = dims[0], N = dims[1], H = dims[2], C = dims[3], PQ = dims[4], PV = dims[5], CZ = dims[6];
-    if (B < 1 || B > 65535 || N < 1 || H < 1 || H > MAX_HEADS || C < 1 || PQ < 1 || PV < 1 || CZ < 1
+    if (B < 1 || B > 65535 || N < 1 || dims[7] < 1 || H < 1 || H > MAX_HEADS || C < 1 || PQ < 1 || PV < 1 || CZ < 1
         || (CZ + 7) / 8 > UNITS * (CONSUMERS / 32) || H * (C + 3 * PV + 1) > ITEMS * CONSUMERS || mask_dtype < 0
         || mask_dtype > 4
         || hw_dtype < 0 || hw_dtype > 1)

@@ -7,6 +7,10 @@
 //            + inf (mask[b,i,k] - 1)
 //   o[b,i,j,h,:] = sum_k softmax_k(s)[k] v[b,i,k,h,:]
 //
+// with JQ query positions j and JK keys k a row: JQ = JK = J, but for the
+// ending node under sequence parallelism, whose queries are this rank's
+// JQ = J / n_seq residues against all JK = J keys.
+//
 // Replaces genie2_tpu/ops/tri_att_flash.py:126 flash_tri_attention (Pallas
 // body _flash_kernel, :75). What is kept: float32 logits, softmax statistics
 // and accumulator whatever the activation type, the running max starting
@@ -51,9 +55,9 @@
 // each scheme). A key past J has probability zero and takes no part in the
 // maximum; a key masked by `mask` keeps its logit s - inf as the reference
 // does, so a row whose keys are all masked attends uniformly over all J
-// keys. Any J and any c <= 64: c is padded with zeros to 16, 32 or 64;
+// keys. Any JQ, JK and c <= 64: c is padded with zeros to 16, 32 or 64;
 // where a row of q, k, v or tb is not a multiple of 16 bytes it is staged
-// element by element with plain loads; queries past J store nothing.
+// element by element with plain loads; queries past JQ store nothing.
 
 #include <stdint.h>
 
@@ -109,7 +113,8 @@ __device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
 }
 
 // Positions row0 .. row0 + ROWS of one head of q, k or v (rows at stride hc
-// from src) into dst[ROWS][LD], channels below c; rows past J are zero.
+// from src, J of them) into dst[ROWS][LD], channels below c; rows past J
+// are zero.
 // mode 2: 16-byte cp.async copies with c == CP; 1: 16-byte copies (c * size
 // a multiple of 16, src aligned); 0: plain loads.
 template <typename T, int LD, int ROWS, int CP>
@@ -140,39 +145,43 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int J
     }
 }
 
-// The triangle bias tb[q0 .. q0 + TQ, key0 .. key0 + TK] of one (b, h) into
-// dst[TQ][LDT], zero past J. vec: 16-byte copies (J * size a multiple of
-// 16, tb aligned); else plain loads.
+// The triangle bias tb[q0 .. q0 + TQ, key0 .. key0 + TK] of one (b, h),
+// [JQ][JK], into dst[TQ][LDT], zero past its edges. vec: 16-byte copies
+// (JK * size a multiple of 16, tb aligned); else plain loads.
 template <typename T, int LDT>
-__device__ __forceinline__ void stage_bias(T* dst, const T* tb_bh, int q0, int key0, int J, bool vec) {
+__device__ __forceinline__ void stage_bias(T* dst, const T* tb_bh, int q0, int key0, int JQ, int JK, bool vec) {
     if (vec) {
         constexpr int V = 16 / (int)sizeof(T), CHUNKS = TK / V;
 #pragma unroll
         for (int e = 0; e < TQ * CHUNKS / THREADS; ++e) {
             const int idx = threadIdx.x + e * THREADS;
             const int r = idx / CHUNKS, col = (idx % CHUNKS) * V;
-            const bool ok = q0 + r < J && key0 + col < J;
-            tc::cp_async16(dst + r * LDT + col, ok ? tb_bh + (size_t)(q0 + r) * J + key0 + col : tb_bh, ok ? 16 : 0);
+            const bool ok = q0 + r < JQ && key0 + col < JK;
+            tc::cp_async16(dst + r * LDT + col, ok ? tb_bh + (size_t)(q0 + r) * JK + key0 + col : tb_bh, ok ? 16 : 0);
         }
     } else {
         for (int idx = threadIdx.x; idx < TQ * TK; idx += THREADS) {
             const int r = idx / TK, col = idx % TK;
-            const bool ok = q0 + r < J && key0 + col < J;
-            dst[r * LDT + col] = ok ? tb_bh[(size_t)(q0 + r) * J + key0 + col] : Cvt<T>::from_f(0.f);
+            const bool ok = q0 + r < JQ && key0 + col < JK;
+            dst[r * LDT + col] = ok ? tb_bh[(size_t)(q0 + r) * JK + key0 + col] : Cvt<T>::from_f(0.f);
         }
     }
 }
 
 // CP: the head width padded to the k step, 16, 32 or 64; c <= CP the real one.
+// SQUARE: JQ = JK, the queries are the keys (one head offset for q, k and
+// v, as on one card); the ending node's row block under sequence
+// parallelism takes the general case.
 // A unit is one (b, i, h) and TQ queries; U units in all, ordered (b, h,
 // query tile, i) with i fastest, and each block takes a contiguous run of
 // them: the blocks at work at one time read the bias tiles of few (b, h)
 // and the k and v rows of few (b, i), while L2 holds them.
-template <typename T, int CP>
+template <typename T, int CP, bool SQUARE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
 tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ tb, const float* __restrict__ mask, T* __restrict__ out,
-               int I, int J, int H, int c, int U, float scale, float inf, int mode, int vec_tb) {
+               int I, int JQ_, int JK, int H, int c, int U, float scale, float inf, int mode, int vec_tb) {
+    const int JQ = SQUARE ? JK : JQ_;
     using L = Layout<T, CP>;
     using M = tc::Mma<T>;
     constexpr bool F32 = sizeof(T) == 4;
@@ -181,8 +190,8 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     constexpr int CT = CP / 8;   // n8 tiles of o
     extern __shared__ __align__(16) unsigned char smem_raw[];
 
-    const int QT = (J + TQ - 1) / TQ;
-    const int KT = (J + TK - 1) / TK;
+    const int QT = (JQ + TQ - 1) / TQ;
+    const int KT = (JK + TK - 1) / TK;
     const int u0 = (int)((long long)blockIdx.x * U / gridDim.x);
     const int steps = ((int)((long long)(blockIdx.x + 1) * U / gridDim.x) - u0) * KT;  // (unit u0 + n, key tile kt): step n KT + kt
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -190,10 +199,10 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int wr = warp * 16;  // the warp's first row in the unit's queries
     const size_t hc = (size_t)H * c;
 
-    // Where the block's unit n starts: q, k, v at (b, i, 0, h, 0), tb at (b,
-    // h), the mask at (b, i); its first query.
+    // Where the block's unit n starts: q (and o) and k, v at (b, i, 0, h,
+    // 0), tb at (b, h), the mask at (b, i); its first query.
     struct Unit {
-        size_t head;
+        size_t head, khead;
         const T* tb_bh;
         const float* mrow;
         int q0;
@@ -201,8 +210,9 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     auto unit = [&](int n) {
         const int u = u0 + n, group = u / I, i = u - group * I;
         const int bh = group / QT, h = bh % H, b = bh / H, bi = b * I + i;
-        return Unit{(size_t)bi * J * hc + (size_t)h * c, tb + ((size_t)b * H + h) * J * J, mask + (size_t)bi * J,
-                    (group - bh * QT) * TQ};
+        const size_t head = (size_t)bi * JQ * hc + (size_t)h * c;
+        return Unit{head, SQUARE ? head : (size_t)bi * JK * hc + (size_t)h * c,
+                    tb + ((size_t)b * H + h) * JQ * JK, mask + (size_t)bi * JK, (group - bh * QT) * TQ};
     };
 
     // Channels c .. CP of every q, k and v tile are zero for good; the
@@ -222,12 +232,12 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         const Unit un = unit(n);
         unsigned char* base = smem_raw + s * L::STAGE;
         T* qs = reinterpret_cast<T*>(base);
-        if (kt == 0) stage_rows<T, L::LD, TQ, CP>(qs, q + un.head, un.q0, J, c, hc, mode);
-        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE, k + un.head, key0, J, c, hc, mode);
-        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE + L::TILE, v + un.head, key0, J, c, hc, mode);
-        stage_bias<T, L::LDT>(reinterpret_cast<T*>(base + L::TB), un.tb_bh, un.q0, key0, J, vec_tb);
+        if (kt == 0) stage_rows<T, L::LD, TQ, CP>(qs, q + un.head, un.q0, JQ, c, hc, mode);
+        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE, k + un.khead, key0, JK, c, hc, mode);
+        stage_rows<T, L::LD, TK, CP>(qs + L::QTILE + L::TILE, v + un.khead, key0, JK, c, hc, mode);
+        stage_bias<T, L::LDT>(reinterpret_cast<T*>(base + L::TB), un.tb_bh, un.q0, key0, JQ, JK, vec_tb);
         if (threadIdx.x < TK) {
-            const bool ok = key0 + (int)threadIdx.x < J;
+            const bool ok = key0 + (int)threadIdx.x < JK;
             tc::cp_async4(reinterpret_cast<float*>(base + L::MASK) + threadIdx.x,
                           ok ? un.mrow + key0 + threadIdx.x : un.mrow, ok ? 4 : 0);
         }
@@ -279,15 +289,15 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         }
 
         // The logits in the reference's order (q.k / sqrt(c) + tb + inf (mask
-        // - 1); -1e30 past J), then the online softmax over the quad that
+        // - 1); -1e30 past JK), then the online softmax over the quad that
         // holds each row.
         float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
             const int col = 8 * n + 2 * t;
             const float2 b0 = pair_f(tbs + col), b1 = pair_f(tbs + 8 * L::LDT + col), mk = pair_f(ms + col);
-            const float mb0 = key0 + col < J ? inf * (mk.x - 1.f) : NEG_INF;
-            const float mb1 = key0 + col + 1 < J ? inf * (mk.y - 1.f) : NEG_INF;
+            const float mb0 = key0 + col < JK ? inf * (mk.x - 1.f) : NEG_INF;
+            const float mb1 = key0 + col + 1 < JK ? inf * (mk.y - 1.f) : NEG_INF;
             s[n][0] = (s[n][0] * scale + b0.x) + mb0;
             s[n][1] = (s[n][1] * scale + b0.y) + mb1;
             s[n][2] = (s[n][2] * scale + b1.x) + mb0;
@@ -368,7 +378,7 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const int row = un.q0 + wr + g + 8 * half;
-            if (row >= J) continue;
+            if (row >= JQ) continue;
             T* po = out + un.head + (size_t)row * hc;
 #pragma unroll
             for (int nn = 0; nn < CT; ++nn) {
@@ -388,14 +398,14 @@ tri_att_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     tc::cp_async_wait<0>();
 }
 
-template <typename T, int CP>
-int launch_c(const T* q, const T* k, const T* v, const T* tb, const float* mask, T* out, int B, int I, int J,
-             int H, int c, float scale, float inf, cudaStream_t stream) {
+template <typename T, int CP, bool SQUARE>
+int launch_c(const T* q, const T* k, const T* v, const T* tb, const float* mask, T* out, int B, int I, int JQ,
+             int JK, int H, int c, float scale, float inf, cudaStream_t stream) {
     // The shared-memory allowance and the blocks an SM holds, set and asked
     // once per device: host calls the main path would otherwise pay at every
     // launch.
     static int blocks[MAX_DEVICES];
-    auto kernel = tri_att_kernel<T, CP>;
+    auto kernel = tri_att_kernel<T, CP, SQUARE>;
     const size_t smem = Layout<T, CP>::SMEM;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -410,42 +420,47 @@ int launch_c(const T* q, const T* k, const T* v, const T* tb, const float* mask,
             return (int)err;
         blocks[dev] = sms * (per_sm > 0 ? per_sm : 1);
     }
-    const long long units = (long long)B * I * H * ((J + TQ - 1) / TQ);
-    if (units * ((J + TK - 1) / TK) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const long long units = (long long)B * I * H * ((JQ + TQ - 1) / TQ);
+    if (units * ((JK + TK - 1) / TK) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const int grid = (int)(units < blocks[dev] ? units : blocks[dev]);
     const bool vec = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0 && (c * sizeof(T)) % 16 == 0;
     const int mode = vec ? (c == CP ? 2 : 1) : 0;
-    const bool vec_tb = (uintptr_t)tb % 16 == 0 && (J * sizeof(T)) % 16 == 0;
-    kernel<<<grid, THREADS, smem, stream>>>(q, k, v, tb, mask, out, I, J, H, c, (int)units, scale, inf, mode,
+    const bool vec_tb = (uintptr_t)tb % 16 == 0 && (JK * sizeof(T)) % 16 == 0;
+    kernel<<<grid, THREADS, smem, stream>>>(q, k, v, tb, mask, out, I, JQ, JK, H, c, (int)units, scale, inf, mode,
                                             (int)vec_tb);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* tb, const void* mask, void* out, int B, int I,
-           int J, int H, int c, float scale, float inf, cudaStream_t stream) {
+           int JQ, int JK, int H, int c, float scale, float inf, cudaStream_t stream) {
     const T* pq = static_cast<const T*>(q);
     const T* pk = static_cast<const T*>(k);
     const T* pv = static_cast<const T*>(v);
     const T* pt = static_cast<const T*>(tb);
     const float* pm = static_cast<const float*>(mask);
     T* po = static_cast<T*>(out);
-    if (c <= 16) return launch_c<T, 16>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
-    if (c <= 32) return launch_c<T, 32>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
-    return launch_c<T, 64>(pq, pk, pv, pt, pm, po, B, I, J, H, c, scale, inf, stream);
+    if (JQ == JK) {
+        if (c <= 16) return launch_c<T, 16, true>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
+        if (c <= 32) return launch_c<T, 32, true>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
+        return launch_c<T, 64, true>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
+    }
+    if (c <= 16) return launch_c<T, 16, false>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
+    if (c <= 32) return launch_c<T, 32, false>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
+    return launch_c<T, 64, false>(pq, pk, pv, pt, pm, po, B, I, JQ, JK, H, c, scale, inf, stream);
 }
 
 }  // namespace
 
-// q, k, v, out: [B, I, J, H, c]; tb: [B, H, J, J], all of dtype 0 = float32
-// or 1 = bfloat16; mask: [B, I, J] float32. c <= 64.
+// q, out: [B, I, JQ, H, c]; k, v: [B, I, JK, H, c]; tb: [B, H, JQ, JK], all
+// of dtype 0 = float32 or 1 = bfloat16; mask: [B, I, JK] float32. c <= 64.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int tri_att_flash(const void* q, const void* k, const void* v, const void* tb, const void* mask,
-                             void* out, int B, int I, int J, int H, int c, float scale, float inf, int dtype,
+                             void* out, int B, int I, int JQ, int JK, int H, int c, float scale, float inf, int dtype,
                              void* stream) {
-    if (B < 1 || I < 1 || J < 1 || H < 1 || c < 1 || c > 64) return (int)cudaErrorInvalidValue;
+    if (B < 1 || I < 1 || JQ < 1 || JK < 1 || H < 1 || c < 1 || c > 64) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(q, k, v, tb, mask, out, B, I, J, H, c, scale, inf, st);
-    if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, tb, mask, out, B, I, J, H, c, scale, inf, st);
+    if (dtype == 0) return launch<float>(q, k, v, tb, mask, out, B, I, JQ, JK, H, c, scale, inf, st);
+    if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, tb, mask, out, B, I, JQ, JK, H, c, scale, inf, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,9 @@
 //   variant 0  unit k stride in both operands (channel-major copies):
 //              genie2_tpu/ops/triangle.py:61 _triangle_multiply_cm (:75);
 //   variant 1  A k-contiguous, B row-contiguous (B stored k-major):
-//              genie2_tpu/ops/trimul_fused.py:204 contract_cm_fullk_km (:213);
+//              genie2_tpu/ops/trimul_fused.py:204 contract_cm_fullk_km (:213),
+//              for any I, J, K (the TriMul contraction's backward on a row
+//              block of sequence parallelism);
 //   variant 2  unit channel stride (the model layout [B,N,N,C], read and
 //              written in place, no transposed copy in device memory):
 //              genie2_tpu/ops/triangle.py:98 _triangle_multiply_nlayout (:144).
@@ -350,10 +352,10 @@ int launch_chan(const void* a, const void* b, void* out, int B, int C, int N, St
 
 // Variants 0 and 1: A [row][k] (unit k stride), B [row][k] or [k][row].
 template <typename T>
-int launch_tile(const void* a, const void* b, void* out, int B, int C, int N, Strides sa, Strides sb,
+int launch_tile(const void* a, const void* b, void* out, int B, int C, int I, int J, int K, Strides sa, Strides sb,
                 Strides so, int variant, cudaStream_t stream) {
     if ((long long)B * C > 65535) return (int)cudaErrorInvalidValue;
-    ctile::Params<T> p{static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), N, C,
+    ctile::Params<T> p{static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), I, J, K, C,
                        sa.b, sa.c, sa.r, sb.b, sb.c, variant == 0 ? sb.r : sb.k, so.b, so.c, so.r, so.k, 0};
     p.vec = ctile::vec_ok(p);
     return variant == 0 ? ctile::launch<T, true, true>(p, B * C, stream)
@@ -361,31 +363,36 @@ int launch_tile(const void* a, const void* b, void* out, int B, int C, int N, St
 }
 
 template <typename T>
-int launch(const void* a, const void* b, void* out, int B, int C, int N, Strides sa, Strides sb, Strides so,
-           int variant, cudaStream_t stream) {
-    if (variant == 2) return launch_chan<T>(a, b, out, B, C, N, sa, sb, so, stream);
+int launch(const void* a, const void* b, void* out, int B, int C, int I, int J, int K, Strides sa, Strides sb,
+           Strides so, int variant, cudaStream_t stream) {
+    if (variant == 2) {
+        if (I != J || J != K) return (int)cudaErrorInvalidValue;  // square planes only
+        return launch_chan<T>(a, b, out, B, C, I, sa, sb, so, stream);
+    }
     // The tile kernel reads a unit k stride in A (and in B for variant 0,
-    // a unit row stride for variant 1); at N = 1 no stride is read.
-    if (N > 1 && (sa.k != 1 || (variant == 0 ? sb.k : sb.r) != 1)) return (int)cudaErrorInvalidValue;
-    return launch_tile<T>(a, b, out, B, C, N, sa, sb, so, variant, stream);
+    // a unit row stride for variant 1); along an axis of 1 no stride is read.
+    if ((K > 1 && sa.k != 1) || (variant == 0 ? K > 1 && sb.k != 1 : J > 1 && sb.r != 1))
+        return (int)cudaErrorInvalidValue;
+    return launch_tile<T>(a, b, out, B, C, I, J, K, sa, sb, so, variant, stream);
 }
 
 }  // namespace
 
 // a, b, out: dtype 0 = float32 or 1 = bfloat16, addressed by the element
 // strides s*_b (batch), s*_c (channel), s*_r (row: i of a, j of b, i of
-// out) and s*_k (k of a and b, j of out). Variants 0 and 1 need a unit k
-// stride in a, and in b a unit k (0) or row (1) stride. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int triangle_contract(const void* a, const void* b, void* out, int B, int C, int N,
+// out) and s*_k (k of a and b, j of out); i < I, j < J, k < K (variant 2:
+// I = J = K). Variants 0 and 1 need a unit k stride in a, and in b a unit k
+// (0) or row (1) stride. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int triangle_contract(const void* a, const void* b, void* out, int B, int C, int I, int J, int K,
                                  long long sa_b, long long sa_c, long long sa_r, long long sa_k,
                                  long long sb_b, long long sb_c, long long sb_r, long long sb_k,
                                  long long so_b, long long so_c, long long so_r, long long so_k,
                                  int variant, int dtype, void* stream) {
-    if (B < 1 || C < 1 || N < 1 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+    if (B < 1 || C < 1 || I < 1 || J < 1 || K < 1 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
     const Strides sa{sa_b, sa_c, sa_r, sa_k}, sb{sb_b, sb_c, sb_r, sb_k}, so{so_b, so_c, so_r, so_k};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(a, b, out, B, C, N, sa, sb, so, variant, s);
-    if (dtype == 1) return launch<__nv_bfloat16>(a, b, out, B, C, N, sa, sb, so, variant, s);
+    if (dtype == 0) return launch<float>(a, b, out, B, C, I, J, K, sa, sb, so, variant, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(a, b, out, B, C, I, J, K, sa, sb, so, variant, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,9 @@
 // cores.
 //
 // Replaces genie2_tpu/ops/trimul_fused.py:263 epilogue_cm (Pallas kernel
-// _epilogue_kernel, :228). For x [B,H,N,N] channel-major and z [B,N,N,C]:
+// _epilogue_kernel, :228). For x [B,H,I,N] channel-major and z [B,I,N,C]
+// (I rows of the pair representation: I = N, or a row block of sequence
+// parallelism; every mode acts per position (b, i, j)):
 //   mu, var = mean and variance of x[b,:,i,j] over H (float32)
 //   r = rsqrt(var + 1e-6)
 //   lin[d] = r * (x . ws)[d] - r * mu * u[d] + vb[d]
@@ -52,10 +54,10 @@
 // hidden channels of x split over the ranks of a model group (tensor
 // parallelism, parallel/tensor_parallel.py): each rank holds H_r of the H
 // channels and its columns of W_z.
-//   partial (trimul_epilogue_partial): x [B,H_r,N,N] alone. The consumers'
+//   partial (trimul_epilogue_partial): x [B,H_r,I,N] alone. The consumers'
 //     x . ws product over this rank's channels and the producers' column
 //     sums sum_h x and sum_h x^2 are written in float32 to one buffer,
-//     part [B,N,N,D+2] (x . ws in channels 0..D-1, the sums in D and D+1),
+//     part [B,I,N,D+2] (x . ws in channels 0..D-1, the sums in D and D+1),
 //     followed by the weight sums [2, D] of this rank's channels, sum_h ws
 //     and W_z . bias_out, which block 0 writes as it stages the weights;
 //     no z, no LN_in, no gate, no bias.
@@ -193,7 +195,7 @@ __device__ void load_weights(const Params& p, int d0, int DC, int D, int H, int 
 template <typename T, int DC, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p, T* __restrict__ out,
-                float* __restrict__ part, int B, int N, int C, int H, int Hn, int D, int vec_x, int vec_z,
+                float* __restrict__ part, int B, int I, int N, int C, int H, int Hn, int D, int vec_x, int vec_z,
                 int vec_out) {
     using M = tc::Mma<T>;
     constexpr int K = M::KSTEP;
@@ -216,7 +218,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int JT = (N + TJ - 1) / TJ;
-    const int tiles = B * N * JT;
+    const int tiles = B * I * JT;
     const int G = gridDim.x;
     const int mine = (tiles - (int)blockIdx.x + G - 1) / G;  // this block's tiles: blockIdx.x + k G
     const bool resident = D <= DC;
@@ -243,10 +245,10 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
             if (k >= STAGES) bar_sync(BAR_FREE + s, THREADS);
             T* xs = stages + s * pl.stage_elems();
             T* zs = xs + Hp * LDJ;
-            const int bb = tile / (N * JT), rem = tile % (N * JT), i = rem / JT, j0 = (rem % JT) * TJ;
-            const size_t plane = (size_t)N * N;
+            const int bb = tile / (I * JT), rem = tile % (I * JT), i = rem / JT, j0 = (rem % JT) * TJ;
+            const size_t plane = (size_t)I * N;
             const T* xt = x + (size_t)bb * H * plane + (size_t)i * N + j0;  // + h * plane + j
-            const T* zt = z + (((size_t)bb * N + i) * N + j0) * C;         // + r * C + c
+            const T* zt = z + (((size_t)bb * I + i) * N + j0) * C;         // + r * C + c
             if constexpr (MODE != FINISH) {
                 if (vec_x) {
                     for (int idx = pt; idx < Hp * (TJ / V); idx += PRODUCERS) {
@@ -327,7 +329,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
             bar_sync(BAR_PRODUCERS, PRODUCERS);
             if (pw == 0) {  // row j = lane: r and r * mu (the partial mode: the sums)
                 const bool in = j0 + lane < N;
-                float* sums = part + ((((size_t)bb * N + i) * N + j0 + lane) * (D + 2) + D);
+                float* sums = part + ((((size_t)bb * I + i) * N + j0 + lane) * (D + 2) + D);
                 float s1 = 0.f, s2 = 0.f;
                 if constexpr (MODE == FINISH) {
                     if (in) {
@@ -362,7 +364,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
     const int wm = (warp & 1) * 16, wn = (warp >> 1) * NT * 8;
     for (int k = 0; k < mine; ++k) {
         const int s = k % STAGES, tile = blockIdx.x + k * G;
-        const int bb = tile / (N * JT), rem = tile % (N * JT), i = rem / JT, j0 = (rem % JT) * TJ;
+        const int bb = tile / (I * JT), rem = tile % (I * JT), i = rem / JT, j0 = (rem % JT) * TJ;
         const T* xs = stages + s * pl.stage_elems();
         const T* zs = xs + Hp * LDJ;
         bar_sync(BAR_READY + s, THREADS);
@@ -426,7 +428,7 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
                 for (int half = 0; half < 2; ++half) {
                     const int row = wm + g + 8 * half;
                     if (j0 + row >= N) continue;
-                    const size_t pos = ((size_t)bb * N + i) * N + j0 + row;
+                    const size_t pos = ((size_t)bb * I + i) * N + j0 + row;
                     if constexpr (MODE == PARTIAL) {  // the raw partial product, float32
                         float* pp = part + pos * (D + 2) + d;
                         if (vec_out) {  // D even: the pair is whole and 8-byte aligned
@@ -462,8 +464,8 @@ epilogue_kernel(const T* __restrict__ x, const T* __restrict__ z, const Params p
 }
 
 template <typename T, int DC, int MODE>
-int launch_dc(const T* x, const T* z, const Params& p, T* out, float* part, int B, int N, int C, int H, int Hn,
-              int D, bool vec_x, bool vec_z, bool vec_out, cudaStream_t stream) {
+int launch_dc(const T* x, const T* z, const Params& p, T* out, float* part, int B, int I, int N, int C, int H,
+              int Hn, int D, bool vec_x, bool vec_z, bool vec_out, cudaStream_t stream) {
     // The shared-memory allowance and the blocks an SM holds, set and asked
     // once per device and size: both are host calls the main path would
     // otherwise pay at every launch.
@@ -485,17 +487,17 @@ int launch_dc(const T* x, const T* z, const Params& p, T* out, float* part, int 
         blocks[dev] = sms * (per_sm > 0 ? per_sm : 1);
         smem_set[dev] = smem;
     }
-    const long long tiles = (long long)B * N * ((N + TJ - 1) / TJ);
+    const long long tiles = (long long)B * I * ((N + TJ - 1) / TJ);
     const int grid = (int)(tiles < blocks[dev] ? tiles : blocks[dev]);
-    epilogue_kernel<T, DC, MODE><<<grid, THREADS, smem, stream>>>(x, z, p, out, part, B, N, C, H, Hn, D, (int)vec_x,
-                                                                  (int)vec_z, (int)vec_out);
+    epilogue_kernel<T, DC, MODE><<<grid, THREADS, smem, stream>>>(x, z, p, out, part, B, I, N, C, H, Hn, D,
+                                                                  (int)vec_x, (int)vec_z, (int)vec_out);
     return (int)cudaGetLastError();
 }
 
 // C and H: the widths staged (0 for the tile the mode does not read).
 template <typename T, int MODE>
-int launch(const void* x, const void* z, const Params& p, void* out, float* part, int B, int N, int C, int H,
-           int Hn, int D, cudaStream_t stream) {
+int launch(const void* x, const void* z, const Params& p, void* out, float* part, int B, int I, int N, int C,
+           int H, int Hn, int D, cudaStream_t stream) {
     // The output chunk: all D channels where they fit (the weights then stay
     // for every tile), else the widest of 128, 64 and 32 channels that does.
     int dc = 0;
@@ -504,28 +506,31 @@ int launch(const void* x, const void* z, const Params& p, void* out, float* part
         dc = c;
         if (c >= D) break;
     }
-    if (dc == 0 || (long long)B * N * ((N + TJ - 1) / TJ) > INT_MAX) return (int)cudaErrorInvalidValue;
+    if (dc == 0 || (long long)B * I * ((N + TJ - 1) / TJ) > INT_MAX) return (int)cudaErrorInvalidValue;
     const bool vec_x = (uintptr_t)x % 16 == 0 && (N * sizeof(T)) % 16 == 0;
     const bool vec_z = (uintptr_t)z % 16 == 0 && (C * sizeof(T)) % 16 == 0;
     const bool vec_out = D % 2 == 0 && (MODE == PARTIAL ? (uintptr_t)part % 8 == 0 : (uintptr_t)out % 16 == 0);
     const T* px = static_cast<const T*>(x);
     const T* pz = static_cast<const T*>(z);
     T* po = static_cast<T*>(out);
-    if (dc == 32) return launch_dc<T, 32, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
-    if (dc == 64) return launch_dc<T, 64, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
-    return launch_dc<T, 128, MODE>(px, pz, p, po, part, B, N, C, H, Hn, D, vec_x, vec_z, vec_out, stream);
+    if (dc == 32) return launch_dc<T, 32, MODE>(px, pz, p, po, part, B, I, N, C, H, Hn, D, vec_x, vec_z, vec_out,
+                                                   stream);
+    if (dc == 64) return launch_dc<T, 64, MODE>(px, pz, p, po, part, B, I, N, C, H, Hn, D, vec_x, vec_z, vec_out,
+                                                   stream);
+    return launch_dc<T, 128, MODE>(px, pz, p, po, part, B, I, N, C, H, Hn, D, vec_x, vec_z, vec_out,
+                                                   stream);
 }
 
 }  // namespace
 
-// x [B,H,N,N], z [B,N,N,C] and out [B,N,N,D] of dtype 0 = float32 or 1 =
+// x [B,H,I,N], z [B,I,N,C] and out [B,I,N,D] of dtype 0 = float32 or 1 =
 // bfloat16; the eight parameters are float32 (see Params).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int trimul_epilogue(const void* x, const void* z, const void* ln_in_scale, const void* ln_in_bias,
                                const void* w_z, const void* ln_out_scale, const void* ln_out_bias,
-                               const void* b_z, const void* w_g, const void* b_g, void* out, int B, int N,
-                               int C, int H, int D, int dtype, void* stream) {
-    if (B < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || H > MAX_CHANNELS || D < 1)
+                               const void* b_z, const void* w_g, const void* b_g, void* out, int B, int I,
+                               int N, int C, int H, int D, int dtype, void* stream) {
+    if (B < 1 || I < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || H > MAX_CHANNELS || D < 1)
         return (int)cudaErrorInvalidValue;
     const Params p{static_cast<const float*>(ln_in_scale), static_cast<const float*>(ln_in_bias),
                    static_cast<const float*>(w_z),         static_cast<const float*>(ln_out_scale),
@@ -534,44 +539,44 @@ extern "C" int trimul_epilogue(const void* x, const void* z, const void* ln_in_s
                    nullptr,                                nullptr,
                    nullptr};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float, FULL>(x, z, p, out, nullptr, B, N, C, H, H, D, s);
-    if (dtype == 1) return launch<__nv_bfloat16, FULL>(x, z, p, out, nullptr, B, N, C, H, H, D, s);
+    if (dtype == 0) return launch<float, FULL>(x, z, p, out, nullptr, B, I, N, C, H, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, FULL>(x, z, p, out, nullptr, B, I, N, C, H, H, D, s);
     return (int)cudaErrorInvalidValue;
 }
 
-// The partial mode: x [B,H,N,N] (this rank's H channels, dtype as above),
+// The partial mode: x [B,H,I,N] (this rank's H channels, dtype as above),
 // W_z [D, H] (its columns) and the LN_out scale and bias [H] (its
-// channels), float32 -> part, float32: [B,N,N,D+2] then [2, D].
+// channels), float32 -> part, float32: [B,I,N,D+2] then [2, D].
 extern "C" int trimul_epilogue_partial(const void* x, const void* w_z, const void* ln_out_scale,
-                                       const void* ln_out_bias, void* part, int B, int N, int H, int D, int dtype,
-                                       void* stream) {
-    if (B < 1 || N < 1 || H < 1 || H > MAX_CHANNELS || D < 1) return (int)cudaErrorInvalidValue;
+                                       const void* ln_out_bias, void* part, int B, int I, int N, int H, int D,
+                                       int dtype, void* stream) {
+    if (B < 1 || I < 1 || N < 1 || H < 1 || H > MAX_CHANNELS || D < 1) return (int)cudaErrorInvalidValue;
     float* pp = static_cast<float*>(part);
     const Params p{nullptr, nullptr, static_cast<const float*>(w_z), static_cast<const float*>(ln_out_scale),
                    static_cast<const float*>(ln_out_bias), nullptr, nullptr, nullptr, nullptr, nullptr,
-                   pp + (size_t)B * N * N * (D + 2)};
+                   pp + (size_t)B * I * N * (D + 2)};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float, PARTIAL>(x, nullptr, p, nullptr, pp, B, N, 0, H, H, D, s);
-    if (dtype == 1) return launch<__nv_bfloat16, PARTIAL>(x, nullptr, p, nullptr, pp, B, N, 0, H, H, D, s);
+    if (dtype == 0) return launch<float, PARTIAL>(x, nullptr, p, nullptr, pp, B, I, N, 0, H, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, PARTIAL>(x, nullptr, p, nullptr, pp, B, I, N, 0, H, H, D, s);
     return (int)cudaErrorInvalidValue;
 }
 
-// The finish mode: part [B,N,N,D+2] float32 summed over the ranks, z
-// [B,N,N,C] and out [B,N,N,D] of dtype as above; H the channel count of all
+// The finish mode: part [B,I,N,D+2] float32 summed over the ranks, z
+// [B,I,N,C] and out [B,I,N,D] of dtype as above; H the channel count of all
 // ranks; LN_in scale and bias [C], u and vb [D] (sum_h ws and W_z . bias_out
 // over all H, the tail of part), b_z [D], W_g [D, C] and b_g [D], float32.
 extern "C" int trimul_epilogue_finish(const void* part, const void* z, const void* ln_in_scale,
                                       const void* ln_in_bias, const void* u, const void* vb, const void* b_z,
-                                      const void* w_g, const void* b_g, void* out, int B, int N, int C, int H, int D,
-                                      int dtype, void* stream) {
-    if (B < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+                                      const void* w_g, const void* b_g, void* out, int B, int I, int N, int C, int H,
+                                      int D, int dtype, void* stream) {
+    if (B < 1 || I < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
     const Params p{static_cast<const float*>(ln_in_scale), static_cast<const float*>(ln_in_bias), nullptr,
                    nullptr, nullptr, static_cast<const float*>(b_z), static_cast<const float*>(w_g),
                    static_cast<const float*>(b_g), static_cast<const float*>(u), static_cast<const float*>(vb),
                    nullptr};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* pp = const_cast<float*>(static_cast<const float*>(part));
-    if (dtype == 0) return launch<float, FINISH>(nullptr, z, p, out, pp, B, N, C, 0, H, D, s);
-    if (dtype == 1) return launch<__nv_bfloat16, FINISH>(nullptr, z, p, out, pp, B, N, C, 0, H, D, s);
+    if (dtype == 0) return launch<float, FINISH>(nullptr, z, p, out, pp, B, I, N, C, 0, H, D, s);
+    if (dtype == 1) return launch<__nv_bfloat16, FINISH>(nullptr, z, p, out, pp, B, I, N, C, 0, H, D, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -2,11 +2,13 @@
 // multiplicative update, written channel-major, on the tensor cores.
 //
 // Replaces genie2_tpu/ops/trimul_fused.py:113 project_gated_cm (Pallas
-// kernel _project_kernel, :71). For z [B,N,N,C] and res_mask [B,N]:
+// kernel _project_kernel, :71). For z [B,I,N,C] (I rows of the pair
+// representation, I = N but for a row block of sequence parallelism), the
+// rows' mask r [B,I] and the columns' mask m [B,N]:
 //   zn = LN_in(z) (float32 statistics, eps 1e-6), rounded to z's type
-//   a[b,h,i,j] = (zn.W_ap + b_ap)[h] * sigmoid(zn.W_ag + b_ag)[h] * m_i m_j
+//   a[b,h,i,j] = (zn.W_ap + b_ap)[h] * sigmoid(zn.W_ag + b_ag)[h] * r_i m_j
 //   b[b,h,i,j] likewise with W_bp, W_bg
-// stored as [B,H,N,N], so the contraction reads both operands without a
+// stored as [B,H,I,N], so the contraction reads both operands without a
 // transpose of [B,N,N,H]. The parameters come in float32 or bfloat16 (all
 // in one type), the weights in torch's Linear layout ([H, C], k
 // contiguous), and are rounded to the activation type as they are staged.
@@ -31,7 +33,7 @@
 // weights (4 HC rows) resident in shared memory, rounded and reordered once,
 // and walk tiles (b, i, TJ consecutive j). Four producer warps stage each z
 // tile by 16-byte cp.async copies into one of two stages, normalise its
-// rows in place (LN_in) and write m_i m_j, while the consumer warps
+// rows in place (LN_in) and write r_i m_j, while the consumer warps
 // multiply the other stage: each warp 64 channel rows by 32 j, mma.sync
 // m16n8k8 TF32 three times over (3xTF32) for float32, m16n8k16 for bf16;
 // named barriers hand a stage over (READY from producers to consumers, FREE
@@ -160,8 +162,9 @@ __device__ __forceinline__ void stage_weights(const Params& p, T* ws, int ldc, i
 // CQ: values of a z row per producer lane, 4 (C <= 128) or 8.
 template <typename T, int WARPS_M, int WARPS_N, int CQ>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N + PRODUCERS, 1)
-project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, const Params p, T* __restrict__ a_out,
-               T* __restrict__ b_out, int B, int N, int C, int H, int vec_z, int vec_out) {
+project_kernel(const T* __restrict__ z, const float* __restrict__ row_mask, const float* __restrict__ col_mask,
+               const Params p, T* __restrict__ a_out, T* __restrict__ b_out, int B, int I, int N, int C, int H,
+               int vec_z, int vec_out) {
     using M = tc::Mma<T>;
     constexpr int K = M::KSTEP;
     constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
@@ -172,7 +175,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
     const int Cp = pl.cp, ldc = pl.ldc;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* maskj = reinterpret_cast<float*>(smem_raw);                            // [STAGES][TJ] m_i m_j
+    float* maskj = reinterpret_cast<float*>(smem_raw);                            // [STAGES][TJ] r_i m_j
     T* ws = reinterpret_cast<T*>(smem_raw + STAGES * TJ * sizeof(float));         // [4 HC][ldc] weight chunk
     T* stages = ws + 4 * HC * ldc;                                                 // STAGES x [TJ][ldc] z tiles
 
@@ -181,7 +184,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
     const int chunk = blockIdx.x % nchunks, h0 = chunk * HC;
     const int G = gridDim.x / nchunks, slot = blockIdx.x / nchunks;  // blocks of this chunk, and which one
     const int JT = (N + TJ - 1) / TJ;
-    const int tiles = B * N * JT;
+    const int tiles = B * I * JT;
     const int mine = (tiles - slot + G - 1) / G;  // this block's tiles: slot + k G
 
     if (p.bf16)
@@ -192,7 +195,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
 
     if (warp >= CONSUMERS / 32) {
         // Producers: stage tile k in stage k % STAGES once the consumers are
-        // done with it, write m_i m_j of its rows and normalise them in place
+        // done with it, write r_i m_j of its rows and normalise them in place
         // (LN_in, float32 statistics, rounded to T; channels C..Cp become 0).
         const int pt = threadIdx.x - CONSUMERS, pw = warp - CONSUMERS / 32;
         float lns[CQ], lnb[CQ];  // this lane's channels of the LN_in scale and bias, c = lane + 32 q
@@ -207,8 +210,8 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
             const int s = k % STAGES, tile = slot + k * G;
             if (k >= STAGES) bar_sync(BAR_FREE + s, THREADS);
             T* zs = stages + s * TJ * ldc;
-            const int bb = tile / (N * JT), rem = tile - bb * (N * JT), i = rem / JT, j0 = (rem - i * JT) * TJ;
-            const T* zt = z + (((size_t)bb * N + i) * N + j0) * C;  // + r * C + c
+            const int bb = tile / (I * JT), rem = tile - bb * (I * JT), i = rem / JT, j0 = (rem - i * JT) * TJ;
+            const T* zt = z + (((size_t)bb * I + i) * N + j0) * C;  // + r * C + c
             if (vec_z) {
                 const int chunks = C / V;
                 for (int idx = pt; idx < TJ * chunks; idx += PRODUCERS) {
@@ -223,9 +226,9 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
                 }
             }
             tc::cp_async_commit();
-            const float mi = res_mask[(size_t)bb * N + i];
+            const float mi = row_mask[(size_t)bb * I + i];
             for (int r = pt; r < TJ; r += PRODUCERS)
-                maskj[s * TJ + r] = j0 + r < N ? mi * res_mask[(size_t)bb * N + j0 + r] : 0.f;
+                maskj[s * TJ + r] = j0 + r < N ? mi * col_mask[(size_t)bb * N + j0 + r] : 0.f;
             tc::cp_async_wait<0>();
             bar_sync(BAR_PRODUCERS, PRODUCERS);  // the tile has landed
 
@@ -285,7 +288,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
     const tc::Tile<T, true> tw{ws, ldc};
     for (int k = 0; k < mine; ++k) {
         const int s = k % STAGES, tile = slot + k * G;
-        const int bb = tile / (N * JT), rem = tile - bb * (N * JT), i = rem / JT, j0 = (rem - i * JT) * TJ;
+        const int bb = tile / (I * JT), rem = tile - bb * (I * JT), i = rem / JT, j0 = (rem - i * JT) * TJ;
         bar_sync(BAR_READY + s, THREADS);
         const tc::Tile<T, true> tz{stages + s * TJ * ldc, ldc};
 
@@ -310,7 +313,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
             }
         }
 
-        // (projection + bias) * sigmoid(gate + bias) * m_i m_j, stored as pairs along j.
+        // (projection + bias) * sigmoid(gate + bias) * r_i m_j, stored as pairs along j.
         float mk[NT][2];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
@@ -321,7 +324,7 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
             if (hh[m] >= H) continue;
-            T* plane = (outp[m] ? b_out : a_out) + (((size_t)bb * H + hh[m]) * N + i) * N;
+            T* plane = (outp[m] ? b_out : a_out) + (((size_t)bb * H + hh[m]) * I + i) * N;
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
                 const int j = j0 + wn + 8 * n + 2 * t;
@@ -339,8 +342,8 @@ project_kernel(const T* __restrict__ z, const float* __restrict__ res_mask, cons
 }
 
 template <typename T, int WARPS_M, int WARPS_N, int CQ>
-int launch_shape(const T* z, const float* res_mask, const Params& p, T* a_out, T* b_out, int B, int N, int C, int H,
-                 bool vec_z, bool vec_out, cudaStream_t stream) {
+int launch_shape(const T* z, const float* row_mask, const float* col_mask, const Params& p, T* a_out, T* b_out,
+                 int B, int I, int N, int C, int H, bool vec_z, bool vec_out, cudaStream_t stream) {
     constexpr int THREADS = 32 * WARPS_M * WARPS_N + PRODUCERS;
     // The shared-memory allowance and the blocks an SM holds, set and asked
     // once per device and size: both are host calls the main path would
@@ -365,18 +368,18 @@ int launch_shape(const T* z, const float* res_mask, const Params& p, T* a_out, T
     }
     const int HC = 16 * WARPS_M, TJ = 32 * WARPS_N;
     const long long nchunks = (H + HC - 1) / HC;
-    const long long tiles = (long long)B * N * ((N + TJ - 1) / TJ);
+    const long long tiles = (long long)B * I * ((N + TJ - 1) / TJ);
     long long per_chunk = blocks[dev] / nchunks;
     per_chunk = per_chunk < 1 ? 1 : per_chunk > tiles ? tiles : per_chunk;
     if (tiles > INT_MAX || nchunks * per_chunk > INT_MAX) return (int)cudaErrorInvalidValue;
-    kernel<<<(unsigned)(nchunks * per_chunk), THREADS, smem, stream>>>(z, res_mask, p, a_out, b_out, B, N, C, H,
-                                                                       (int)vec_z, (int)vec_out);
+    kernel<<<(unsigned)(nchunks * per_chunk), THREADS, smem, stream>>>(z, row_mask, col_mask, p, a_out, b_out, B, I,
+                                                                       N, C, H, (int)vec_z, (int)vec_out);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* z, const void* res_mask, const Params& p, void* a_out, void* b_out, int B, int N, int C,
-           int H, cudaStream_t stream) {
+int launch(const void* z, const void* row_mask, const void* col_mask, const Params& p, void* a_out, void* b_out,
+           int B, int I, int N, int C, int H, cudaStream_t stream) {
     // The tile shape: of the four that fit in shared memory, the one with the
     // fewest chunks (each reads z and normalises it once more), then the least
     // padding of H, then the most consumer warps.
@@ -398,37 +401,39 @@ int launch(const void* z, const void* res_mask, const Params& p, void* a_out, vo
     const bool vec_z = (uintptr_t)z % 16 == 0 && (C * sizeof(T)) % 16 == 0;
     const bool vec_out = ((uintptr_t)a_out | (uintptr_t)b_out) % (2 * sizeof(T)) == 0 && N % 2 == 0;
     const T* pz = static_cast<const T*>(z);
-    const float* pm = static_cast<const float*>(res_mask);
+    const float* pr = static_cast<const float*>(row_mask);
+    const float* pc = static_cast<const float*>(col_mask);
     T* pa = static_cast<T*>(a_out);
     T* pb = static_cast<T*>(b_out);
     const int shape = 2 * best + (C > 128);
     switch (shape) {
-        case 0: return launch_shape<T, 8, 1, 4>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 1: return launch_shape<T, 8, 1, 8>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 2: return launch_shape<T, 4, 2, 4>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 3: return launch_shape<T, 4, 2, 8>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 4: return launch_shape<T, 2, 4, 4>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 5: return launch_shape<T, 2, 4, 8>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        case 6: return launch_shape<T, 2, 1, 4>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
-        default: return launch_shape<T, 2, 1, 8>(pz, pm, p, pa, pb, B, N, C, H, vec_z, vec_out, stream);
+        case 0: return launch_shape<T, 8, 1, 4>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 1: return launch_shape<T, 8, 1, 8>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 2: return launch_shape<T, 4, 2, 4>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 3: return launch_shape<T, 4, 2, 8>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 4: return launch_shape<T, 2, 4, 4>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 5: return launch_shape<T, 2, 4, 8>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        case 6: return launch_shape<T, 2, 1, 4>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
+        default: return launch_shape<T, 2, 1, 8>(pz, pr, pc, p, pa, pb, B, I, N, C, H, vec_z, vec_out, stream);
     }
 }
 
 }  // namespace
 
-// z [B,N,N,C], a_out and b_out [B,H,N,N] of dtype 0 = float32 or 1 =
-// bfloat16; res_mask [B,N] float32; the ten parameters (see Params) of
-// param_dtype 0 = float32 or 1 = bfloat16.
+// z [B,I,N,C], a_out and b_out [B,H,I,N] of dtype 0 = float32 or 1 =
+// bfloat16; row_mask [B,I] and col_mask [B,N] float32; the ten parameters
+// (see Params) of param_dtype 0 = float32 or 1 = bfloat16.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int trimul_project(const void* z, const void* res_mask, const void* ln_in_scale, const void* ln_in_bias,
-                              const void* w_ap, const void* w_ag, const void* w_bp, const void* w_bg,
-                              const void* b_ap, const void* b_ag, const void* b_bp, const void* b_bg, void* a_out,
-                              void* b_out, int B, int N, int C, int H, int dtype, int param_dtype, void* stream) {
-    if (B < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || (param_dtype != 0 && param_dtype != 1))
+extern "C" int trimul_project(const void* z, const void* row_mask, const void* col_mask, const void* ln_in_scale,
+                              const void* ln_in_bias, const void* w_ap, const void* w_ag, const void* w_bp,
+                              const void* w_bg, const void* b_ap, const void* b_ag, const void* b_bp, const void* b_bg,
+                              void* a_out, void* b_out, int B, int I, int N, int C, int H, int dtype, int param_dtype,
+                              void* stream) {
+    if (B < 1 || I < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || (param_dtype != 0 && param_dtype != 1))
         return (int)cudaErrorInvalidValue;
     const Params p{ln_in_scale, ln_in_bias, {w_ap, w_ag, w_bp, w_bg}, {b_ap, b_ag, b_bp, b_bg}, param_dtype};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch<float>(z, res_mask, p, a_out, b_out, B, N, C, H, s);
-    if (dtype == 1) return launch<__nv_bfloat16>(z, res_mask, p, a_out, b_out, B, N, C, H, s);
+    if (dtype == 0) return launch<float>(z, row_mask, col_mask, p, a_out, b_out, B, I, N, C, H, s);
+    if (dtype == 1) return launch<__nv_bfloat16>(z, row_mask, col_mask, p, a_out, b_out, B, I, N, C, H, s);
     return (int)cudaErrorInvalidValue;
 }

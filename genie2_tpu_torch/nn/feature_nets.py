@@ -8,7 +8,9 @@ encoding, a template of the noised structure (soft distance bins
 softmax(-4|d - v|) and pairwise orientation quaternions) and a motif
 template. Relpos and the motif template depend only on static features:
 `static_bias` computes their sum once so samplers can hoist it out of the
-reverse loop.
+reverse loop. Under sequence parallelism the pair net builds only the rows
+`rows` of the pair representation (global residue indices): the i side of
+every pairwise term reads those residues, the j side all of them.
 """
 
 from __future__ import annotations
@@ -66,44 +68,45 @@ class PairFeatureNet(nn.Module):
         self.linear_template = Linear(template_dist_n_bin + 6, c_p, bias=False)
         self.linear_motif_template = Linear(template_dist_n_bin + 2, c_p, bias=False)
 
-    def _relpos(self, features, dtype):
+    def _relpos(self, features, dtype, rows=slice(None)):
         """AF2 Algorithm 4/5 with an extra cross-chain bin."""
         ri = features["residue_index"].long()
         ci = features["chain_index"]
         k = self.relpos_k
-        same_chain = ci[:, :, None] == ci[:, None, :]
-        d_same = torch.clamp(ri[:, :, None] - ri[:, None, :] + k, 0, 2 * k)
+        same_chain = ci[:, rows, None] == ci[:, None, :]
+        d_same = torch.clamp(ri[:, rows, None] - ri[:, None, :] + k, 0, 2 * k)
         d = torch.where(same_chain, d_same, torch.full_like(d_same, 2 * k + 1))
         oh = F.one_hot(d, 2 * k + 2).to(dtype)
         feats = torch.cat([oh, same_chain[..., None].to(dtype)], dim=-1)
         return self.linear_relpos(feats)
 
-    def _encode_positions(self, coords, mask):
+    def _encode_positions(self, coords, mask, rows=slice(None)):
         """Soft distance bins softmax(-4 |d - v|), masked pairwise."""
-        d = distogram(coords, coords)
+        d = distogram(coords[:, rows], coords)
         v = self.template_dist_min + self.template_dist_step * torch.arange(
             self.template_dist_n_bin, dtype=d.dtype, device=d.device
         )
         oh = torch.softmax(-4.0 * (d[..., None] - v).abs(), dim=-1)
-        pair_mask = mask[:, :, None] * mask[:, None, :]
+        pair_mask = mask[:, rows, None] * mask[:, None, :]
         return oh * pair_mask[..., None].to(oh.dtype)
 
-    def _encode_orientations(self, rots, mask):
+    def _encode_orientations(self, rots, mask, rows=slice(None)):
         """Pairwise orientation quaternions of r[i, j] = R_j @ R_i (the
         reference's broadcasting convention, not R_i^T R_j)."""
-        r = torch.matmul(rots[:, None, :, :, :], rots[:, :, None, :, :])
+        r = torch.matmul(rots[:, None, :, :, :], rots[:, rows, None, :, :])
         q = rot_to_quat(r, method=self.quat_method)
-        pair_mask = mask[:, :, None] * mask[:, None, :]
+        pair_mask = mask[:, rows, None] * mask[:, None, :]
         return q * pair_mask[..., None].to(q.dtype)
 
-    def static_bias(self, features, dtype=torch.float32):
-        """relpos + motif template: constant across diffusion steps."""
-        fixed_structure = features["fixed_structure_mask"].to(dtype)
+    def static_bias(self, features, dtype=torch.float32, rows=slice(None)):
+        """relpos + motif template: constant across diffusion steps; the
+        rows `rows` of it."""
+        fixed_structure = features["fixed_structure_mask"][:, rows].to(dtype)
         fixed_seq = features["fixed_sequence_mask"].to(dtype)
-        bias = self._relpos(features, dtype)
+        bias = self._relpos(features, dtype, rows)
         motif_template = torch.cat(
             [
-                self._encode_positions(features["atom_positions"].to(dtype), fixed_seq)
+                self._encode_positions(features["atom_positions"].to(dtype), fixed_seq, rows)
                 * fixed_structure[..., None],
                 fixed_structure[..., None],
                 fixed_structure[..., None],
@@ -112,17 +115,18 @@ class PairFeatureNet(nn.Module):
         )
         return bias + self.linear_motif_template(motif_template)
 
-    def forward(self, s, ts: Rigid, features, static_bias=None):
+    def forward(self, s, ts: Rigid, features, static_bias=None, rows=slice(None)):
+        """The pair representation's rows `rows` (all of them by default)."""
         dtype = s.dtype
         residue_mask = features["residue_mask"].to(dtype)
-        pair_mask = residue_mask[:, :, None] * residue_mask[:, None, :]
-        fixed_structure = features["fixed_structure_mask"].to(dtype)
+        pair_mask = residue_mask[:, rows, None] * residue_mask[:, None, :]
+        fixed_structure = features["fixed_structure_mask"][:, rows].to(dtype)
 
-        p = self.linear_s_p_i(s)[:, :, None, :] + self.linear_s_p_j(s)[:, None, :, :]
+        p = self.linear_s_p_i(s[:, rows])[:, :, None, :] + self.linear_s_p_j(s)[:, None, :, :]
         template = torch.cat(
             [
-                self._encode_positions(ts.trans, residue_mask),
-                self._encode_orientations(ts.rots, residue_mask),
+                self._encode_positions(ts.trans, residue_mask, rows),
+                self._encode_orientations(ts.rots, residue_mask, rows),
                 fixed_structure[..., None],
                 fixed_structure[..., None],
             ],
@@ -130,6 +134,6 @@ class PairFeatureNet(nn.Module):
         )
         p = p + self.linear_template(template)
         if static_bias is None:
-            static_bias = self.static_bias(features, dtype)
+            static_bias = self.static_bias(features, dtype, rows)
         p = p + static_bias.to(dtype)
         return p * pair_mask[..., None]

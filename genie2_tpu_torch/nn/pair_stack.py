@@ -24,6 +24,21 @@ channels (`linear_1` by columns, `linear_2` by rows) and triangle
 attention its heads. Each update leaves the module reduced and
 replicated, so the dropout after it draws the same masks on every model
 rank.
+
+Under sequence parallelism (parallel/sequence_parallel.py, `seq`) each
+rank holds rows I of the pair representation, [B, I, N, C], and the
+pair mask of those rows. The TriMul projects and finishes its rows (the
+projection takes the rows' mask and the columns' mask apart); the
+outgoing contraction, x[i,j] = sum_k a[i,k] b[j,k], gathers b and
+contracts this rank's rows of a against it; the incoming one, x[i,j] =
+sum_k a[k,i] b[k,j], contracts over this rank's k into partial sums of
+every (i, j) and reduces them, keeping its rows (one buffer of B H N^2
+either way). The starting triangle attention gathers only its bias
+[B, H, N, N] (its rows attend within themselves); the ending one gathers
+the layer-normed rows [B, N, N, C] (each of its rows is a column of the
+pair representation, over all keys) and attends with this rank's rows as
+the queries. The pair transition acts per position. Dropout masks are
+drawn for every residue and sliced (nn/primitives.py).
 """
 
 from __future__ import annotations
@@ -36,14 +51,17 @@ import torch.nn.functional as F
 
 from genie2_tpu_torch.nn.primitives import Attention, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.parallel.sequence_parallel import gather_seq_rows, reduce_seq_rows, row_slice
 from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
 class TriangleMultiplicativeUpdate(nn.Module):
     """AF2 Algorithms 11/12; `outgoing` picks the contracted index. `tp`:
-    the model group its hidden channels are split over, or None."""
+    the model group its hidden channels are split over, or None; `seq`:
+    the seq group its rows are split over, or None."""
 
     tp = None
+    seq = None
 
     def __init__(self, c_z: int, c_hidden: int, outgoing: bool = True):
         super().__init__()
@@ -74,31 +92,49 @@ class TriangleMultiplicativeUpdate(nn.Module):
         self.tp = tp
 
     def forward(self, z: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
-        """z [B,N,N,C], res_mask [B,N] -> the update before the residual."""
+        """z [B,I,N,C] (I = N, or this rank's rows under `seq`), res_mask
+        [B,N] -> the update before the residual."""
         z, res_mask, w = z.contiguous(), res_mask.to(z.dtype), self.fused_weights()
-        tp = self.tp
-        if tp is None:
+        tp, seq = self.tp, self.seq
+        if tp is None and seq is None:
             return trimul.trimul(z, res_mask, w, self.outgoing)
+        row_mask = res_mask if seq is None else res_mask[:, row_slice(z.shape[2], seq)]
+        if tp is None:
+            a, b = trimul.project_gated_cm(z, row_mask, w, res_mask)
+            return trimul.epilogue_cm(self._contract(a, b), z, w)
         # This rank's hidden channels: LN_in (fused into the projection) and
         # LN_out read replicated parameters split by channel here, so they
         # and z come in through copy_to_model; the gate reads them whole.
         h = w["w_z"].shape[1]
         mine = slice(tp.rank * h, (tp.rank + 1) * h)
         split = dict(w, ln_in_scale=copy_to_model(w["ln_in_scale"], tp), ln_in_bias=copy_to_model(w["ln_in_bias"], tp))
-        a, b = trimul.project_gated_cm(copy_to_model(z, tp), res_mask, split)
-        x = trimul.contract_cm(a, b, self.outgoing)
+        a, b = trimul.project_gated_cm(copy_to_model(z, tp), row_mask, split, res_mask)
+        x = self._contract(a, b)
         part = trimul.epilogue_partial(x, w["w_z"], copy_to_model(w["ln_out_scale"], tp)[mine],
                                        copy_to_model(w["ln_out_bias"], tp)[mine])
         return trimul.epilogue_finish(reduce_from_model(part, tp), z, w, h * tp.size)
+
+    def _contract(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """x [B,H,I,N] from this rank's rows of a and b [B,H,I,N]: the
+        contraction, with the seq group's collective under `seq`."""
+        seq = self.seq
+        if seq is None:
+            return trimul.contract_cm(a, b, self.outgoing)
+        if self.outgoing:  # every row j of b, against this rank's rows i of a
+            return trimul.contract_cm(a, gather_seq_rows(seq, 2, b)[0], True)
+        # k is the sharded axis: partial sums of every (i, j), summed over the group.
+        return reduce_seq_rows(trimul.contract_cm(a, b, False), seq, 2)
 
 
 class TriangleAttention(nn.Module):
     """AF2 Algorithms 13/14. `starting` attends along the rows of the pair
     representation; the ending-node variant swaps the pair axes around the
     same computation (a copy on the way in, inside the layer norm, and a
-    view on the way out)."""
+    view on the way out). Under `seq` (this rank's rows) see the module
+    docstring."""
 
     tp = None
+    seq = None
 
     def __init__(self, c_in: int, c_hidden: int, no_heads: int, starting: bool = True, inf: float = 1e9,
                  row_chunk: int = 0):
@@ -115,9 +151,12 @@ class TriangleAttention(nn.Module):
         self.tp = tp
         self.mha.shard_(tp)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x [B,N,N,C], mask [B,N,N] (the pair mask) -> the update before
-        the residual."""
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, res_mask: torch.Tensor = None) -> torch.Tensor:
+        """x [B,I,N,C], mask [B,I,N] (the pair mask of the rows; I = N, or
+        this rank's rows under `seq`; res_mask [B,N], read by the ending
+        node under `seq`) -> the update before the residual."""
+        if self.seq is not None and not self.starting:
+            return self._ending_rows(x, res_mask)
         if not self.starting:
             x, mask = x.transpose(-2, -3), mask.transpose(-1, -2)
         x = self.layer_norm(x)
@@ -125,8 +164,26 @@ class TriangleAttention(nn.Module):
             x = copy_to_model(x, self.tp)
         # [B, I, J, H] -> [B, H, I, J]: the bias of query i and key j, for every row.
         tb = self.linear(x).permute(0, 3, 1, 2).contiguous()
+        if self.seq is not None:  # the bias of every query row, from every rank
+            tb = gather_seq_rows(self.seq, 2, tb)[0]
         out = self.mha(x, x, x, tb, mask)
         return out if self.starting else out.transpose(-2, -3)
+
+    def _ending_rows(self, x: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
+        """The ending node on this rank's rows I of the pair representation:
+        row j of the swapped representation is column j of it, over every
+        key k, so the layer-normed rows are gathered whole ([B,N,N,C]); this
+        rank's rows are the queries of every swapped row, and the bias
+        [B,H,I,N] is that of its queries."""
+        xn = self.layer_norm(x)
+        if self.tp is not None:
+            xn = copy_to_model(xn, self.tp)
+        queries = xn.transpose(1, 2).contiguous()  # [B, N rows, I queries, C]
+        keys = gather_seq_rows(self.seq, 2, queries)[0]  # [B, N rows, N keys, C]
+        rows = row_slice(keys.shape[1], self.seq)
+        tb = self.linear(keys[:, rows]).permute(0, 3, 1, 2).contiguous()
+        pair_mask = res_mask[:, :, None] * res_mask[:, None, :]  # symmetric: its own transpose
+        return self.mha(queries, keys, keys, tb, pair_mask.to(x.dtype)).transpose(1, 2)
 
 
 class PairTransition(nn.Module):
@@ -188,7 +245,7 @@ class PairTransformLayer(nn.Module):
             p = p + dropout(self.tri_mul_in(p, res_mask), rate, gen, (-3,))
         if self.include_tri_att:
             p = p + dropout(self.tri_att_start(p, pair_mask), rate, gen, (-3,))
-            p = p + dropout(self.tri_att_end(p, pair_mask), rate, gen, (-2,))
+            p = p + dropout(self.tri_att_end(p, pair_mask, res_mask), rate, gen, (-2,))
         p = p + self.pair_transition(p, pair_mask)
         return p * pair_mask[..., None].to(p.dtype)
 
@@ -201,6 +258,8 @@ class PairTransformNet(nn.Module):
     as arguments, so the recompute uses the tensors of the forward (a cast
     copy under the bf16 policy's functional_call) and, with the layer's
     seed, the same dropout masks."""
+
+    seq = None
 
     def __init__(self, c_p, n_pair_transform_layer, include_mul_update, include_tri_att,
                  c_hidden_mul, pair_transition_n, c_hidden_tri_att=32, n_head_tri=4, tri_att_chunk=0,
@@ -216,7 +275,8 @@ class PairTransformNet(nn.Module):
     def forward(self, p, features, seeds=None):
         """`seeds`: one dropout key a layer, or None (no dropout)."""
         mask = features["residue_mask"].to(p.dtype)
-        pair_mask = mask[:, :, None] * mask[:, None, :]
+        # This rank's rows (all of them without a seq axis) against every column.
+        pair_mask = mask[:, row_slice(p.shape[2], self.seq) if self.seq else slice(None), None] * mask[:, None, :]
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i, layer in enumerate(self.net):
             seed = None if seeds is None else seeds[i]

@@ -10,7 +10,7 @@ trained with it, so `Linear` reproduces it rather than the textbook fan.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,37 +74,54 @@ def layer_norm(c: int) -> nn.LayerNorm:
 class DropoutSource(NamedTuple):
     """One layer's dropout masks: a generator of the layer's seed, on the
     activations' device, drawing each mask for the whole global batch of
-    `total` rows, of which this batch holds rows [start, stop)."""
+    `total` rows, of which this batch holds rows [start, stop). Under
+    sequence parallelism `residues` is (row start, row stop, real residues,
+    padded residues): the masks are drawn for the real residues, padded,
+    and this rank's residue rows kept (None: the activations hold every
+    residue)."""
 
     generator: torch.Generator
     start: int
     stop: int
     total: int
+    residues: Optional[Tuple[int, int, int, int]] = None
 
 
 def layer_generator(key, device) -> Optional[DropoutSource]:
     """The source of one layer's dropout masks from its key (layer seed,
-    start, stop, total; nn/denoiser.py), or None (no dropout) where `key`
-    is None. Drawing every mask for the global batch and keeping this
-    batch's rows makes a row's mask the same on whichever rank it lies."""
+    start, stop, total[, residues]; nn/denoiser.py), or None (no dropout)
+    where `key` is None. Drawing every mask for the global batch (and all
+    residues) and keeping this batch's rows makes a row's mask the same on
+    whichever rank it lies."""
     if key is None:
         return None
-    seed, start, stop, total = key
-    return DropoutSource(torch.Generator(device=device).manual_seed(int(seed)), start, stop, total)
+    seed, *rest = key
+    return DropoutSource(torch.Generator(device=device).manual_seed(int(seed)), *rest)
 
 
 def dropout(x: torch.Tensor, rate: float, source: Optional[DropoutSource], broadcast_dims=()) -> torch.Tensor:
     """flax's nn.Dropout: keep each entry with probability 1 - rate and
     scale it by 1 / (1 - rate), one mask shared along `broadcast_dims`
     (axes other than the batch axis 0, negative ones counted from the end).
-    The mask is drawn for the global batch and sliced to this batch's rows.
-    The identity where `source` is None (eval mode) or the rate is 0."""
+    The mask is drawn for the global batch and sliced to this batch's rows;
+    with `source.residues`, the axes between the batch and the channels are
+    residue axes, drawn for the real residues, padded to the padded length
+    (the padded entries' values are never read: those positions are masked)
+    and sliced to this rank's rows along axis 1. The identity where
+    `source` is None (eval mode) or the rate is 0."""
     if source is None or rate == 0.0:
         return x
     keep = 1.0 - rate
     dims = {d % x.dim() for d in broadcast_dims}
-    shape = [source.total] + [1 if d in dims else n for d, n in enumerate(x.shape)][1:]
+    res = source.residues
+    shape = [source.total] + [1 if d in dims else res[2] if res and d < x.dim() - 1 else n
+                              for d, n in enumerate(x.shape)][1:]
     mask = torch.rand(shape, generator=source.generator, device=x.device)[source.start:source.stop] < keep
+    if res:
+        pad = [(0, 0) if d in dims or d == x.dim() - 1 else (0, res[3] - res[2]) for d in range(1, x.dim())]
+        mask = F.pad(mask, [v for p in reversed(pad) for v in p], value=True)
+        if 1 not in dims:
+            mask = mask[:, res[0]:res[1]]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

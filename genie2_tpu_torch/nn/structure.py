@@ -8,7 +8,16 @@ genie2_tpu places them; each application of a layer takes its own seed.
 Under tensor parallelism (parallel/tensor_parallel.py) the IPA splits its
 heads and the first block of the transition its hidden channels; both
 leave s reduced and replicated, so the dropout after them draws the same
-masks on every model rank."""
+masks on every model rank.
+
+Under sequence parallelism (parallel/sequence_parallel.py, `seq`) s and
+the frames stay whole on every rank and p is this rank's rows: a
+structure layer takes its residues as the IPA's queries (the keys and
+values are every residue, from the whole s and frames; the pair bias and
+o_pair come from this rank's rows of p), runs the transition and the
+backbone update on them, and closes with one gather of s and the frames'
+rows. Dropout masks are drawn for every residue and sliced
+(nn/primitives.py)."""
 
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from torch import nn
 from genie2_tpu_torch.geometry import Rigid, quat_to_rot
 from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, dropout, layer_generator, layer_norm
 from genie2_tpu_torch.ops.ipa import ipa_attention
+from genie2_tpu_torch.parallel.sequence_parallel import gather_seq_rows, row_slice
 from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
@@ -38,9 +48,12 @@ class InvariantPointAttention(nn.Module):
     projections from each of their thirds), `linear_out` by rows (its input
     is six head-major blocks, `out_blocks`), its bias after the reduction;
     `head_weights` stays whole and is sliced at use. s, z and the frames
-    come in through copy_to_model."""
+    come in through copy_to_model. Under `seq` the queries are this rank's
+    residues: z is their rows of the pair representation [B,I,N,c_z], and
+    the outputs are theirs [B,I,c_s]."""
 
     tp = None
+    seq = None
 
     def __init__(self, c_s, c_z, c_hidden, no_heads, no_qk_points, no_v_points, inf=1e5, eps=1e-8):
         super().__init__()
@@ -78,13 +91,17 @@ class InvariantPointAttention(nn.Module):
             s, z = copy_to_model(s, tp), copy_to_model(z, tp)
             t = Rigid(copy_to_model(t.rots, tp), copy_to_model(t.trans, tp))
             head_weights = copy_to_model(head_weights, tp)[tp.rank * h:(tp.rank + 1) * h]
+        # The query residues: this rank's rows under `seq`, else all.
+        rows = row_slice(N, self.seq) if self.seq is not None else slice(None)
+        s_q, t_q = s[:, rows], Rigid(t.rots[:, rows], t.trans[:, rows])
+        I = s_q.shape[1]
 
-        q = self.linear_q(s).view(B, N, h, c)
+        q = self.linear_q(s_q).view(B, I, h, c)
         kv = self.linear_kv(s).view(B, N, h, 2 * c)
         k, v = kv[..., :c], kv[..., c:]
 
-        frames = t.unsqueeze(-1)
-        q_pts = frames.apply(_to_points(self.linear_q_points(s))).view(B, N, h, pq, 3)
+        frames, frames_q = t.unsqueeze(-1), t_q.unsqueeze(-1)
+        q_pts = frames_q.apply(_to_points(self.linear_q_points(s_q))).view(B, I, h, pq, 3)
         kv_pts = frames.apply(_to_points(self.linear_kv_points(s))).view(B, N, h, pq + pv, 3)
         k_pts, v_pts = kv_pts[..., :pq, :], kv_pts[..., pq:, :]
 
@@ -92,11 +109,11 @@ class InvariantPointAttention(nn.Module):
         o, o_pt, o_pair = ipa_attention(
             q, k, v, q_pts, k_pts, v_pts, self.linear_b(z), z, F.softplus(head_weights), mask, self.inf
         )
-        o = o.reshape(B, N, h * c)
-        o_pt = frames.unsqueeze(-1).invert_apply(o_pt)
-        o_pt_norm = torch.sqrt((o_pt * o_pt).sum(-1) + self.eps).reshape(B, N, h * pv)
-        o_pt_flat = o_pt.reshape(B, N, h * pv, 3)
-        o_pair = o_pair.reshape(B, N, h * self.c_z)
+        o = o.reshape(B, I, h * c)
+        o_pt = frames_q.unsqueeze(-1).invert_apply(o_pt)
+        o_pt_norm = torch.sqrt((o_pt * o_pt).sum(-1) + self.eps).reshape(B, I, h * pv)
+        o_pt_flat = o_pt.reshape(B, I, h * pv, 3)
+        o_pair = o_pair.reshape(B, I, h * self.c_z)
 
         out = torch.cat(
             [o, o_pt_flat[..., 0], o_pt_flat[..., 1], o_pt_flat[..., 2], o_pt_norm, o_pair], dim=-1
@@ -166,7 +183,10 @@ class BackboneUpdate(nn.Module):
 
 
 class StructureLayer(nn.Module):
-    """s += IPA; dropout; LN; transition; frame compose."""
+    """s += IPA; dropout; LN; transition; frame compose. Under `seq`, on
+    this rank's residues, then s and the frames gathered whole."""
+
+    seq = None
 
     def __init__(self, c_s, c_p, c_hidden_ipa, n_head_ipa, n_qk_point, n_v_point, n_structure_transition_layer,
                  ipa_dropout=0.0, transition_dropout=0.0):
@@ -180,9 +200,16 @@ class StructureLayer(nn.Module):
     def forward(self, s, p, t: Rigid, mask, seed=None):
         """`seed` (a dropout key, nn/primitives.py) seeds this application's dropout masks; None: no dropout."""
         gen = layer_generator(seed, s.device)
-        s = self.ipa_layer_norm(dropout(s + self.ipa(s, p, t, mask), self.ipa_dropout, gen))
-        s = self.transition(s, gen)
-        return s, t.compose(self.bb_update(s))
+        if self.seq is None:
+            s = self.ipa_layer_norm(dropout(s + self.ipa(s, p, t, mask), self.ipa_dropout, gen))
+            s = self.transition(s, gen)
+            return s, t.compose(self.bb_update(s))
+        rows = row_slice(s.shape[1], self.seq)
+        s_rows = self.ipa_layer_norm(dropout(s[:, rows] + self.ipa(s, p, t, mask), self.ipa_dropout, gen))
+        s_rows = self.transition(s_rows, gen)
+        t_rows = Rigid(t.rots[:, rows], t.trans[:, rows]).compose(self.bb_update(s_rows))
+        s, rots, trans = gather_seq_rows(self.seq, 1, s_rows, t_rows.rots, t_rows.trans)
+        return s, Rigid(rots, trans)
 
 
 class StructureNet(nn.Module):

@@ -26,6 +26,11 @@ in plain torch, with the kernel's rounding points:
 - logits, softmax statistics and all three sums are float32; in bfloat16
   the probabilities are rounded to bfloat16 before they multiply z.
 
+The queries may be a block of I rows against all N keys (sequence
+parallelism, nn/structure.py): q and q_pts [B,I,...], bias [B,I,N,H] and
+z [B,I,N,Cz], k, v, their points and the key mask over all N; the square
+case is I = N.
+
 Under autograd the wrapper goes through `Recomputed` (ops/launch.py): the
 kernel forward and the gradient of `ipa_attention_plain`, recomputed.
 """
@@ -72,16 +77,17 @@ def point_scale(pq: int) -> float:
 
 
 def ipa_attention_plain(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf: float = 1e5) -> Outputs:
-    """q, k, v [B,N,H,C]; q_pts, k_pts [B,N,H,Pq,3]; v_pts [B,N,H,Pv,3]
-    (global frame); bias [B,N,N,H]; z [B,N,N,Cz]; head_weights [H]
-    (softplus applied); mask [B,N]. Returns (o [B,N,H,C], o_pt
-    [B,N,H,Pv,3], o_pair [B,N,H,Cz]) in z's dtype."""
+    """q [B,I,H,C], k, v [B,N,H,C]; q_pts [B,I,H,Pq,3], k_pts
+    [B,N,H,Pq,3]; v_pts [B,N,H,Pv,3] (global frame); bias [B,I,N,H]; z
+    [B,I,N,Cz]; head_weights [H] (softplus applied); mask [B,N] (the
+    keys'). Returns (o [B,I,H,C], o_pt [B,I,H,Pv,3], o_pair [B,I,H,Cz]) in
+    z's dtype."""
     dt = z.dtype
     c = q.shape[-1]
     qp, kp = (p.float() for p in scale_points(q_pts, k_pts, head_weights))
     a = torch.einsum("bihc,bjhc->bhij", q.float(), k.float()) * math.sqrt(1.0 / (3 * c))
     a = a + math.sqrt(1.0 / 3) * bias.float().permute(0, 3, 1, 2)
-    diff = qp[:, :, None] - kp[:, None, :]  # [B, N, N, H, 3 Pq]
+    diff = qp[:, :, None] - kp[:, None, :]  # [B, I, N, H, 3 Pq]
     a = a - 0.5 * (diff * diff).sum(-1).permute(0, 3, 1, 2)
     a = a + inf * (mask.float()[:, None, None, :] - 1.0)
     p = torch.exp(a - a.amax(-1, keepdim=True))  # [B, H, N, N]
@@ -147,8 +153,8 @@ def kernel_arguments(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask):
     """The tensors and the element strides the kernel reads, as
     `ipa_attention` hands them over: (inputs, strides, dims); strides holds
     four values a tensor for q, k, v, the three point sets, bias and z,
-    then the mask's two."""
-    B, N, _, CZ = z.shape
+    then the mask's two; dims B, N (the keys), H, C, Pq, Pv, Cz."""
+    B, NI, N, CZ = z.shape
     H, C = q.shape[-2:]
     PQ, PV = q_pts.shape[-2], v_pts.shape[-2]
     strides = []
@@ -181,19 +187,19 @@ def _ipa_attention_forward(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, 
     if z.dtype not in DTYPE_CODES:
         raise TypeError(f"ipa z: dtype {z.dtype} not supported (float32 or bfloat16)")
     if z.dim() != 4:
-        raise ValueError(f"ipa z: expected [B, N, N, Cz], got {tuple(z.shape)}")
-    B, N, N2, CZ = z.shape
+        raise ValueError(f"ipa z: expected [B, I, N, Cz], got {tuple(z.shape)}")
+    B, NI, N, CZ = z.shape
     H, C = q.shape[-2:]
     PQ, PV = q_pts.shape[-2], v_pts.shape[-2]
     shapes = {
-        "q": (q, (B, N, H, C)), "k": (k, (B, N, H, C)), "v": (v, (B, N, H, C)),
-        "q_pts": (q_pts, (B, N, H, PQ, 3)), "k_pts": (k_pts, (B, N, H, PQ, 3)),
-        "v_pts": (v_pts, (B, N, H, PV, 3)), "bias": (bias, (B, N, N, H)),
+        "q": (q, (B, NI, H, C)), "k": (k, (B, N, H, C)), "v": (v, (B, N, H, C)),
+        "q_pts": (q_pts, (B, NI, H, PQ, 3)), "k_pts": (k_pts, (B, N, H, PQ, 3)),
+        "v_pts": (v_pts, (B, N, H, PV, 3)), "bias": (bias, (B, NI, N, H)),
     }
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != z.dtype or t.device != z.device:
             raise ValueError(f"ipa {name}: {tuple(t.shape)} {t.dtype} on {t.device}, expected {shape} {z.dtype} on {z.device}")
-    if N2 != N or tuple(mask.shape) != (B, N) or tuple(head_weights.shape) != (H,):
+    if tuple(mask.shape) != (B, N) or tuple(head_weights.shape) != (H,):
         raise ValueError(f"ipa: z {tuple(z.shape)}, mask {tuple(mask.shape)}, head_weights {tuple(head_weights.shape)}")
     if head_weights.dtype not in DTYPE_CODES or mask.dtype not in MASK_DTYPES or (H > 1 and head_weights.stride(0) != 1) \
             or head_weights.device != z.device or mask.device != z.device:
@@ -208,13 +214,13 @@ def _ipa_attention_forward(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, 
             f"{_MAX_SMEM_BYTES} bytes of shared memory)"
         )
     inputs, strides, dims = kernel_arguments(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask)
-    o = torch.empty((B, N, H, C), dtype=z.dtype, device=z.device)
-    o_pt = torch.empty((B, N, H, PV, 3), dtype=z.dtype, device=z.device)
-    o_pair = torch.empty((B, N, H, CZ), dtype=z.dtype, device=z.device)
+    o = torch.empty((B, NI, H, C), dtype=z.dtype, device=z.device)
+    o_pt = torch.empty((B, NI, H, PV, 3), dtype=z.dtype, device=z.device)
+    o_pair = torch.empty((B, NI, H, CZ), dtype=z.dtype, device=z.device)
     tensors = [*inputs, o, o_pt, o_pair]
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    c_dims = (ctypes.c_int * len(dims))(*dims)
+    c_dims = (ctypes.c_int * (len(dims) + 1))(*dims, NI)  # the query rows last
     # `tensors` rides along so that the launch holds every argument.
     launch(
         "ipa_attention", "ipa_attention", _ARGTYPES, z.device,

@@ -21,6 +21,11 @@ torch with the kernel's rounding points:
   and a row whose keys are all masked attends uniformly over all J keys,
   padded ones too, as genie2_tpu's module and its kernel do.
 
+The query positions may differ from the keys (the ending node under
+sequence parallelism, nn/pair_stack.py): q [B,I,Jq,H,c] against k, v
+[B,I,Jk,H,c], tb [B,H,Jq,Jk] and mask [B,I,Jk]; the square case is Jq =
+Jk.
+
 Under autograd the wrapper goes through `Recomputed` (ops/launch.py): the
 kernel forward and the gradient of `tri_attention_plain`, recomputed (with
 `row_chunk` bounding its logits as in the forward's plain version).
@@ -38,12 +43,12 @@ from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, Recomputed, check
 
 MAX_HEAD_WIDTH = 64  # csrc/tri_att_flash.cu keeps a query's c accumulators in registers
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
 
 
 def tri_attention_plain(q, k, v, tb, mask, inf: float = 1e9, row_chunk: int = 0) -> torch.Tensor:
-    """q, k, v [B,I,J,H,c]; tb [B,H,J,J]; mask [B,I,J] (1 = a key that
-    counts). Returns o [B,I,J,H,c] in q's dtype. `row_chunk` > 0 bounds the
+    """q [B,I,Jq,H,c], k, v [B,I,Jk,H,c]; tb [B,H,Jq,Jk]; mask [B,I,Jk]
+    (1 = a key that counts). Returns o [B,I,Jq,H,c] in q's dtype. `row_chunk` > 0 bounds the
     logits held at once to [B, row_chunk, H, J, J]: the rows are processed
     that many at a time (the last chunk may be shorter) with the same
     numbers, since a row's softmax is never split."""
@@ -81,16 +86,17 @@ def _tri_attention_forward(q, k, v, tb, mask, inf: float, row_chunk: int) -> tor
     if on_cpu(q):
         return tri_attention_plain(q, k, v, tb, mask, inf, row_chunk)
     check_activation("tri_attention q", q, 5)
-    B, I, J, H, c = q.shape
+    B, I, JQ, H, c = q.shape
+    JK = k.shape[2]
     for name, t in (("k", k), ("v", v)):
         check_activation(f"tri_attention {name}", t, 5, like=q)
-        if t.shape != q.shape:
-            raise ValueError(f"tri_attention {name}: {tuple(t.shape)}, expected {tuple(q.shape)}")
+        if tuple(t.shape) != (B, I, JK, H, c):
+            raise ValueError(f"tri_attention {name}: {tuple(t.shape)}, expected {(B, I, JK, H, c)}")
     check_activation("tri_attention tb", tb, 4, like=q)
-    if tuple(tb.shape) != (B, H, J, J) or tuple(mask.shape) != (B, I, J) or mask.device != q.device:
+    if tuple(tb.shape) != (B, H, JQ, JK) or tuple(mask.shape) != (B, I, JK) or mask.device != q.device:
         raise ValueError(
             f"tri_attention: tb {tuple(tb.shape)} and mask {tuple(mask.shape)} on {mask.device}, "
-            f"expected {(B, H, J, J)} and {(B, I, J)} on {q.device}"
+            f"expected {(B, H, JQ, JK)} and {(B, I, JK)} on {q.device}"
         )
     if c > MAX_HEAD_WIDTH:
         raise ValueError(f"tri_attention: head width {c} beyond the kernel's limit of {MAX_HEAD_WIDTH}")
@@ -101,7 +107,7 @@ def _tri_attention_forward(q, k, v, tb, mask, inf: float, row_chunk: int) -> tor
     launch(
         "tri_att_flash", "tri_att_flash", _ARGTYPES, q.device,
         q, k, v, tb, mask, out,
-        B, I, J, H, c, 1.0 / math.sqrt(c), float(inf), DTYPE_CODES[q.dtype],
+        B, I, JQ, JK, H, c, 1.0 / math.sqrt(c), float(inf), DTYPE_CODES[q.dtype],
     )
     LAUNCHES["tri_attention"] += 1
     return out

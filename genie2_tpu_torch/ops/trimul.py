@@ -41,6 +41,17 @@ of the same kind, all kernels on the card,
 (a, b, dx per channel, [N, N] each); the projection's and the epilogue's
 backward are the gradients of their plain versions, recomputed.
 
+Row blocks (sequence parallelism, nn/pair_stack.py): every stage takes a
+block of I rows of the pair representation against all N columns, through
+the same kernels with their shape arguments generalized. The projection
+reads z [B,I,N,C] with a row mask [B,I] and a column mask [B,N] and
+writes a, b [B,H,I,N]; the contraction takes any (I, J, K), a [I,K] and b
+[J,K] outgoing, a [K,I] and b [K,J] incoming (the outgoing block: I of
+N rows against the gathered b; the incoming partial sums: K of N rows to
+x [B,H,N,N]); contract_cm_km a [I,K] and b [K,J]; the epilogue and its
+two stages act on the B I N positions of x [B,H,I,N] and z [B,I,N,C].
+The square case is I = J = K = N.
+
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a tensor on the card; anything else raises. The plain
 versions keep the JAX functions' argument layouts (ops/trimul_fused.py in
@@ -92,11 +103,14 @@ def _ln_lane(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.
     return (xf - mu) * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
 
 
-def project_gated_cm_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
-    """z [B,N,N,C], res_mask [B,N] -> (a, b) each [B,H,N,N] in z's dtype."""
+def project_gated_cm_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
+    """z [B,I,N,C], res_mask [B,I] (the rows') and col_mask [B,N] (the
+    columns'; default res_mask, I = N) -> (a, b) each [B,H,I,N] in z's
+    dtype."""
     dt = z.dtype
+    col_mask = res_mask if col_mask is None else col_mask
     zn = _ln_lane(z, w["ln_in_scale"], w["ln_in_bias"]).to(dt).float()
-    mask = (res_mask[:, :, None] * res_mask[:, None, :]).to(dt).float()[:, None]
+    mask = (res_mask[:, :, None] * col_mask[:, None, :]).to(dt).float()[:, None]
 
     def proj(wk, bk):
         out = torch.matmul(zn, w[wk].to(dt).float().t()) + w[bk].float()
@@ -110,7 +124,8 @@ def project_gated_cm_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
 
 
 def contract_cm_plain(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
-    """[B,H,N,N] x [B,H,N,N] -> [B,H,N,N], float32 accumulation."""
+    """outgoing a [B,H,I,K] x b [B,H,J,K], incoming a [B,H,K,I] x b
+    [B,H,K,J] -> [B,H,I,J], float32 accumulation."""
     af, bf = a.float(), b.float()
     x = torch.matmul(af, bf.transpose(-1, -2)) if outgoing else torch.matmul(af.transpose(-1, -2), bf)
     return x.to(a.dtype)
@@ -132,20 +147,23 @@ def fold_ln_out(w: Weights, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Ten
     return ws, u, vb
 
 
-def part_size(B: int, N: int, D: int) -> int:
-    """The number of float32 values of `epilogue_partial`'s flat output."""
-    return B * N * N * (D + 2) + 2 * D
+def part_size(B: int, N: int, D: int, rows: int = None) -> int:
+    """The number of float32 values of `epilogue_partial`'s flat output
+    for `rows` (default N) rows of N positions."""
+    return B * (N if rows is None else rows) * N * (D + 2) + 2 * D
 
 
-def split_part(part: torch.Tensor, B: int, N: int, D: int):
-    """The flat partial sums as (per position [B,N,N,D+2], weight sums [2, D])."""
-    n = B * N * N * (D + 2)
-    return part[:n].view(B, N, N, D + 2), part[n:].view(2, D)
+def split_part(part: torch.Tensor, B: int, N: int, D: int, rows: int = None):
+    """The flat partial sums as (per position [B,I,N,D+2], weight sums [2,
+    D]), I = `rows` (default N)."""
+    rows = N if rows is None else rows
+    n = B * rows * N * (D + 2)
+    return part[:n].view(B, rows, N, D + 2), part[n:].view(2, D)
 
 
 def epilogue_partial_plain(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
                            ln_out_bias: torch.Tensor) -> torch.Tensor:
-    """x [B,H_r,N,N], w_z [C_out,H_r], the LN_out scale and bias [H_r] of
+    """x [B,H_r,I,N], w_z [C_out,H_r], the LN_out scale and bias [H_r] of
     this rank's channels -> the flat float32 partial sums (module
     docstring): x.ws with ws = w_z * scale rounded to x's dtype, sum_h x,
     sum_h x^2, then sum_h ws and w_z.bias."""
@@ -161,12 +179,12 @@ def epilogue_finish_plain(part: torch.Tensor, z: torch.Tensor, ln_in_scale: torc
                           ln_in_bias: torch.Tensor, b_z: torch.Tensor, w_g: torch.Tensor, b_g: torch.Tensor,
                           H: int) -> torch.Tensor:
     """The partial sums of all H channels (summed over the ranks) and z
-    [B,N,N,C] -> gated output [B,N,N,C_out] (row-major), as
+    [B,I,N,C] -> gated output [B,I,N,C_out] (row-major), as
     `epilogue_cm_plain` computes it from x."""
     dt = z.dtype
-    B, N = z.shape[:2]
+    B, I, N = z.shape[:3]
     D = w_g.shape[0]
-    per_pos, sums = split_part(part, B, N, D)
+    per_pos, sums = split_part(part, B, N, D, I)
     mu = per_pos[..., D] / H
     var = per_pos[..., D + 1] / H - mu.square()
     r = torch.rsqrt(var + LN_EPS)
@@ -177,7 +195,7 @@ def epilogue_finish_plain(part: torch.Tensor, z: torch.Tensor, ln_in_scale: torc
 
 
 def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
-    """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] (row-major)."""
+    """x [B,H,I,N] + z [B,I,N,C] -> gated output [B,I,N,C_out] (row-major)."""
     dt = z.dtype
     xf = x.float()
     mu = xf.mean(1)
@@ -210,11 +228,11 @@ def _f32(t: torch.Tensor, device) -> torch.Tensor:
 
 
 _ARGTYPES = {
-    "trimul_project": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6,
-    "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4,
-    "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6,
-    "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5,
-    "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6,
+    "trimul_project": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7,
+    "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6,
+    "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7,
+    "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
+    "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7,
 }
 
 # The parameters of the projection (float32 or bfloat16) and of the epilogue
@@ -231,59 +249,68 @@ def _launch(name: str, device, *args, source: str = None):
     launch(source or name, name, _ARGTYPES[name], device, *args)
 
 
-_TRIANGLE_CONTRACT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+_TRIANGLE_CONTRACT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
 
 
 def launch_triangle_contract(a, b, out, dims, sa, sb, so, variant: int):
-    """csrc/triangle_contract.cu on [B,C,N,N]-shaped views, dims = (B, C,
-    N), given by their element strides (batch, channel, row, k):
-    out[b,c,i,j] = sum_k a[b,c,i,k] b[b,c,j,k]. variant 0: k contiguous in
-    a and b; 1: k contiguous in a, the row in b; 2: the channel contiguous
-    in all."""
-    B, C, N = dims
+    """csrc/triangle_contract.cu on [B,C,I,K] / [B,C,J,K] views, dims =
+    (B, C, N) or (B, C, I, J, K), given by their element strides (batch,
+    channel, row, k): out[b,c,i,j] = sum_k a[b,c,i,k] b[b,c,j,k]. variant
+    0: k contiguous in a and b; 1: k contiguous in a, the row in b; 2: the
+    channel contiguous in all (square only, I = J = K)."""
+    B, C, *ijk = dims
+    I, J, K = ijk * 3 if len(ijk) == 1 else ijk
     launch("triangle_contract", "triangle_contract", _TRIANGLE_CONTRACT_ARGTYPES, out.device,
-           a, b, out, B, C, N, *sa, *sb, *so, variant, _DTYPE_CODES[out.dtype])
+           a, b, out, B, C, I, J, K, *sa, *sb, *so, variant, _DTYPE_CODES[out.dtype])
 
 
 _MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
 
 
-def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
-    """z [B,N,N,C], res_mask [B,N] -> (a, b) each [B,H,N,N] channel-major."""
+def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
+    """z [B,I,N,C], res_mask [B,I] (the rows' mask) and col_mask [B,N]
+    (the columns'; default res_mask, I = N) -> (a, b) each [B,H,I,N]
+    channel-major."""
+    col_mask = res_mask if col_mask is None else col_mask
     params = [w[k] for k in PROJECT_PARAMS]
     if records_grad([z, *params]) and not _on_cpu(z):
-        return Recomputed.apply(_PROJECT_KERNEL, _PROJECT_PLAIN, z, res_mask, *params)
-    return _project_gated_cm_forward(z, res_mask, w)
+        return Recomputed.apply(functools.partial(_PROJECT_KERNEL, col_mask=col_mask),
+                                functools.partial(_PROJECT_PLAIN, col_mask=col_mask), z, res_mask, *params)
+    return _project_gated_cm_forward(z, res_mask, w, col_mask)
 
 
-def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weights):
+def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
     """The kernel for a tensor on the card (no graph), the plain version for
     a tensor on the CPU."""
+    col_mask = res_mask if col_mask is None else col_mask
     if _on_cpu(z):
-        return project_gated_cm_plain(z, res_mask, w)
+        return project_gated_cm_plain(z, res_mask, w, col_mask)
     _check_activation("project z", z, 4)
-    B, N, N2, C = z.shape
+    B, I, N, C = z.shape
     H = w["w_ap"].shape[0]
     shapes_ok = all(tuple(w[f"w_{k}"].shape) == (H, C) and tuple(w[f"b_{k}"].shape) == (H,)
                     for k in ("ap", "ag", "bp", "bg"))
-    if N2 != N or tuple(res_mask.shape) != (B, N) or C > _MAX_CHANNELS or H < 1 or not shapes_ok:
-        raise ValueError(f"project: z {tuple(z.shape)}, res_mask {tuple(res_mask.shape)}, H={H}")
+    if tuple(res_mask.shape) != (B, I) or tuple(col_mask.shape) != (B, N) or C > _MAX_CHANNELS or H < 1 \
+            or not shapes_ok:
+        raise ValueError(f"project: z {tuple(z.shape)}, row mask {tuple(res_mask.shape)}, column mask "
+                         f"{tuple(col_mask.shape)}, H={H}")
     dev = z.device
-    a = torch.empty((B, H, N, N), dtype=z.dtype, device=dev)
+    a = torch.empty((B, H, I, N), dtype=z.dtype, device=dev)
     b = torch.empty_like(a)
     # The kernel rounds the product weights to the activation dtype and
     # orders them itself, as it stages them; it reads the parameters in
     # float32 or bfloat16, all in W_ap's dtype.
     pdt = w["w_ap"].dtype if w["w_ap"].dtype in _DTYPE_CODES else torch.float32
     params = [_as(w[k], pdt, dev) for k in PROJECT_PARAMS]
-    _launch("trimul_project", dev, z, _f32(res_mask, dev), *params, a, b, B, N, C, H, _DTYPE_CODES[z.dtype],
-            _DTYPE_CODES[pdt])
+    _launch("trimul_project", dev, z, _f32(res_mask, dev), _f32(col_mask, dev), *params, a, b, B, I, N, C, H,
+            _DTYPE_CODES[z.dtype], _DTYPE_CODES[pdt])
     LAUNCHES["trimul_project"] += 1
     return a, b
 
 
 def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
-    """[B,H,N,N] x [B,H,N,N] -> [B,H,N,N]; `outgoing` selects which index is k."""
+    """outgoing a [B,H,I,K] x b [B,H,J,K], incoming a [B,H,K,I] x b
+    [B,H,K,J] -> [B,H,I,J]; `outgoing` selects which index is k."""
     if records_grad([a, b]) and not _on_cpu(a):
         return ContractCM.apply(a, b, outgoing)
     return _contract_cm_forward(a, b, outgoing)
@@ -294,11 +321,12 @@ def _contract_cm_forward(a: torch.Tensor, b: torch.Tensor, outgoing: bool) -> to
         return contract_cm_plain(a, b, outgoing)
     _check_activation("contract a", a, 4)
     _check_activation("contract b", b, 4)
-    B, H, N, N2 = a.shape
-    if N2 != N or b.shape != a.shape or b.dtype != a.dtype or b.device != a.device:
+    B, H = a.shape[:2]
+    (I, K), (J, K2) = (a.shape[2:], b.shape[2:]) if outgoing else (a.shape[:1:-1], b.shape[:1:-1])
+    if K2 != K or b.shape[:2] != a.shape[:2] or b.dtype != a.dtype or b.device != a.device:
         raise ValueError(f"contract: a {tuple(a.shape)} {a.dtype}, b {tuple(b.shape)} {b.dtype}")
-    out = torch.empty_like(a)
-    _launch("trimul_contract", a.device, a, b, out, B * H, N, int(outgoing), _DTYPE_CODES[a.dtype])
+    out = torch.empty((B, H, I, J), dtype=a.dtype, device=a.device)
+    _launch("trimul_contract", a.device, a, b, out, B * H, I, J, K, int(outgoing), _DTYPE_CODES[a.dtype])
     LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] += 1
     return out
 
@@ -309,17 +337,20 @@ def contract_cm_km(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
         return contract_cm_km_plain(a, b_km)
     _check_activation("contract_km a", a, 4)
     _check_activation("contract_km b", b_km, 4, like=a)
-    if a.shape[2] != a.shape[3] or b_km.shape != a.shape:
+    B, H, I, K = a.shape
+    J = b_km.shape[3]
+    if b_km.shape[:3] != (B, H, K):
         raise ValueError(f"contract_km: a {tuple(a.shape)}, b {tuple(b_km.shape)}")
-    out = torch.empty_like(a)
+    out = torch.empty((B, H, I, J), dtype=a.dtype, device=a.device)
     sb, sh, s2, s3 = b_km.stride()
-    launch_triangle_contract(a, b_km, out, a.shape[:3], a.stride(), (sb, sh, s3, s2), out.stride(), variant=1)
+    dims = (B, H, I) if I == J == K else (B, H, I, J, K)
+    launch_triangle_contract(a, b_km, out, dims, a.stride(), (sb, sh, s3, s2), out.stride(), variant=1)
     LAUNCHES["contract_cm_km"] += 1
     return out
 
 
 def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
-    """x [B,H,N,N] + z [B,N,N,C] -> gated output [B,N,N,C_out] row-major."""
+    """x [B,H,I,N] + z [B,I,N,C] -> gated output [B,I,N,C_out] row-major."""
     params = [w[k] for k in EPILOGUE_PARAMS]
     if records_grad([x, z, *params]) and not _on_cpu(x):
         return Recomputed.apply(_EPILOGUE_KERNEL, _EPILOGUE_PLAIN, x, z, *params)
@@ -331,28 +362,28 @@ def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.
         return epilogue_cm_plain(x, z, w)
     _check_activation("epilogue x", x, 4)
     _check_activation("epilogue z", z, 4)
-    B, H, N, _ = x.shape
+    B, H, I, N = x.shape
     C = z.shape[-1]
     D = w["w_z"].shape[0]
     if (
-        tuple(z.shape) != (B, N, N, C) or z.dtype != x.dtype or z.device != x.device
+        tuple(z.shape) != (B, I, N, C) or z.dtype != x.dtype or z.device != x.device
         or tuple(w["w_z"].shape) != (D, H) or tuple(w["w_g"].shape) != (D, C) or H > _MAX_CHANNELS
         or C > _MAX_CHANNELS
     ):
         raise ValueError(f"epilogue: x {tuple(x.shape)}, z {tuple(z.shape)}, C_out={D}")
     dev = x.device
-    out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
+    out = torch.empty((B, I, N, D), dtype=z.dtype, device=dev)
     # The kernel folds LN_out into linear_z (fold_ln_out) and rounds the
     # product weights to the activation dtype itself, as it stages them.
     params = [_f32(w[k], dev) for k in EPILOGUE_PARAMS]
-    _launch("trimul_epilogue", dev, x, z, *params, out, B, N, C, H, D, _DTYPE_CODES[x.dtype])
+    _launch("trimul_epilogue", dev, x, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[x.dtype])
     LAUNCHES["trimul_epilogue"] += 1
     return out
 
 
 def epilogue_partial(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
                      ln_out_bias: torch.Tensor) -> torch.Tensor:
-    """x [B,H_r,N,N] and this rank's epilogue weights -> the flat float32
+    """x [B,H_r,I,N] and this rank's epilogue weights -> the flat float32
     partial sums (`epilogue_partial_plain`)."""
     if records_grad([x, w_z, ln_out_scale, ln_out_bias]) and not _on_cpu(x):
         return Recomputed.apply(_epilogue_partial_forward, epilogue_partial_plain, x, w_z, ln_out_scale,
@@ -364,15 +395,14 @@ def _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias) -> torch.Tensor
     if _on_cpu(x):
         return epilogue_partial_plain(x, w_z, ln_out_scale, ln_out_bias)
     _check_activation("epilogue_partial x", x, 4)
-    B, H, N, N2 = x.shape
+    B, H, I, N = x.shape
     D = w_z.shape[0]
-    if N2 != N or tuple(w_z.shape) != (D, H) or ln_out_scale.shape != (H,) or ln_out_bias.shape != (H,) \
-            or H > _MAX_CHANNELS:
+    if tuple(w_z.shape) != (D, H) or ln_out_scale.shape != (H,) or ln_out_bias.shape != (H,) or H > _MAX_CHANNELS:
         raise ValueError(f"epilogue_partial: x {tuple(x.shape)}, w_z {tuple(w_z.shape)}")
     dev = x.device
     params = [_f32(t, dev) for t in (w_z, ln_out_scale, ln_out_bias)]
-    part = torch.empty(part_size(B, N, D), dtype=torch.float32, device=dev)
-    _launch("trimul_epilogue_partial", dev, x, *params, part, B, N, H, D, _DTYPE_CODES[x.dtype],
+    part = torch.empty(part_size(B, N, D, I), dtype=torch.float32, device=dev)
+    _launch("trimul_epilogue_partial", dev, x, *params, part, B, I, N, H, D, _DTYPE_CODES[x.dtype],
             source="trimul_epilogue")
     LAUNCHES["trimul_epilogue_partial"] += 1
     return part
@@ -380,7 +410,7 @@ def _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias) -> torch.Tensor
 
 def epilogue_finish(part: torch.Tensor, z: torch.Tensor, w: Weights, H: int) -> torch.Tensor:
     """The partial sums of all H channels, summed over the ranks, and z
-    [B,N,N,C] -> gated output [B,N,N,C_out] (`epilogue_finish_plain`)."""
+    [B,I,N,C] -> gated output [B,I,N,C_out] (`epilogue_finish_plain`)."""
     params = [w[k] for k in FINISH_PARAMS]
     kernel, plain = functools.partial(_epilogue_finish_forward, H=H), functools.partial(epilogue_finish_plain, H=H)
     if records_grad([part, z, *params]) and not _on_cpu(z):
@@ -392,16 +422,16 @@ def _epilogue_finish_forward(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H:
     if _on_cpu(z):
         return epilogue_finish_plain(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H)
     _check_activation("epilogue_finish z", z, 4)
-    B, N, N2, C = z.shape
+    B, I, N, C = z.shape
     D = w_g.shape[0]
-    if N2 != N or part.dtype != torch.float32 or part.shape != (part_size(B, N, D),) or not part.is_contiguous() \
+    if part.dtype != torch.float32 or part.shape != (part_size(B, N, D, I),) or not part.is_contiguous() \
             or tuple(w_g.shape) != (D, C) or C > _MAX_CHANNELS or H < 1:
         raise ValueError(f"epilogue_finish: part {tuple(part.shape)}, z {tuple(z.shape)}, C_out={D}")
     dev = z.device
-    u, vb = split_part(part, B, N, D)[1]  # the weight sums, views into part
+    u, vb = split_part(part, B, N, D, I)[1]  # the weight sums, views into part
     params = [_f32(t, dev) for t in (ln_in_scale, ln_in_bias)] + [u, vb] + [_f32(t, dev) for t in (b_z, w_g, b_g)]
-    out = torch.empty((B, N, N, D), dtype=z.dtype, device=dev)
-    _launch("trimul_epilogue_finish", dev, part, z, *params, out, B, N, C, H, D, _DTYPE_CODES[z.dtype],
+    out = torch.empty((B, I, N, D), dtype=z.dtype, device=dev)
+    _launch("trimul_epilogue_finish", dev, part, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[z.dtype],
             source="trimul_epilogue")
     LAUNCHES["trimul_epilogue_finish"] += 1
     return out
@@ -421,10 +451,19 @@ def _flat(fn, names):
     return flat
 
 
+def _project(fn):
+    """fn(z, row mask, w, column mask) as a function of (z, row mask,
+    *params, col_mask=None: the row mask), for `Recomputed`."""
+    @functools.wraps(fn)
+    def flat(z, row_mask, *params, col_mask=None):
+        return fn(z, row_mask, dict(zip(PROJECT_PARAMS, params)), col_mask)
+    return flat
+
+
 # The projection's and the epilogue's kernel forwards and plain versions, as
 # `Recomputed` takes them.
-_PROJECT_KERNEL = _flat(_project_gated_cm_forward, PROJECT_PARAMS)
-_PROJECT_PLAIN = _flat(project_gated_cm_plain, PROJECT_PARAMS)
+_PROJECT_KERNEL = _project(_project_gated_cm_forward)
+_PROJECT_PLAIN = _project(project_gated_cm_plain)
 _EPILOGUE_KERNEL = _flat(_epilogue_cm_forward, EPILOGUE_PARAMS)
 _EPILOGUE_PLAIN = _flat(epilogue_cm_plain, EPILOGUE_PARAMS)
 
@@ -456,7 +495,7 @@ class ContractCM(torch.autograd.Function):
 
 
 def trimul(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, outgoing: bool = True) -> torch.Tensor:
-    """The whole update before the residual: z [B,N,N,C] -> [B,N,N,C]."""
+    """The whole update before the residual, square: z [B,N,N,C] -> [B,N,N,C]."""
     a, b = project_gated_cm(z, res_mask, w)
     x = contract_cm(a, b, outgoing)
     return epilogue_cm(x, z, w)

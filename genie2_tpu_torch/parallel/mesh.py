@@ -1,14 +1,18 @@
-"""The ranks of torch.distributed as a (data x model) grid: one process a card.
+"""The ranks of torch.distributed as a (data x seq x model) grid: one process a card.
 
-Counterpart of genie2_tpu/parallel/mesh.py's `data` and `model` axes.
-genie2_tpu runs one controller over a jax Mesh and lets XLA insert the
-collectives; here every card has its own process (launched by `torchrun`,
-or by `parallel/spawn.py`), and the code calls the collectives itself. The
-W ranks form a grid of n_data x n_model, `model` innermost as in
-genie2_tpu's `create_mesh`: rank r has model index r % n_model and data
-index r // n_model. The model ranks of one data index hold the same rows
-and split the weights (parallel/tensor_parallel.py); the helpers below
-shard and gather rows over the data axis only:
+Counterpart of genie2_tpu/parallel/mesh.py's `data`, `seq` and `model`
+axes. genie2_tpu runs one controller over a jax Mesh and lets XLA insert
+the collectives; here every card has its own process (launched by
+`torchrun`, or by `parallel/spawn.py`), and the code calls the collectives
+itself. The W ranks form a grid of n_data x n_seq x n_model, `model`
+innermost and `seq` next, as in genie2_tpu's `create_mesh`: rank r has
+model index r % n_model, seq index (r // n_model) % n_seq and data index
+r // (n_seq n_model). The model ranks of one (data, seq) index hold the
+same rows and split the weights (parallel/tensor_parallel.py); the seq
+ranks of one (data, model) index hold the same weights and batch rows and
+split the pair representation's residue rows
+(parallel/sequence_parallel.py); the helpers below shard and gather batch
+rows over the data axis only:
 
   * training: each data index takes its rows of the global batch, and
     after the backward the gradients are all-reduced over the data group
@@ -24,9 +28,12 @@ implements only those two for CUDA tensors, so the same code runs over
 NCCL, over gloo on the CPU and over gloo on CUDA tensors (two ranks on one
 card, which NCCL refuses).
 
-Every rank creates every data group and every model group, in the same
-order (`dist.new_group` is a collective of the whole world). The `seq`
-axis (`pair_sharding`) is not ported: it raises NotImplementedError.
+Every rank creates every group, in the same order (`dist.new_group` is a
+collective of the whole world): the data groups (one per (seq, model)
+index), the model groups (one per (data, seq) index), the seq groups (one
+per (data, model) index) and, where n_seq > 1, the replica groups (one per
+model index: the ranks that hold the same parameter shards, over which the
+gradients are averaged).
 """
 
 from __future__ import annotations
@@ -39,16 +46,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-UNPORTED_AXES = "ROADMAP A.5.2: sequence sharding is not ported to genie2_tpu_torch yet"
-
-
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data x model) grid: its rank, the world
-    size, the device its tensors (and the collectives' buffers) live on,
-    the model axis's size and the two process groups of this rank. A group
-    None is torch.distributed's default group (the data group where
-    n_model is 1); there is no model group where n_model is 1."""
+    """This process's place in the (data x seq x model) grid: its rank, the
+    world size, the device its tensors (and the collectives' buffers) live
+    on, the model and seq axes' sizes and the process groups of this rank.
+    A group None is torch.distributed's default group (the data group where
+    n_seq and n_model are 1); there is no model group where n_model is 1
+    and no seq group where n_seq is 1. The replica group is the data group
+    where n_seq is 1."""
 
     rank: int
     world_size: int
@@ -56,14 +62,21 @@ class Mesh:
     n_model: int = 1
     data_group: Any = None
     model_group: Any = None
+    n_seq: int = 1
+    seq_group: Any = None
+    replica_group: Any = None
 
     @property
     def n_data(self) -> int:
-        return self.world_size // self.n_model
+        return self.world_size // (self.n_model * self.n_seq)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.n_model
+        return self.rank // (self.n_model * self.n_seq)
+
+    @property
+    def seq_rank(self) -> int:
+        return (self.rank // self.n_model) % self.n_seq
 
     @property
     def model_rank(self) -> int:
@@ -99,43 +112,61 @@ def init_from_launcher(device) -> None:
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
 
 
-def create_mesh(n_data: int = -1, device=None, n_model: int = 1) -> Mesh:
-    """The (data x model) grid over every rank of the initialised process
-    group: `n_model` must divide the world size, and `n_data` is -1 or the
-    world size over it (every rank holds a part of the grid). Creates the
-    data and model groups on every rank."""
+def create_mesh(n_data: int = -1, device=None, n_model: int = 1, n_seq: int = 1) -> Mesh:
+    """The (data x seq x model) grid over every rank of the initialised
+    process group: `n_seq` x `n_model` must divide the world size, and
+    `n_data` is -1 or the world size over it (every rank holds a part of
+    the grid). Creates every group on every rank."""
     # model_io imports the modules, which import parallel/: resolved here.
     from genie2_tpu_torch.utils.model_io import resolve_device
 
     if not dist.is_initialized():
         raise ValueError("create_mesh needs an initialised process group (torchrun, or init_from_launcher)")
     world = dist.get_world_size()
-    if n_model < 1 or world % n_model:
-        raise ValueError(f"meshModel {n_model} must divide the world size ({world} ranks)")
-    if n_data not in (-1, world // n_model):
-        raise ValueError(f"meshData {n_data} must be -1 or the world size over meshModel "
-                         f"({world} ranks / {n_model} = {world // n_model})")
+    if n_model < 1 or n_seq < 1 or world % (n_model * n_seq):
+        raise ValueError(f"meshSeq {n_seq} x meshModel {n_model} must divide the world size ({world} ranks)")
+    inner = n_model * n_seq
+    if n_data not in (-1, world // inner):
+        raise ValueError(f"meshData {n_data} must be -1 or the world size over meshSeq x meshModel "
+                         f"({world} ranks / {inner} = {world // inner})")
     rank = dist.get_rank()
-    data_group = model_group = None
-    if n_model > 1:
-        for d in range(world // n_model):
-            group = dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
-            if rank // n_model == d:
-                model_group = group
-        for m in range(n_model):
-            group = dist.new_group(list(range(m, world, n_model)))
-            if rank % n_model == m:
-                data_group = group
-    return Mesh(rank, world, resolve_device(device), n_model, data_group, model_group)
+
+    def groups(members):
+        """One new group of each rank list, in order; this rank's."""
+        mine = None
+        for ranks in members:
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+        return mine
+
+    ids = [(r // inner, (r // n_model) % n_seq, r % n_model) for r in range(world)]  # (data, seq, model)
+
+    def along(axis):
+        """The rank lists that differ only in `axis` (0 data, 1 seq, 2 model)."""
+        keys = sorted({i[:axis] + i[axis + 1:] for i in ids})
+        return [[r for r, i in enumerate(ids) if i[:axis] + i[axis + 1:] == k] for k in keys]
+
+    data_group = model_group = seq_group = replica_group = None
+    if inner > 1:
+        model_group = groups(along(2)) if n_model > 1 else None
+        data_group = groups(along(0))
+    if n_seq > 1:
+        seq_group = groups(along(1))
+        replica_group = groups([[r for r, i in enumerate(ids) if i[2] == m] for m in range(n_model)])
+    else:
+        replica_group = data_group
+    return Mesh(rank, world, resolve_device(device), n_model, data_group, model_group, n_seq, seq_group,
+                replica_group)
 
 
-def mesh_from_config(n_data: int, device=None, n_model: int = 1) -> Optional[Mesh]:
-    """The training mesh of `meshData` x `meshModel`: over every rank of the
-    initialised process group, or None in a process started alone, where
-    `n_data` must be -1 or 1 and `n_model` 1."""
+def mesh_from_config(n_data: int, device=None, n_model: int = 1, n_seq: int = 1) -> Optional[Mesh]:
+    """The training mesh of `meshData` x `meshSeq` x `meshModel`: over every
+    rank of the initialised process group, or None in a process started
+    alone, where `n_data` must be -1 or 1 and `n_seq` and `n_model` 1."""
     if dist.is_available() and dist.is_initialized():
-        return create_mesh(n_data, device, n_model)
-    for key, n in (("meshData", n_data), ("meshModel", n_model)):
+        return create_mesh(n_data, device, n_model, n_seq)
+    for key, n in (("meshData", n_data), ("meshSeq", n_seq), ("meshModel", n_model)):
         if n not in (-1, 1):
             raise ValueError(f"{key} {n} needs {n} ranks, and this process is alone: launch with "
                              f"torchrun --nproc_per_node {n}")
@@ -143,42 +174,43 @@ def mesh_from_config(n_data: int, device=None, n_model: int = 1) -> Optional[Mes
 
 
 def mesh_from_arg(num_devices: Optional[int] = None, n_seq: int = 1, n_model: int = 1, device=None) -> Optional[Mesh]:
-    """Resolve the CLIs' --num_devices and --mesh_model (and --mesh_seq)
-    into a mesh; None means one process, no sharding. --num_devices counts
-    every rank, data x model, as in genie2_tpu: -1 means every rank of the
+    """Resolve the CLIs' --num_devices, --mesh_seq and --mesh_model into a
+    mesh; None means one process, no sharding. --num_devices counts every
+    rank, data x seq x model, as in genie2_tpu: -1 means every rank of the
     launch; any other count must equal the launch's world size, and a count
     other than 1 needs a launcher, as genie2_tpu refuses more devices than
-    it has. --mesh_model must divide it."""
-    if n_seq != 1:
-        raise NotImplementedError(f"--mesh_seq {n_seq}: {UNPORTED_AXES}")
-    if n_model < 1:
-        raise ValueError(f"--mesh_model {n_model} must be at least 1")
+    it has. --mesh_seq x --mesh_model must divide it."""
+    for flag, n in (("--mesh_seq", n_seq), ("--mesh_model", n_model)):
+        if n < 1:
+            raise ValueError(f"{flag} {n} must be at least 1")
     world = launcher_world_size()
+    inner = n_seq * n_model
     if num_devices in (None, 1):
         if world is not None and world > 1:
             raise ValueError(f"launched with {world} ranks: pass --num_devices {world} (or -1)")
-        if n_model != 1:
-            raise ValueError(f"--mesh_model {n_model} needs a torchrun launch of at least {n_model} ranks: "
-                             f"torchrun --nproc_per_node {n_model} ... --num_devices {n_model}")
+        for flag, n in (("--mesh_seq", n_seq), ("--mesh_model", n_model)):
+            if n != 1:
+                raise ValueError(f"{flag} {n} needs a torchrun launch of at least {n} ranks: "
+                                 f"torchrun --nproc_per_node {n} ... --num_devices {n}")
         return None
     if world is None:
         raise ValueError(f"--num_devices {num_devices} needs one process a device: launch with "
                          "torchrun --nproc_per_node N")
     if num_devices not in (-1, world):
         raise ValueError(f"--num_devices {num_devices} but the launch has {world} ranks")
-    if world < n_model:
-        raise ValueError(f"--mesh_seq {n_seq} x --mesh_model {n_model} needs at least {n_model} devices; "
+    if world < inner:
+        raise ValueError(f"--mesh_seq {n_seq} x --mesh_model {n_model} needs at least {inner} devices; "
                          f"--num_devices resolves to {world}")
-    if world % n_model:
+    if world % inner:
         raise ValueError(f"--num_devices {world} not divisible by --mesh_seq {n_seq} x --mesh_model {n_model} = "
-                         f"{n_model}")
+                         f"{inner}")
     init_from_launcher(device)
-    return create_mesh(-1, device, n_model)
+    return create_mesh(-1, device, n_model, n_seq)
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
     """The divisor of batch and particle counts: the data axis's size, 1
-    without a mesh (the model axis replicates rows)."""
+    without a mesh (the seq and model axes replicate batch rows)."""
     return 1 if mesh is None else mesh.n_data
 
 
@@ -189,7 +221,7 @@ def is_main(mesh: Optional[Mesh]) -> bool:
 
 def local_rows(n: int, mesh: Optional[Mesh]) -> slice:
     """This rank's rows of a global axis of `n` (divisible by the data
-    axis): those of its data index, the same on every model rank."""
+    axis): those of its data index, the same on every seq and model rank."""
     if mesh is None:
         return slice(0, n)
     per = n // mesh.n_data
@@ -255,11 +287,14 @@ GRAD_BUCKET_BYTES = 32 << 20  # the flattened gradient buckets of one all-reduce
 
 
 def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
-    """Replace each gradient by its mean over the data axis (in place), in a
-    few flattened buckets, each one all-reduce SUM over the data group
-    divided by its size, as genie2_tpu's psum over the data axis; nothing
-    without a mesh. A sharded gradient is this model rank's shard, reduced
-    with the same shard of the other data indices. Every
+    """Replace each gradient by its mean over the data and seq axes (in
+    place), in a few flattened buckets, each one all-reduce SUM over the
+    replica group divided by its size, as genie2_tpu's psum over the data
+    axis; nothing without a mesh. A seq rank's gradient is its share of its
+    data index's, counted n_seq times over the seq group
+    (parallel/sequence_parallel.py), so the mean over both axes is the
+    data axis's mean. A sharded gradient is this model rank's shard,
+    reduced with the same shard of the other data and seq indices. Every
     rank passes the same list: a gradient that is None on one rank is None
     on all (the same model and path) and is left out by the caller, since
     Adam skips a None gradient but would update its moments on a zero one."""
@@ -276,8 +311,8 @@ def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
             size += g.numel() * g.element_size()
         for bucket in buckets:
             flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
-            flat.div_(mesh.n_data)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.replica_group)
+            flat.div_(mesh.n_data * mesh.n_seq)
             for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
                 g.copy_(part.view_as(g))
 

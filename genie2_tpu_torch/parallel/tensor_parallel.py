@@ -58,6 +58,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from genie2_tpu_torch.parallel.sequence_parallel import shard_sequence
+
 # (state_dict name pattern, dimension split, layout). Linear weights are
 # [out, in]: dimension 0 splits the output features (column parallel), 1
 # the input ones (row parallel); a bias follows its weight's output.
@@ -240,9 +242,12 @@ def tp_plan(model: nn.Module) -> Optional[Plan]:
 
 @torch.no_grad()
 def shard_model(model: nn.Module, mesh) -> nn.Module:
-    """Slice a full model in place to this rank's shards over the mesh's
-    model group (nothing without a model axis) and record the plan on it
-    (`tp_plan`); genie2_tpu's `place_params`. Returns the model."""
+    """Place a full model on the mesh, in place: row-sharded over its seq
+    group (parallel/sequence_parallel.py:shard_sequence; the weights stay
+    whole) and sliced to this rank's shards over its model group, with the
+    plan recorded on it (`tp_plan`); genie2_tpu's `place_params`. Nothing
+    without a seq or model axis. Returns the model."""
+    shard_sequence(model, mesh)
     if mesh is None or mesh.n_model == 1:
         return model
     if tp_plan(model) is not None:

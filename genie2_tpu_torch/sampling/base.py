@@ -135,7 +135,7 @@ class BaseSampler(ABC):
         branch is the same batch with both fixed (motif) masks zeroed and
         its own static bias, so each step calls the model twice. strength
         0 is the plain conditional model, one call."""
-        static_bias = self.model.pair_feature_net.static_bias(features, self.dtype)
+        static_bias = self.model.static_bias(features, self.dtype)
 
         def conditional(frames, t_vec):
             return apply_denoiser(self.model, frames, t_vec, features, static_bias, self.dtype)
@@ -146,7 +146,7 @@ class BaseSampler(ABC):
         uncond = dict(features)
         uncond["fixed_sequence_mask"] = torch.zeros_like(features["fixed_sequence_mask"])
         uncond["fixed_structure_mask"] = torch.zeros_like(features["fixed_structure_mask"])
-        uncond_bias = self.model.pair_feature_net.static_bias(uncond, self.dtype)
+        uncond_bias = self.model.static_bias(uncond, self.dtype)
         w = 1.0 + float(strength)
 
         def combined(frames, t_vec):

@@ -17,12 +17,15 @@
 `scanSteps` K runs K single steps: the numerics are those of K steps
 whatever K is, and preemption and mid-epoch saves act at every step.
 
-Data and tensor parallel: in a process group (torchrun, `cli/train.py
---distributed`), the ranks form a grid of `meshData` x `meshModel`
-(parallel/mesh.py; `meshData` -1 takes the world size over `meshModel`):
-every rank builds the same global batch and trains on its data index's
-rows (train/state.py), and the model ranks of one data index split the
-weights (parallel/tensor_parallel.py). Rank 0 picks the version directory
+Data, sequence and tensor parallel: in a process group (torchrun,
+`cli/train.py --distributed`), the ranks form a grid of `meshData` x
+`meshSeq` x `meshModel` (parallel/mesh.py; `meshData` -1 takes the world
+size over the other two): every rank builds the same global batch and
+trains on its data index's rows (train/state.py), the seq ranks of one
+data index split the pair representation's residue rows
+(parallel/sequence_parallel.py; the weights and the batch rows are theirs
+alike) and the model ranks split the weights
+(parallel/tensor_parallel.py). Rank 0 picks the version directory
 and writes the logs, checkpoints and resume points, all of them full (every
 rank gathers the shards first, so a file written under one grid loads
 under any other, or in one process); the others wait for it at a barrier
@@ -119,14 +122,15 @@ def latest_version(basedir: str) -> Optional[int]:
 class Trainer:
     """Epoch loop and checkpointing over the training step, on one device
     (`device`: cuda unless the caller names the CPU), or on each rank of an
-    initialised process group, data and tensor parallel (`meshData`,
-    `meshModel`)."""
+    initialised process group, data, sequence and tensor parallel
+    (`meshData`, `meshSeq`, `meshModel`)."""
 
     def __init__(self, config: Config, model: Optional[Denoiser] = None, version: Optional[int] = None,
                  resume: bool = False, init_from: Optional[str] = None, device=None):
         self.config = config
         self.device = resolve_device(device)
-        self.mesh = mesh_from_config(config.tpu.get("mesh_data", -1), self.device, config.tpu.get("mesh_model", 1))
+        self.mesh = mesh_from_config(config.tpu.get("mesh_data", -1), self.device, config.tpu.get("mesh_model", 1),
+                                     config.tpu.get("mesh_seq", 1))
         cfg = config.training
         n_data = data_axis_size(self.mesh)
         if cfg["batch_size"] % n_data:

@@ -354,6 +354,78 @@ def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
 
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,i", [(96, 48), (70, 35), (256, 128), (33, 17)])
+def test_row_block_kernels_match_plain(device, dtype, n, i):
+    """The row-block cases of sequence parallelism (the last i of n rows, as
+    the last seq rank holds them) against the plain versions, forward and
+    gradient: the projection with its row and column masks, the outgoing
+    contraction of i rows against all of b, the incoming partial sums over
+    i rows of k, the epilogue and its two stages on i rows, contract_cm_km
+    at (i, n, n) and (n, n, i), the IPA core with i query rows, triangle
+    attention with i queries against n keys."""
+    gen = torch.Generator(device=device).manual_seed(n + i)
+    c, h = 32, 24
+    rows = slice(n - i, n)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device).to(dtype)  # noqa: E731
+    w = {k: v.to(dtype).requires_grad_(True) for k, v in _weights(c, h, gen, device).items()}
+    z = r(2, i, n, c).requires_grad_(True)
+    res_mask = (torch.arange(n, device=device) < n - 5).float().expand(2, n).contiguous()
+    row_mask = res_mask[:, rows].contiguous()
+    inputs = [z, *(w[k] for k in trimul.PROJECT_PARAMS)]
+    da, db = r(2, h, i, n), r(2, h, i, n)
+    _grad_close(_grads_of(lambda: trimul.project_gated_cm(z, row_mask, w, res_mask), inputs, (da, db)),
+                _grads_of(lambda: trimul.project_gated_cm_plain(z, row_mask, w, res_mask), inputs, (da, db)), dtype)
+    with torch.no_grad():
+        for got, want in zip(trimul.project_gated_cm(z, row_mask, w, res_mask),
+                             trimul.project_gated_cm_plain(z, row_mask, w, res_mask)):
+            _close(got, want, dtype)
+
+    a, b_full, b_rows = (r(2, h, i, n).requires_grad_(True), r(2, h, n, n).requires_grad_(True),
+                         r(2, h, i, n).requires_grad_(True))
+    for x_args, outgoing, dx in (((a, b_full), True, r(2, h, i, n)), ((a, b_rows), False, r(2, h, n, n))):
+        with torch.no_grad():
+            _close(trimul.contract_cm(*x_args, outgoing), trimul.contract_cm_plain(*x_args, outgoing), dtype)
+        _grad_close(_grads_of(lambda: trimul.contract_cm(*x_args, outgoing), x_args, dx),
+                    _grads_of(lambda: trimul.contract_cm_plain(*x_args, outgoing), x_args, dx), dtype)
+    with torch.no_grad():
+        for lhs, rhs in ((r(2, h, i, n), r(2, h, n, n)), (r(2, h, n, i), r(2, h, i, n))):
+            _close(trimul.contract_cm_km(lhs, rhs), trimul.contract_cm_km_plain(lhs, rhs), dtype)
+
+    x = r(2, h, i, n).requires_grad_(True)
+    dout = r(2, i, n, c)
+    inputs = [x, z, *(w[k] for k in trimul.EPILOGUE_PARAMS)]
+    _grad_close(_grads_of(lambda: trimul.epilogue_cm(x, z, w), inputs, dout),
+                _grads_of(lambda: trimul.epilogue_cm_plain(x, z, w), inputs, dout), dtype)
+    with torch.no_grad():
+        _close(trimul.epilogue_cm(x, z, w), trimul.epilogue_cm_plain(x, z, w), dtype)
+        halves = [(x[:, hs].contiguous(), w["w_z"][:, hs], w["ln_out_scale"][hs], w["ln_out_bias"][hs])
+                  for hs in (slice(0, h // 2), slice(h // 2, h))]
+        part = sum(trimul.epilogue_partial(*hv) for hv in halves)
+        _close(part, sum(trimul.epilogue_partial_plain(*hv) for hv in halves), dtype)
+        _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_cm_plain(x, z, w), dtype)
+
+    q, k, v, q_pts, k_pts, v_pts, bias, zz, hw, mask = _ipa_inputs(device, dtype, 2, n, 12, 16, 4, 8, 128, 5)
+    args = [q[:, rows], k, v, q_pts[:, rows], k_pts, v_pts, bias[:, rows], zz[:, rows], hw]
+    args = [t.contiguous().requires_grad_(True) for t in args] + [mask]
+    with torch.no_grad():
+        for got, want in zip(ipa.ipa_attention(*args), ipa.ipa_attention_plain(*args)):
+            _close(got, want, dtype)
+    cot = [torch.randn(o.shape, generator=gen, device=device).to(dtype) for o in ipa.ipa_attention_plain(*args)]
+    _grad_close(_grads_of(lambda: ipa.ipa_attention(*args), args[:9], cot),
+                _grads_of(lambda: ipa.ipa_attention_plain(*args), args[:9], cot), dtype)
+
+    q, k, v, tb, mask = _tri_att_inputs(device, dtype, 2, n, n, 4, 32)
+    q, tb = q[:, :, rows].contiguous(), tb[:, :, rows].contiguous()
+    for t in (q, k, v, tb):
+        t.requires_grad_(True)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    with torch.no_grad():
+        _close(tri_att.tri_attention(q, k, v, tb, mask), tri_att.tri_attention_plain(q, k, v, tb, mask), dtype)
+    _grad_close(_grads_of(lambda: tri_att.tri_attention(q, k, v, tb, mask), (q, k, v, tb), do),
+                _grads_of(lambda: tri_att.tri_attention_plain(q, k, v, tb, mask), (q, k, v, tb), do), dtype)
+
+
 def test_training_step_kernels_match_plain(device):
     """One training step (train/state.py) at a small width, batch 2 of
     lengths 70 and 64 (padded to 70), dropout and remat on, with the

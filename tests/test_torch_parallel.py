@@ -38,26 +38,35 @@ def no_launcher(monkeypatch):
     (-1, 1, 1, None, ValueError, "torchrun"),
     (None, 1, 1, "2", ValueError, "--num_devices 2"),
     (3, 1, 1, "2", ValueError, "has 2 ranks"),
-    (1, 2, 1, None, NotImplementedError, "ROADMAP A.5.2"),
+    (1, 2, 1, None, ValueError, "torchrun --nproc_per_node 2"),
     (-1, 1, 2, "2", None, None),
     (-1, 1, 2, "4", None, None),
+    (-1, 2, 1, "4", None, None),
+    (-1, 2, 2, "4", None, None),
+    (-1, 2, 2, "6", ValueError, "not divisible by --mesh_seq 2 x --mesh_model 2"),
     (None, 1, 2, None, ValueError, "torchrun --nproc_per_node 2"),
     (-1, 1, 3, "2", ValueError, "needs at least 3 devices"),
     (-1, 1, 2, "3", ValueError, "not divisible by --mesh_seq 1 x --mesh_model 2"),
 ])
 def test_mesh_from_arg(no_launcher, monkeypatch, num_devices, n_seq, n_model, world, error, match):
     """None or 1 is one process; a count other than 1 needs a launch of
-    that many ranks (or -1 for all of them), --mesh_model a launch it
-    divides, and then the ranks form a grid of data x model, model
-    innermost, with its groups; --mesh_seq other than 1 is not ported."""
+    that many ranks (or -1 for all of them), --mesh_seq x --mesh_model a
+    launch it divides, and then the ranks form a grid of data x seq x
+    model, model innermost and seq next, with its groups: the model group
+    of a (data, seq) index, the data group of a (seq, model) index, the seq
+    group of a (data, model) index and the replica group (data x seq) of a
+    model index."""
     if error is None and world is not None:
         grids = run_ranks(torch_ranks.mesh_grid, int(world), (num_devices, n_seq, n_model))
-        n = int(world)
+        n, inner = int(world), n_seq * n_model
         for r, grid in enumerate(grids):
-            d, m = divmod(r, n_model)
+            d, s, m = r // inner, (r // n_model) % n_seq, r % n_model
             assert grid == {"rank": r, "world": n, "n_model": n_model, "model_rank": m, "data_rank": d,
-                            "n_data": n // n_model, "model_group_sum": sum(range(d * n_model, (d + 1) * n_model)),
-                            "data_group_sum": sum(range(m, n, n_model))}
+                            "n_data": n // inner, "n_seq": n_seq, "seq_rank": s,
+                            "model_group_sum": sum(range(r - m, r - m + n_model)) if n_model > 1 else None,
+                            "data_group_sum": sum(range(s * n_model + m, n, inner)),
+                            "seq_group_sum": sum(range(d * inner + m, (d + 1) * inner, n_model)) if n_seq > 1 else None,
+                            "replica_group_sum": sum(range(m, n, n_model))}
         return
     if world is not None:
         monkeypatch.setenv("WORLD_SIZE", world)

@@ -209,7 +209,8 @@ def test_train_cli_two_ranks(tmp_path):
 def test_uneven_training_batch_raises(tmp_path, monkeypatch):
     """A batchSize the ranks do not divide is refused before any step, with
     genie2_tpu's wording."""
-    monkeypatch.setattr(loop, "mesh_from_config", lambda n_data, device, n_model: Mesh(0, 2, torch.device("cpu")))
+    monkeypatch.setattr(loop, "mesh_from_config",
+                        lambda n_data, device, n_model, n_seq: Mesh(0, 2, torch.device("cpu")))
     config = Config(overrides={**TRAINER, "batchSize": 3, "rootDirectory": str(tmp_path)})
     with pytest.raises(ValueError, match="pick a divisible batchSize or shrink meshData"):
         loop.Trainer(config, device="cpu")

@@ -164,15 +164,15 @@ def test_cli_cpu_writes_pdbs(models, tmp_path):
     (sample_scaffold, ["--mesh_seq", "2"]), (sample_scaffold, ["--mesh_model", "2"]),
     (sample_scaffold, ["--num_devices", "4"]),
     (sample_sse, ["--mesh_model", "2"]), (sample_sse, ["--num_devices", "2"]), (sample_sse, ["--num_devices", "-1"]),
+    (sample_sse, ["--mesh_seq", "2"]),
 ])
 def test_cli_refuses_unported_flags(flag, tmp_path):
-    """Sequence sharding is not ported: every CLI refuses its flag, naming
-    the ROADMAP item; --num_devices other than 1 and --mesh_model other
-    than 1 need a torchrun launch, and without one are an error naming it."""
+    """--num_devices, --mesh_seq and --mesh_model other than 1 need a
+    torchrun launch, and without one are an error naming it (the launched
+    runs: tests/test_torch_seq_cli.py, tests/test_torch_tp.py)."""
     cli, flags = flag
     argv = ["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--scale", "1", "--device", "cpu"]
-    error, match = (NotImplementedError, "ROADMAP A.5.2") if "--mesh_seq" in flags else (ValueError, "torchrun")
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(argv + flags)
 
 

@@ -429,7 +429,7 @@ def test_cli_without_card_raises_unless_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_motif_smc.main(["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--motif_index", "0",
                                "--motif_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="--mesh_seq"):
+    with pytest.raises(ValueError, match="--mesh_seq 2 needs a torchrun launch"):
         sample_motif_smc.main(["--name", "x", "--epoch", "1", "--outdir", str(tmp_path), "--motif_index", "0",
                                "--motif_dir", str(tmp_path), "--mesh_seq", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="torchrun"):

@@ -1,5 +1,5 @@
 """Rank bodies of the parallel tests (tests/test_torch_parallel*.py,
-tests/test_torch_tp.py).
+tests/test_torch_tp.py, tests/test_torch_seq*.py).
 
 `genie2_tpu_torch.parallel.spawn.run_ranks` runs each of them in spawned
 processes joined into one gloo group; the tests call the same functions
@@ -17,10 +17,10 @@ import numpy as np
 import torch
 
 
-def _mesh(distributed: bool, device="cpu", n_model: int = 1):
+def _mesh(distributed: bool, device="cpu", n_model: int = 1, n_seq: int = 1):
     from genie2_tpu_torch.parallel import create_mesh
 
-    return create_mesh(-1, device, n_model) if distributed else None
+    return create_mesh(-1, device, n_model, n_seq) if distributed else None
 
 
 def seeded_model(config, seed: int = 3):
@@ -77,12 +77,17 @@ def mesh_grid(rank: int, num_devices, n_seq: int, n_model: int):
 
     mesh = mesh_from_arg(num_devices, n_seq, n_model, "cpu")
     sums = {}
-    for name, group in (("model_group_sum", mesh.model_group), ("data_group_sum", mesh.data_group)):
+    for name, group in (("model_group_sum", mesh.model_group), ("data_group_sum", mesh.data_group),
+                        ("seq_group_sum", mesh.seq_group), ("replica_group_sum", mesh.replica_group)):
+        if group is None and name in ("model_group_sum", "seq_group_sum"):  # no such axis, no group
+            sums[name] = None
+            continue
         x = torch.tensor([float(rank)])
         dist.all_reduce(x, group=group)
         sums[name] = int(x.item())
     return {"rank": mesh.rank, "world": mesh.world_size, "n_model": mesh.n_model, "model_rank": mesh.model_rank,
-            "data_rank": mesh.data_rank, "n_data": mesh.n_data, **sums}
+            "data_rank": mesh.data_rank, "n_data": mesh.n_data, "n_seq": mesh.n_seq, "seq_rank": mesh.seq_rank,
+            **sums}
 
 
 def hang_or_raise(rank: int, mode: str):
@@ -100,14 +105,15 @@ def hang_or_raise(rank: int, mode: str):
 
 
 def train_steps(rank: int, config_overrides, state_dict, batch, steps: int, lr: float, inject=None,
-                distributed: bool = True, device: str = "cpu", n_model: int = 1):
+                distributed: bool = True, device: str = "cpu", n_model: int = 1, n_seq: int = 1):
     """`steps` training steps on `device`, on this rank's rows of `batch`
     (the whole of it without `distributed`), the model split over
     `n_model` model ranks: t and the noise injected (`inject`, the global
     batch's, one pair a step, dropout seed the step's index) or drawn from
     `step_randomness(0, 0, step)`. Returns per-step (metrics, gradients),
     the parameters and Adam's second moments after the last, on the CPU,
-    each full (gathered over the model ranks)."""
+    each full (gathered over the model ranks); the pair rows split over
+    `n_seq` seq ranks."""
     from genie2_tpu_torch.config import Config
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import to_device
@@ -116,7 +122,7 @@ def train_steps(rank: int, config_overrides, state_dict, batch, steps: int, lr: 
     from genie2_tpu_torch.parallel.tensor_parallel import gather_state_dict, shard_model, tp_plan
     from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
 
-    mesh = _mesh(distributed, device, n_model)
+    mesh = _mesh(distributed, device, n_model, n_seq)
     config = Config(overrides=config_overrides)
     model = Denoiser.from_config(config)
     model.load_state_dict(state_dict)
@@ -260,13 +266,16 @@ def _model(config_path: str, state_dict):
 
 
 def tds_run(rank: int, config_path: str, state_dict, motif_dir: str, outdir: str, n_particles: int,
-            distributed: bool = True):
+            distributed: bool = True, n_seq: int = 1):
     """SMCSampler on the motif problem of `motif_dir` with `n_particles`
-    over the ranks. Returns coordinates, placements and the trace."""
+    over the ranks' data axis (each rank's pair rows over `n_seq` seq
+    ranks). Returns coordinates, placements and the trace."""
+    from genie2_tpu_torch.parallel.tensor_parallel import shard_model
     from genie2_tpu_torch.sampling import SMCSampler
 
+    mesh = _mesh(distributed, "cpu", 1, n_seq)
     model, config = _model(config_path, state_dict)
-    sampler = SMCSampler(model, config, mesh=_mesh(distributed))
+    sampler = SMCSampler(shard_model(model, mesh), config, mesh=mesh)
     sampler.untwist_below = 2
     out = sampler.sample({"scale": 1.0, "outdir": outdir, "num_samples": n_particles, "prefix": "24", "offset": 0,
                           "motif_index": 0, "motif_dir": motif_dir, "seed": 3})
@@ -407,3 +416,63 @@ def tp_cli_runs(rank: int, runs, placement_seed: int = 7):
         base.BaseSampler.sample, sampling.sse_guided_sample = sample, sse
         unseed()
     return [np.concatenate(c) for c in coords]
+
+
+def seq_forward(rank: int, cases, n_seq: int, n_model: int = 1, distributed: bool = True):
+    """Each case (configuration overrides, state_dict, (translations, t,
+    host batch)) through a denoiser whose pair rows are split over `n_seq`
+    seq ranks (and its weights over `n_model` model ranks): z, this rank's
+    rows of p, the rows' slice, the bytes all-reduced over the seq group,
+    and z again with the samplers' static bias (Denoiser.static_bias)."""
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.features import to_device
+    from genie2_tpu_torch.geometry import Rigid, frenet_frames
+    from genie2_tpu_torch.nn import Denoiser
+    from genie2_tpu_torch.parallel import sequence_parallel as sp
+    from genie2_tpu_torch.parallel import tensor_parallel as tp
+
+    mesh = _mesh(distributed, "cpu", n_model, n_seq)
+    out = []
+    for overrides, state_dict, (trans, t, batch) in cases:
+        model = Denoiser.from_config(Config(overrides=overrides))
+        model.load_state_dict(state_dict)
+        tp.shard_model(model, mesh)
+        feats = to_device(batch, "cpu")
+        x = torch.as_tensor(trans)
+        frames = Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x)
+        sp.reset_volume()
+        with torch.no_grad():
+            res = model(frames, torch.as_tensor(t), feats)
+            volume = dict(sp.VOLUME)
+            z_static = model(frames, torch.as_tensor(t), feats, static_pair_bias=model.static_bias(feats))["z"]
+        rows = sp.row_slice(res["p"].shape[2], model.seq) if model.seq else slice(0, res["p"].shape[1])
+        out.append({"z": res["z"], "p": res["p"], "rows": (rows.start, rows.stop), "volume": volume,
+                    "z_static": z_static, "s": res["s"]})
+    return out
+
+
+def seq_collectives(rank: int, distributed: bool = True):
+    """gather_seq_rows, reduce_seq_rows and mean_grad_over_seq under
+    autograd: with a seq group of two ranks (each holding three of six rows
+    of x), or in one process (every row, and the identity for each
+    collective). Returns the gathered and reduced tensors and the
+    gradients of three losses."""
+    from genie2_tpu_torch.parallel import sequence_parallel as sp
+
+    mesh = _mesh(distributed, "cpu", 1, 2) if distributed else None
+    seq = sp.SeqGroup(mesh.seq_rank, mesh.n_seq, mesh.seq_group) if mesh else None
+    full = torch.arange(24, dtype=torch.float32).reshape(2, 6, 2) / 7.0
+    rows = slice(3 * rank, 3 * rank + 3) if seq else slice(None)
+    sp.reset_volume()
+    x = full[:, rows].clone().requires_grad_(True)
+    gathered = sp.gather_seq_rows(seq, 1, x)[0] if seq else x
+    (gathered.sin() * full).sum().backward()  # every rank the same loss of the whole tensor
+    partial = (full * (rank + 1.0) if seq else full * 3.0).clone().requires_grad_(True)
+    reduced = sp.reduce_seq_rows(partial, seq, 1) if seq else partial
+    (reduced.cos() * 2.0).sum().backward()  # each rank its rows' loss
+    y = full.clone().requires_grad_(True)
+    (ym,) = sp.mean_grad_over_seq(seq, y) if seq else (y,)
+    part = ym[:, rows]
+    (part.square().sum() * (2.0 if seq else 1.0)).backward()  # each rank its rows, counted n_seq times
+    return {"gathered": gathered.detach(), "reduced": reduced.detach(), "grad_gather": x.grad,
+            "grad_reduce": partial.grad, "grad_mean": y.grad, "volume": dict(sp.VOLUME)}

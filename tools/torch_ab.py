@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""A/B of two checkouts of the repository on one card, in turns A B B A.
+
+For each turn, in a process of its own whose genie2_tpu_torch is the
+checkout's (its kernels built into that checkout's build/): the square
+kernels at B=2, N=256, fp32 (the TriMul projection, both contraction
+directions, the epilogue, contract_cm_km, the IPA core, triangle
+attention; ms a call between CUDA events, chip_smoke.py's inputs), then
+the checkout's own tools/torch_profile_step.py for a reverse step
+(L=256, B=2) and a training step (`--train`: L=256, batch 4), their wall
+and device ms. Prints one JSON line a turn and, last, the medians of each
+checkout and the spread of its two turns.
+
+    python3 tools/torch_ab.py PARENT_DIR CHANGE_DIR
+
+Needs a CUDA card; imports torch and genie2_tpu_torch only.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+
+def kernel_times(tree: str) -> dict:
+    """ms a call of each square kernel of the checkout `tree`."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import chip_smoke as cs
+    from genie2_tpu_torch.ops import build, ipa, tri_att, trimul
+
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, N = 2, 256
+    w = cs.random_trimul_weights(cs.C_P, cs.H_MUL, gen, dev)
+    res_mask = (torch.arange(N, device=dev) < N - 24).float().expand(B, N).contiguous()
+    z = torch.randn(B, N, N, cs.C_P, generator=gen, device=dev)
+    a, b = trimul.project_gated_cm_plain(z, res_mask, w)
+    x = trimul.contract_cm_plain(a, b, True)
+    ipa_args = cs.random_ipa_inputs(B, N, z, res_mask, gen)
+    ta_args = cs.random_tri_att_inputs(B, N, torch.float32, gen, dev)
+    cases = {
+        "trimul_project": lambda: trimul.project_gated_cm(z, res_mask, w),
+        "trimul_contract_out": lambda: trimul.contract_cm(a, b, True),
+        "trimul_contract_in": lambda: trimul.contract_cm(a, b, False),
+        "trimul_epilogue": lambda: trimul.epilogue_cm(x, z, w),
+        "contract_cm_km": lambda: trimul.contract_cm_km(a, b),
+        "ipa_attention": lambda: ipa.ipa_attention(*ipa_args),
+        "tri_attention": lambda: tri_att.tri_attention(*ta_args),
+    }
+    with torch.no_grad():
+        return {name: cs.cuda_time_ms(fn, iters=50, warmup=5) for name, fn in cases.items()}
+
+
+def step_times(tree: str) -> dict:
+    """Wall and device ms of a reverse step and of a training step, from the
+    checkout's own profile tool."""
+    out = {}
+    for label, flags in (("reverse", ["--length", "256", "--batch", "2", "--quat", "eigh"]), ("train", ["--train"])):
+        proc = subprocess.run([sys.executable, os.path.join(tree, "tools", "torch_profile_step.py"), *flags],
+                              cwd=tree, capture_output=True, text=True, check=True, timeout=900)
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        out[label] = {k: rec[k] for k in ("wall_ms_per_step", "device_ms_per_step")}
+    return out
+
+
+def turn(tree: str) -> dict:
+    return {"tree": tree, "kernels_ms": kernel_times(tree), "steps": step_times(tree)}
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--turn"]:
+        print(json.dumps(turn(os.path.abspath(argv[1]))), flush=True)
+        return 0
+    parent, change = (os.path.abspath(p) for p in argv[:2])
+    runs = []
+    for label, tree in (("parent", parent), ("change", change), ("change", change), ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", tree], cwd=tree,
+                              capture_output=True, text=True, check=True, timeout=1800)
+        rec = {"label": label, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        print(json.dumps(rec), flush=True)
+        runs.append(rec)
+    summary = {}
+    for label in ("parent", "change"):
+        mine = [r for r in runs if r["label"] == label]
+        flat = [{**{f"kernel_{k}": v for k, v in r["kernels_ms"].items()},
+                 **{f"{s}_{k}": v for s, d in r["steps"].items() for k, v in d.items()}} for r in mine]
+        summary[label] = {k: sorted(f[k] for f in flat) for k in flat[0]}
+    print(json.dumps({"ab": summary, "order": [r["label"] for r in runs]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
