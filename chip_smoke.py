@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
                row-block cases of sequence parallelism (I=128 rows of
                N=256, the incoming partial sums over K=128, the IPA's and
                the ending node's I queries against N keys), forward and
-               gradient against the plain versions, timed; then each
+               gradient against the plain versions, timed beside a library
+               call where one computes the same function, with each case's
+               bound (row_block_bytes_ops); then each
                autograd Function's gradients (every input, one seeded
                cotangent) against autograd of the plain version, and the
                time of each backward beside its forward;
@@ -35,7 +37,12 @@ Phases, in order; any failure exits non-zero:
                and how often eigh's own backward meets a tied eigenvalue;
   4. main      the unconditional sampling CLI from a seeded Lightning-style
                checkpoint: 1000 steps at L=256 and L=200, PDBs checked,
-               kernel launches counted;
+               kernel launches counted; then the same weights as a
+               reference Lightning checkpoint that pickles other objects:
+               refused by the weights-only loader (the converter named),
+               converted by cli/convert_checkpoint.py, and sampled from
+               (DDIM-10 at L=256, launches counted), z and coordinates bit
+               for bit against the tensors-only checkpoint;
   5. scaffold  the motif scaffolding CLI on a motif problem written here
                (two motif segments, total length 100-128): the 1000-step
                ancestral sampler, DDIM-50 with classifier-free guidance and
@@ -62,7 +69,9 @@ Phases, in order; any failure exits non-zero:
   8. train     training through cli/train.py at the full width of
                configs/example.configuration (batch 4, fp32, remat and
                dropout on) on a corpus of 32 seeded random-walk PDB files
-               of length 192-256 written here: 2 epochs (epoch checkpoints
+               of length 192-256 written here, parsed by the C++ parser
+               (every file counted; each held against the numpy parser,
+               both parsers' host ms a file): 2 epochs (epoch checkpoints
                loaded back, resume_state, finite losses, exact launch
                counts of the forward, remat's second forward and the
                backward), then --resume to a third epoch; one training
@@ -306,13 +315,24 @@ def tensor_core_instructions(build):
     """{kernel: {"HMMA": n, "HGMMA": m}}: the tensor-core instructions in
     the built library of each kernel's source (cuobjdump -sass)."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    counts = {}
-    for k in KERNELS:
-        source = os.path.splitext(os.path.basename(k["source"]))[0]
-        sass = subprocess.run([cuobjdump, "-sass", build.library_path(source)], capture_output=True, text=True,
-                              check=True, timeout=300).stdout
-        counts[k["name"]] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
-    return counts
+    source_of = {k["name"]: os.path.splitext(os.path.basename(k["source"]))[0] for k in KERNELS}
+    # One cuobjdump a library (several kernels share one), all at once.
+    procs = {src: subprocess.Popen([cuobjdump, "-sass", build.library_path(src)], stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True) for src in sorted(set(source_of.values()))}
+    sass = {}
+    try:
+        for src, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise subprocess.CalledProcessError(proc.returncode, proc.args, out, err)
+            sass[src] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: {op: len(re.findall(rf"\b{op}\b", sass[src])) for op in ("HMMA", "HGMMA")}
+            for name, src in source_of.items()}
 
 
 # ------------------------------------------------------------------ #
@@ -376,17 +396,19 @@ def sdpa_tri_attention(q, k, v, tb, mask, inf=1e9):
     entries and both biases one materialised attn_mask [B*I, H, J, J]."""
     import torch
 
-    B, I, J, H, c = q.shape
-    heads = lambda t: t.permute(0, 1, 3, 2, 4).reshape(B * I, H, J, c)
-    bias = (tb[:, None].float() + inf * (mask.float()[:, :, None, None, :] - 1.0)).to(q.dtype).reshape(B * I, H, J, J)
+    B, I, J, H, c = q.shape  # J queries; the keys are k's own (all N in a row-block case)
+    heads = lambda t: t.permute(0, 1, 3, 2, 4).reshape(B * I, H, -1, c)
+    bias = (tb[:, None].float() + inf * (mask.float()[:, :, None, None, :] - 1.0)).to(q.dtype).reshape(B * I, H, J, -1)
     qh, kh, vh = heads(q), heads(k), heads(v)
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
 
 
-def kernel_bytes_ops(name, B, N, C, H, esize):
+def kernel_bytes_ops(name, B, N, C, H, esize, pairs=None):
     """Bytes each kernel must move (inputs read once, outputs written once)
-    and the multiply-adds it does, counted as 2 operations each."""
-    pair = B * N * N
+    and the multiply-adds it does, counted as 2 operations each; `pairs`
+    the (row, column) pairs of an elementwise-in-pairs kernel where they
+    are not B N^2 (a row block)."""
+    pair = B * N * N if pairs is None else pairs
     if name == "trimul_project":
         w = 4 * (4 * H * C + 4 * H + 2 * C)
         return pair * C * esize + B * N * 4 + w + 2 * pair * H * esize, 2 * pair * C * 4 * H
@@ -414,6 +436,32 @@ def kernel_bytes_ops(name, B, N, C, H, esize):
         return esize * (4 * pair * h * c + B * h * N * N) + 4 * pair, 2 * B * h * N ** 3 * 2 * c
     w = 4 * (H * C + C * C + 5 * C)
     return pair * H * esize + pair * C * esize + w + pair * C * esize, 2 * pair * (H * C + C * C)
+
+
+def row_block_bytes_ops(name, case, B, N, I, C, H, esize):
+    """`kernel_bytes_ops` for a row-block case (`row_block_cases`): I of
+    the N rows, or I query positions, against all N keys or columns; the
+    incoming partial sums contract over I rows of k into the whole N x N;
+    contract_cm_km at (I, J, K) = (I, N, N). H is the case's hidden width."""
+    rows = B * I * N
+    if name == "trimul_project":  # I rows of z and of the row mask, the whole column mask
+        w = 4 * (4 * H * C + 4 * H + 2 * C)
+        return rows * C * esize + 4 * B * (I + N) + w + 2 * rows * H * esize, 2 * rows * C * 4 * H
+    if name in ("trimul_contract", "contract_cm_km"):
+        # outgoing: I rows of a, all of b, I rows out; incoming: I rows of k
+        # of a and b, N x N out; contract_cm_km: dx [I, K], b [J, K], [I, J] out.
+        return esize * B * H * (2 * I * N + N * N), 2 * B * H * I * N * N
+    if name == "ipa_attention":  # I query rows against N keys
+        h, c, pq, pv = IPA["H"], IPA["C"], IPA["PQ"], IPA["PV"]
+        queries, keys = B * I * h * (c + 3 * pq), B * N * h * (2 * c + 3 * pq + 3 * pv)
+        outs = B * I * h * (c + 3 * pv + C)
+        bytes_ = esize * (rows * C + rows * h + queries + keys + outs) + 4 * B * N + 4 * h
+        return bytes_, 2 * B * h * I * N * (2 * c + 3 * pq + 3 * pv + C)
+    if name == "tri_attention":  # the ending node: every row, I queries against N keys
+        h, c = TRI_ATT["H"], TRI_ATT["c"]
+        bytes_ = esize * (2 * B * N * I * h * c + 2 * B * N * N * h * c + B * h * I * N) + 4 * B * N * N
+        return bytes_, 2 * B * N * h * I * N * 2 * c
+    return kernel_bytes_ops(name, B, N, C, H, esize, pairs=rows)  # the epilogue and its stages on I rows
 
 
 # (N, B) of the kernels phase: the unconditional path's bucket, a ragged one,
@@ -646,7 +694,8 @@ ROW_BLOCK_N, ROW_BLOCK_I = 256, 128
 def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
     """Each kernel's row-block case (nn/pair_stack.py, nn/structure.py under
     a seq axis of 2, this rank the second) as (kernel, case, kernel forward,
-    plain forward, inputs that require grad, cotangents): the projection of
+    plain forward, inputs that require grad, cotangents, one library call of
+    the same function or None): the projection of
     I rows of z with their own row mask; the outgoing contraction of I rows
     of a against all of b; the incoming partial sums over K rows; the
     epilogue and its two stages on I rows; contract_cm_km at (I, J, K) =
@@ -677,19 +726,22 @@ def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
     dx = _leaf(cot(x_r))
     cases = [
         ("trimul_project", "rows", lambda: trimul.project_gated_cm(zr, row_mask, wg, res_mask),
-         lambda: trimul.project_gated_cm_plain(zr, row_mask, wg, res_mask), [zr, *project_w], (cot(ar), cot(ar))),
+         lambda: trimul.project_gated_cm_plain(zr, row_mask, wg, res_mask), [zr, *project_w], (cot(ar), cot(ar)),
+         None),
         ("trimul_contract", "outgoing_rows", lambda: trimul.contract_cm(ar, b_full, True),
-         lambda: trimul.contract_cm_plain(ar, b_full, True), [ar, b_full], (cot(x_r),)),
+         lambda: trimul.contract_cm_plain(ar, b_full, True), [ar, b_full], (cot(x_r),),
+         lambda: torch.matmul(ar, b_full.transpose(-1, -2))),
         ("trimul_contract", "incoming_partial", lambda: trimul.contract_cm(ar, bk, False),
-         lambda: trimul.contract_cm_plain(ar, bk, False), [ar, bk], (cot(b_full),)),
+         lambda: trimul.contract_cm_plain(ar, bk, False), [ar, bk], (cot(b_full),),
+         lambda: torch.matmul(ar.transpose(-1, -2), bk)),
         ("trimul_epilogue", "rows", lambda: trimul.epilogue_cm(x_r, zr, wg),
-         lambda: trimul.epilogue_cm_plain(x_r, zr, wg), [x_r, zr, *epilogue_w], (cot(zr),)),
+         lambda: trimul.epilogue_cm_plain(x_r, zr, wg), [x_r, zr, *epilogue_w], (cot(zr),), None),
         ("trimul_epilogue_partial", "rows", lambda: trimul.epilogue_partial(*hg),
-         lambda: trimul.epilogue_partial_plain(*hg), hg, (cot(part_p),)),
+         lambda: trimul.epilogue_partial_plain(*hg), hg, (cot(part_p),), None),
         ("trimul_epilogue_finish", "rows", lambda: trimul.epilogue_finish(pg, zr, wg, H_MUL),
-         lambda: trimul.epilogue_finish_plain(pg, zr, *finish_w, H_MUL), [pg, zr, *finish_w], (cot(zr),)),
+         lambda: trimul.epilogue_finish_plain(pg, zr, *finish_w, H_MUL), [pg, zr, *finish_w], (cot(zr),), None),
         ("contract_cm_km", "rows", lambda: trimul.contract_cm_km(dx, b_full),
-         lambda: trimul.contract_cm_km_plain(dx, b_full), [], ()),
+         lambda: trimul.contract_cm_km_plain(dx, b_full), [], (), lambda: torch.matmul(dx, b_full)),
     ]
     # The IPA core: this rank's query rows (q, q points, bias, z) against
     # every key, k / v and points strided as nn/structure.py passes them.
@@ -700,14 +752,16 @@ def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
     c, pq = k.shape[-1], k_pts.shape[-2]
     args = (qg, kv[..., :c], kv[..., c:], qpg, kv_pts[..., :pq, :], kv_pts[..., pq:, :], biasg, zzg, hwg, mask)
     cases.append(("ipa_attention", "rows", lambda: ipa.ipa_attention(*args), lambda: ipa.ipa_attention_plain(*args),
-                  [qg, kv, qpg, kv_pts, biasg, zzg, hwg], tuple(cot(o) for o in ipa.ipa_attention_plain(*args))))
+                  [qg, kv, qpg, kv_pts, biasg, zzg, hwg], tuple(cot(o) for o in ipa.ipa_attention_plain(*args)),
+                  None))
     # The ending node: every row of the swapped pair representation, this
     # rank's I query positions against all N keys, the bias of its queries.
     tq, tk, tv, ttb, tmask = ta_args
     tq, ttb = _leaf(tq[:, :, rows]), _leaf(ttb[:, :, rows])
     tk, tv = _leaf(tk), _leaf(tv)
     cases.append(("tri_attention", "ending_queries", lambda: tri_att.tri_attention(tq, tk, tv, ttb, tmask),
-                  lambda: tri_att.tri_attention_plain(tq, tk, tv, ttb, tmask), [tq, tk, tv, ttb], (cot(tq),)))
+                  lambda: tri_att.tri_attention_plain(tq, tk, tv, ttb, tmask), [tq, tk, tv, ttb], (cot(tq),),
+                  sdpa_tri_attention(*(t.detach() for t in (tq, tk, tv, ttb)), tmask)))
     return cases
 
 
@@ -715,7 +769,8 @@ def check_row_blocks(z, res_mask, w, ipa_args, ta_args, dname, gen):
     """Every row-block case's forward and (through its autograd Function)
     gradient against its plain version on the card, each output and each
     input's gradient relative to max |plain| of it, with the times of the
-    kernel, the plain version and the backward. Returns (failures, {kernel:
+    kernel, the plain version, the library call and the backward, and the
+    case's bound (`row_block_bytes_ops`). Returns (failures, {kernel:
     {case: record}})."""
     import torch
 
@@ -729,15 +784,20 @@ def check_row_blocks(z, res_mask, w, ipa_args, ta_args, dname, gen):
         return max(errs), max(e / max(sc, 1e-30) for e, sc in zip(errs, scales)), finite
 
     failed, results = [], {}
-    for name, case, kern, plain, inputs, cots in row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
+    for name, case, kern, plain, inputs, cots, library in row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
         with torch.no_grad():
             got, want = as_tuple(kern()), as_tuple(plain())
             torch.cuda.synchronize()
             err, rel, finite = rel_err(got, want)
             ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+            library_ms = cuda_time_ms(library) if library else None
+        H = H_MUL // 2 if name == "trimul_epilogue_partial" else H_MUL
+        bytes_, ops = row_block_bytes_ops(name, case, z.shape[0], ROW_BLOCK_N, ROW_BLOCK_I, C_P, H, z.element_size())
+        bound_bytes, bound_ops = bytes_ / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
         rec = {"kernel": name, "case": case, "N": ROW_BLOCK_N, "I": ROW_BLOCK_I, "dtype": dname, "shapes":
                [tuple(t.shape) for t in got], "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
-               "ms": ms, "plain_ms": plain_ms}
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops else "operations"}
         ok = finite and rel <= TOL[dname]
         if inputs:
             g_got = torch.autograd.grad(as_tuple(kern()), inputs, cots)
@@ -1100,8 +1160,8 @@ def check_ca_file(path, length=None):
     return len(xyz)
 
 
-def common_argv(rootdir, outdir, scale, name="smoke"):
-    return ["--name", name, "--epoch", "1", "--rootdir", rootdir, "--outdir", outdir, "--scale", scale,
+def common_argv(rootdir, outdir, scale, name="smoke", epoch=1):
+    return ["--name", name, "--epoch", str(epoch), "--rootdir", rootdir, "--outdir", outdir, "--scale", scale,
             "--seed", str(SEED), "--device", "cuda"]
 
 
@@ -1136,6 +1196,106 @@ def phase_main(state):
     want = expected_launches(config, len(lengths) * n_steps)
     if launches != want:
         raise PhaseFailed(f"launch counts {launches}, expected {want}")
+    check_converted_release(state)
+
+
+# DDIM steps of the unconditional CLI from a converted reference checkpoint.
+CONVERT_DDIM = 10
+
+
+def lightning_reference_blob(state_dict):
+    """A reference-style Lightning checkpoint of `state_dict`: the weights
+    under `model.`, and beside them objects that only a full pickle holds
+    (the hyperparameters as a Namespace, optimizer and loop states)."""
+    import argparse
+
+    return {
+        "epoch": 1, "global_step": 1000, "pytorch-lightning_version": "1.9.4",
+        "state_dict": {f"model.{k}": v for k, v in state_dict.items()},
+        "hyper_parameters": argparse.Namespace(config="configuration", lr=1e-4),
+        "optimizer_states": [{"state": {}, "param_groups": [{"lr": 1e-4, "params": list(range(len(state_dict)))}]}],
+        "lr_schedulers": [], "callbacks": {"ModelCheckpoint": {"best_model_score": None}},
+    }
+
+
+def check_converted_release(state):
+    """The release's weights as a reference Lightning checkpoint: refused by
+    the weights-only loader with the converter named, converted by
+    cli/convert_checkpoint.py, then sampled from by the unconditional CLI
+    (DDIM-CONVERT_DDIM at L=256, launches counted) and held bit for bit
+    against the tensors-only release of the same state_dict: the denoiser's
+    z on the denoiser phase's inputs, and the sampled coordinates."""
+    import numpy as np
+    import torch
+
+    from genie2_tpu_torch.cli import convert_checkpoint, sample_unconditional
+    from genie2_tpu_torch.sampling import base
+    from genie2_tpu_torch.utils.model_io import load_pretrained_model
+
+    work, rootdir, name = release_dir(state)
+    ref_name = "smoke_reference"
+    ckpts = os.path.join(rootdir, ref_name, "checkpoints")
+    os.makedirs(ckpts)
+    shutil.copy(os.path.join(rootdir, name, "configuration"), os.path.join(rootdir, ref_name, "configuration"))
+    direct = torch.load(os.path.join(rootdir, name, "checkpoints", "epoch.1.ckpt"), weights_only=True)["state_dict"]
+    src, dst = os.path.join(ckpts, "epoch.1.ckpt"), os.path.join(ckpts, "epoch.2.ckpt")
+    torch.save(lightning_reference_blob({k[len("model."):]: v for k, v in direct.items()}), src)
+    refusal = None
+    try:
+        load_pretrained_model(rootdir, ref_name, 1, device="cuda")
+    except ValueError as exc:
+        refusal = str(exc)
+    if refusal is None or "genie2_tpu_torch.cli.convert_checkpoint" not in refusal:
+        raise PhaseFailed(f"the weights-only loader did not refuse {src} naming the converter: {refusal}")
+    t0 = time.perf_counter()
+    convert_checkpoint.main([src, dst, "--config", os.path.join(rootdir, ref_name, "configuration")])
+    convert_s = time.perf_counter() - t0
+    with open(dst + ".meta.json") as fh:
+        meta = json.load(fh)
+
+    inputs = denoiser_inputs()
+    z, methods = {}, {}
+    for label, (rname, epoch) in {"converted": (ref_name, 2), "direct": (name, 1)}.items():
+        model, config = load_pretrained_model(rootdir, rname, epoch, device="cuda")
+        with torch.inference_mode():
+            z[label] = model(*inputs)["z"]
+        methods[label] = config.tpu["rot_to_quat_method"]
+        del model
+    captured = []
+    sample = base.BaseSampler.sample
+
+    def capture(self, params):
+        result = sample(self, params)
+        captured.append(np.stack([f["atom_positions"] for f in result]))
+        return result
+
+    outdir = os.path.join(work, "converted")
+    runs, coords = {}, {}
+    base.BaseSampler.sample = capture
+    try:
+        for label, (rname, epoch) in {"converted": (ref_name, 2), "direct": (name, 1)}.items():
+            argv = common_argv(rootdir, os.path.join(outdir, label), "0.6", name=rname, epoch=epoch) + [
+                "--num_samples", "2", "--batch_size", "2", "--min_length", "256", "--max_length", "256",
+                "--ddim_steps", str(CONVERT_DDIM), "--ddim_eta", "0.5"]
+            _, seconds, launches = drive(sample_unconditional.main, argv)
+            runs[label] = {"seconds": seconds, "launches": launches}
+            coords[label], captured[:] = list(captured), []
+    finally:
+        base.BaseSampler.sample = sample
+    for i in range(2):
+        check_ca_file(os.path.join(outdir, "converted", "pdbs", f"256_{i}.pdb"), 256)
+    want = expected_launches(example_config(), CONVERT_DDIM)
+    rec = {"phase": "main", "run": "converted_reference_checkpoint", "refused": refusal.split(";")[0],
+           "sidecar": meta, "convert_seconds": convert_s, "rot_to_quat": methods,
+           "z_bitwise_equal": torch.equal(z["converted"], z["direct"]),
+           "z_max_abs_diff": (z["converted"] - z["direct"]).abs().max().item(),
+           "coords_bitwise_equal": len(coords["converted"]) == len(coords["direct"]) > 0
+           and all(np.array_equal(a, b) for a, b in zip(coords["converted"], coords["direct"])),
+           "ddim_steps": CONVERT_DDIM, "L": 256, "runs": runs, "expected_launches": want, "smi": state["smi"]}
+    emit(rec)
+    if not (rec["z_bitwise_equal"] and rec["coords_bitwise_equal"]) or meta.get("rot_to_quat_method") != "eigh" \
+            or methods != {"converted": "eigh", "direct": "eigh"} or runs["converted"]["launches"] != want:
+        raise PhaseFailed(f"converted checkpoint: {rec}")
 
 
 # ------------------------------------------------------------------ #
@@ -1624,6 +1784,60 @@ def train_metrics(workdir):
     return train, val
 
 
+@contextlib.contextmanager
+def counting_native_parses():
+    """Count the files features/pdb_native.py parses inside the block."""
+    from genie2_tpu_torch.features import pdb_native
+
+    parse, calls = pdb_native.parse_pdb_fast, []
+
+    def counted(path):
+        calls.append(path)
+        return parse(path)
+
+    pdb_native.parse_pdb_fast = counted
+    try:
+        yield calls
+    finally:
+        pdb_native.parse_pdb_fast = parse
+
+
+def check_native_parser(state, datadir, native_parses):
+    """The training CLI's corpus went through the C++ parser, its default;
+    on each written structure the native and numpy parses agree (sequences
+    equal, coordinates within float32 rounding), and each parser's host ms
+    a file (the best of three passes over the corpus)."""
+    import numpy as np
+
+    from genie2_tpu_torch.features import parse_pdb
+    from genie2_tpu_torch.features.pdb_native import parse_pdb_fast
+
+    paths = sorted(os.path.join(datadir, f) for f in os.listdir(datadir))
+    agree, worst = True, 0.0
+    for path in paths:
+        (seqs, coords), (np_seqs, np_coords) = parse_pdb_fast(path), parse_pdb(path)
+        got, want = np.concatenate(coords), np.concatenate(np_coords)
+        worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+        agree = agree and seqs == np_seqs and np.allclose(got, want, rtol=2 ** -23, atol=0)
+
+    def ms_per_file(parse):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for path in paths:
+                parse(path)
+            best = min(best, time.perf_counter() - t0)
+        return best / len(paths) * 1e3
+
+    rec = {"phase": "train", "run": "pdb_parsers", "files": len(paths),
+           "cli_native_parses": len(native_parses), "agree": agree, "coord_max_rel_diff": worst,
+           "native_ms_per_file": ms_per_file(parse_pdb_fast), "numpy_ms_per_file": ms_per_file(parse_pdb),
+           "note": "host time on the card machine", "smi": state["smi"]}
+    emit(rec)
+    if not agree or sorted(native_parses) != paths:
+        raise PhaseFailed(f"train: native PDB parser: {rec}")
+
+
 def phase_train(state):
     """Training at full width through cli/train.py, then one step held
     kernels against plain, a bf16 step, and the step's times and memory."""
@@ -1646,8 +1860,10 @@ def phase_train(state):
     per_epoch = n_train // config.training["batch_size"]
 
     torch.cuda.reset_peak_memory_stats()
-    trainer, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda"])
+    with counting_native_parses() as native_parses:
+        trainer, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda"])
     peak = torch.cuda.max_memory_allocated()
+    check_native_parser(state, datadir, native_parses)
     records, val = train_metrics(trainer.workdir)
     steps = trainer.state.step
     losses = [records[s]["weighted_loss"] for s in sorted(records)]
@@ -2947,6 +3163,16 @@ def phase_seq(state):
     if metric_err > TRAIN_LOSS_TOL or grad_err > 1e-4 or not rec["ranks_same_params"] \
             or any(r["train"]["launches"] != rec["expected_launches"] for r in grid):
         failures.append(f"grid_train: {rec}")
+    # Every kernel launch under the seq axis is a row-block case (I = N / 2
+    # rows, queries or rows of k); at n_seq 1 none is. Rank 0's counts a run.
+    emit({"phase": "seq", "run": "row_block_launches", "rank": 0, "n_seq": SEQ_RANKS, "launches_at_n_seq_1": 0,
+          "launches": {"forward_L256_B2": ranks[0]["forward_False"]["launches"],
+                       "forward_L256_B2_triangle_attention": ranks[0]["forward_True"]["launches"],
+                       f"train_{SEQ_TRAIN_STEPS}_steps": ranks[0]["train"]["launches"],
+                       f"cli_ddim_{SEQ_DDIM}": ranks[0]["sample"]["launches"],
+                       "grid_train_1_step_2_seq_x_2_model": grid[0]["train"]["launches"]},
+          "note": "tri_attention counts the starting node (I rows, N queries) and the ending node "
+                  "(I queries against N keys) alike, half each"})
     emit({"phase": "seq", "seconds_two_ranks_with_start": ranks_s})
     if failures:
         raise PhaseFailed("; ".join(failures))

@@ -97,5 +97,11 @@ def main(argv=None):
     return run_tasks(parser.parse_args(argv))
 
 
+def cli():
+    """The console script's entry point: `main` with its result dropped, so
+    that the script exits with status 0."""
+    main()
+
+
 if __name__ == "__main__":
     main()

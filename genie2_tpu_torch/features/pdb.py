@@ -41,11 +41,17 @@ def summarize_pdb(filepath: str):
     return {"num_residues": int(np.sum([len(s) for s in seqs])), "num_chains": len(seqs)}
 
 
-def features_from_pdb(filepath: str) -> Features:
+def features_from_pdb(filepath: str, use_native: bool = True) -> Features:
     """PDB file -> feature dict with one-hot aatype and mean-centred CA
-    coordinates (float64), as genie2_tpu's `features_from_pdb` builds it
-    from its Python parser."""
-    seqs, coords = parse_pdb(filepath)
+    coordinates (float64), as genie2_tpu's `features_from_pdb` builds it:
+    through the C++ parser (`features/pdb_native.py`, coordinates read as
+    float32) by default, through the numpy parser with `use_native=False`."""
+    if use_native:
+        from genie2_tpu_torch.features.pdb_native import parse_pdb_fast
+
+        seqs, coords = parse_pdb_fast(filepath)
+    else:
+        seqs, coords = parse_pdb(filepath)
     features = create_empty_features([len(s) for s in seqs])
     positions = np.concatenate(coords)
     features["aatype"] = np.eye(NUM_RESTYPES)[np.concatenate(seqs)].astype(int)

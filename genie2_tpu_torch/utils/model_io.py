@@ -9,8 +9,11 @@ keys carry a `model.` prefix, or a bare state_dict. Weights trained by the
 reference use the eigh quaternion extraction, so a raw torch checkpoint
 without a `{ckpt}.meta.json` sidecar selects `rot_to_quat = eigh`; a
 sidecar's `rot_to_quat_method` wins, and the trainer writes one beside
-each checkpoint it saves. Orbax directories written by the JAX package are
-not read here.
+each checkpoint it saves. Files are read weights-only: a reference
+Lightning checkpoint that pickles other objects is converted once by
+`cli/convert_checkpoint.py`. Orbax directories written by the JAX package
+are not read here: `tools/orbax_to_torch.py` converts them where JAX is
+installed.
 
 Every file is written through a temporary file and `os.replace`, so a
 reader never sees a partial one; `AsyncSaver` does the writing on a
@@ -22,6 +25,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import pickle
 import re
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -58,13 +62,22 @@ def checkpoint_metadata(ckpt_path: str) -> Dict[str, Any]:
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """The Denoiser state_dict of a torch checkpoint file, `model.` stripped."""
+    """The Denoiser state_dict of a torch checkpoint file, `model.` stripped.
+    The file is read weights-only: a pickle of anything but tensors and
+    builtins is refused, with the converter that makes it loadable named."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is an orbax checkpoint directory; the orbax -> torch converter "
-            "is not ported yet (convert it to a torch .ckpt first)"
+            f"{path} is an orbax checkpoint directory of genie2_tpu; convert it where JAX is installed "
+            f"with `python tools/orbax_to_torch.py {path} OUT.ckpt` (it writes the .meta.json sidecar too)"
         )
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:
+        raise ValueError(
+            f"{path} pickles objects other than tensors and builtins (a Lightning checkpoint of the reference), "
+            f"and the loader reads weights only; convert it once with `python -m "
+            f"genie2_tpu_torch.cli.convert_checkpoint {path} OUT.ckpt` if you trust the file"
+        ) from exc
     state = blob.get("state_dict", blob)
     return {k[len("model."):] if k.startswith("model.") else k: v for k, v in state.items()}
 
@@ -138,13 +151,14 @@ def save_file(path: str, obj: Any):
     os.replace(tmp, path)
 
 
-def save_params(path: str, state_dict: Dict[str, torch.Tensor], rot_to_quat_method: str, write=save_file):
+def save_params(path: str, state_dict: Dict[str, torch.Tensor], rot_to_quat_method: str, write=save_file,
+                provenance: Optional[Dict[str, Any]] = None):
     """A Lightning-style checkpoint file of `state_dict` and its
     `.meta.json` sidecar naming the quaternion method the weights were
-    trained with; `write(path, obj)` writes the file (`save_file`, or an
-    `AsyncSaver`'s `save`)."""
+    trained with (and the `provenance` entries, where given); `write(path,
+    obj)` writes the file (`save_file`, or an `AsyncSaver`'s `save`)."""
     with open(path + ".meta.json", "w") as f:
-        json.dump({"rot_to_quat_method": rot_to_quat_method}, f)
+        json.dump({**(provenance or {}), "rot_to_quat_method": rot_to_quat_method}, f)
     write(path, lightning_blob(state_dict))
 
 

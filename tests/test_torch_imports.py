@@ -2,7 +2,8 @@
 
 An AST scan of every module of genie2_tpu_torch, of chip_smoke.py and of
 the port's tools (a sys.modules check cannot work: the test process has
-JAX loaded already).
+JAX loaded already). Outside tests/, tools/orbax_to_torch.py is the one
+bridge that imports both packages.
 """
 
 import ast
@@ -16,7 +17,8 @@ FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "genie2_tpu"}
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "torch_profile_step.py"),
-             os.path.join(REPO, "tools", "torch_kernel_variants.py")]
+             os.path.join(REPO, "tools", "torch_kernel_variants.py"),
+             os.path.join(REPO, "tools", "torch_multinode_dryrun.py")]
     for root, _, names in os.walk(os.path.join(REPO, "genie2_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
@@ -50,7 +52,9 @@ def test_port_has_modules():
                      "genie2_tpu_torch/train/data.py", "genie2_tpu_torch/train/cache.py",
                      "genie2_tpu_torch/train/prefetch.py", "genie2_tpu_torch/train/loop.py",
                      "genie2_tpu_torch/cli/train.py", "genie2_tpu_torch/parallel/mesh.py",
-                     "genie2_tpu_torch/parallel/spawn.py"):
+                     "genie2_tpu_torch/parallel/spawn.py", "genie2_tpu_torch/cli/convert_checkpoint.py",
+                     "genie2_tpu_torch/cli/fetch_afdb.py", "genie2_tpu_torch/features/pdb_native.py",
+                     "tools/torch_multinode_dryrun.py"):
         assert expected in rel
 
 
@@ -65,3 +69,13 @@ def test_scan_catches_forbidden_import(tmp_path):
     p.write_text("import torch\nfrom genie2_tpu.config import Config\nimport jax.numpy as jnp\n")
     found = [m for m in _imported_modules(str(p)) if m.split(".")[0] in FORBIDDEN_ROOTS]
     assert found == ["genie2_tpu.config", "jax.numpy"]
+
+
+def test_orbax_bridge_is_the_only_tool_importing_both():
+    both = []
+    for name in sorted(os.listdir(os.path.join(REPO, "tools"))):
+        if name.endswith(".py"):
+            roots = {m.split(".")[0] for m in _imported_modules(os.path.join(REPO, "tools", name))}
+            if {"genie2_tpu", "genie2_tpu_torch"} <= roots:
+                both.append(name)
+    assert both == ["orbax_to_torch.py"]

@@ -5,8 +5,9 @@ For each turn, in a process of its own whose genie2_tpu_torch is the
 checkout's (its kernels built into that checkout's build/): the square
 kernels at B=2, N=256, fp32 (the TriMul projection, both contraction
 directions, the epilogue, contract_cm_km, the IPA core, triangle
-attention; ms a call between CUDA events, chip_smoke.py's inputs), then
-the checkout's own tools/torch_profile_step.py for a reverse step
+attention; ms a call between CUDA events, chip_smoke.py's inputs) and
+chip_smoke.py's row-block cases (`row_block_cases`, forward and backward),
+then the checkout's own tools/torch_profile_step.py for a reverse step
 (L=256, B=2) and a training step (`--train`: L=256, batch 4), their wall
 and device ms. Prints one JSON line a turn and, last, the medians of each
 checkout and the spread of its two turns.
@@ -54,7 +55,20 @@ def kernel_times(tree: str) -> dict:
         "tri_attention": lambda: tri_att.tri_attention(*ta_args),
     }
     with torch.no_grad():
-        return {name: cs.cuda_time_ms(fn, iters=50, warmup=5) for name, fn in cases.items()}
+        out = {name: cs.cuda_time_ms(fn, iters=50, warmup=5) for name, fn in cases.items()}
+    # The row-block cases of chip_smoke.py's kernels phase, forward and
+    # backward, with its iteration counts, so that their spread across
+    # turns reads on the numbers that the phase reports.
+    for case in cs.row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
+        name, rows, kern, _, inputs, cots = case[:6]
+        with torch.no_grad():
+            out[f"rows_{name}_{rows}"] = cs.cuda_time_ms(kern)
+        if inputs:
+            out_k = kern()
+            out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            out[f"rows_{name}_{rows}_backward"] = cs.cuda_time_ms(
+                lambda: torch.autograd.grad(out_k, inputs, cots, retain_graph=True), iters=10, warmup=2)
+    return out
 
 
 def step_times(tree: str) -> dict:
