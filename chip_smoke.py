@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
                standalone triangle contractions, the triangle attention
                core) against its plain PyTorch version on the card, float32
                and bfloat16, at N=256 and the ragged N=224 with B=2 and at
-               the tds phase's N=75 with B=4; times of the
+               the tds phase's N=75 with B=4, and the epilogue's two
+               stages at their edges (SPLIT_EDGES, float32 and bf16
+               weights) and as device kernels a wrapper call under bf16
+               weights (one each, as the one-launch epilogue); times of the
                kernel, the plain version and a library call; at N=256 the
                row-block cases of sequence parallelism (I=128 rows of
                N=256, the incoming partial sums over K=128, the IPA's and
@@ -277,6 +280,24 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(fn, iters: int = 1, warmup: int = 1) -> list:
+    """torch.profiler's device events (kernels and copies) of `iters` calls
+    of `fn` on the card, after `warmup` calls (the build and the launch
+    attributes)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 # ------------------------------------------------------------------ #
@@ -590,6 +611,8 @@ def phase_kernels(state):
                                   f"rel {rec['rel_err']:.3g}")
                 if N == 256 and dtype == torch.float32:
                     results[rec["kernel"]][rec["outgoing"]]["backward"] = rec
+    edge_failed, state["kernels_per_call"] = check_split_edges(gen, dev)
+    failed += edge_failed
     state["kernel_main"] = results
     state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
     for rec in split_records:
@@ -600,11 +623,87 @@ def phase_kernels(state):
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
 
 
+def at_float_offset(t, offset: int):
+    """`t` as a contiguous view `offset` elements into a buffer of its own:
+    at an odd offset no span of a float32 part is 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:].copy_(t)
+    return buf[offset:]
+
+
+# The epilogue stages' edges: (N, float offset of the summed part). At N =
+# 255 tiles start at odd positions and end in an odd tail (the finish copies
+# those spans by 8-byte cp.async, the partial stores them by plain stores);
+# at an odd offset every span of the finish's input goes by 4-byte copies.
+SPLIT_EDGES = ((255, 0), (256, 1))
+
+
+def check_split_edges(gen, dev):
+    """Rows 3a and 3b at SPLIT_EDGES, B=2, C=H=128 on two model ranks,
+    float32 and bf16 activations with float32 and bf16 weights, each
+    against its plain version (the partial per rank, the finish on the
+    summed part, each relative to max |plain|); then the device kernels of
+    one wrapper call of rows 3, 3a and 3b under bf16 weights (the bf16
+    policy), which must be one kernel each. Returns (failures, {kernel:
+    kernels a call}). Forward only: the gradients of the same Functions are
+    held at the kernels phase's shapes."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+
+    failed = []
+    B = 2
+    for N, offset in SPLIT_EDGES:
+        w32 = random_trimul_weights(C_P, H_MUL, gen, dev)
+        z32 = torch.randn(B, N, N, C_P, generator=gen, device=dev)
+        x32 = torch.randn(B, H_MUL, N, N, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            z, x = z32.to(dtype), x32.to(dtype)
+            for wdt in (torch.float32, torch.bfloat16):
+                w = {k: v.to(wdt) for k, v in w32.items()}
+                halves = split_epilogue_inputs(x, w)
+                with torch.no_grad():
+                    parts = [(trimul.epilogue_partial(*h), trimul.epilogue_partial_plain(*h)) for h in halves]
+                    part = at_float_offset(sum(p for p, _ in parts), offset)
+                    finish = (trimul.epilogue_finish(part, z, w, H_MUL),
+                              trimul.epilogue_finish_plain(part, z, *(w[k] for k in trimul.FINISH_PARAMS), H_MUL))
+                torch.cuda.synchronize()
+                for name, (got, want) in [("trimul_epilogue_partial", pw) for pw in parts] + [
+                        ("trimul_epilogue_finish", finish)]:
+                    err, scale = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+                    rel = err / max(scale, 1e-30)
+                    ok = bool(torch.isfinite(got.float()).all().item()) and rel <= TOL[dname]
+                    emit({"phase": "kernels", "split_edge": True, "kernel": name, "N": N, "B": B, "offset": offset,
+                          "dtype": dname, "weights": str(wdt).split(".")[-1], "max_abs_err": err, "rel_err": rel,
+                          "tol": TOL[dname], "ok": ok})
+                    if not ok:
+                        failed.append(f"{name} edge N={N} offset={offset} {dname} weights {wdt}: rel {rel:.3g}")
+    # One wrapper call under bf16 weights and activations at N=256.
+    w = {k: v.to(torch.bfloat16) for k, v in random_trimul_weights(C_P, H_MUL, gen, dev).items()}
+    z = torch.randn(B, 256, 256, C_P, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(B, H_MUL, 256, 256, generator=gen, device=dev).to(torch.bfloat16)
+    halves = split_epilogue_inputs(x, w)
+    with torch.no_grad():
+        part = trimul.epilogue_partial(*halves[0])
+        calls = {"trimul_epilogue": lambda: trimul.epilogue_cm(x, z, w),
+                 "trimul_epilogue_partial": lambda: trimul.epilogue_partial(*halves[0]),
+                 "trimul_epilogue_finish": lambda: trimul.epilogue_finish(part, z, w, H_MUL)}
+        per_call = {name: [e.name for e in device_events(fn)] for name, fn in calls.items()}
+    emit({"phase": "kernels", "kernels_per_call_bf16_weights": per_call})
+    failed += [f"{name}: {len(names)} device kernels a call under bf16 weights, not 1: {names}"
+               for name, names in per_call.items() if len(names) != 1]
+    return failed, {name: len(names) for name, names in per_call.items()}
+
+
 def split_epilogue_inputs(x, w):
     """Each of two model ranks' epilogue_partial arguments: its half of
-    x's hidden channels, W_z's columns and the LN_out scale and bias."""
+    x's hidden channels, W_z's columns and the LN_out scale and bias, each
+    contiguous as a rank holds its shard."""
     h = x.shape[1] // 2
-    return [(x[:, sl].contiguous(), w["w_z"][:, sl], w["ln_out_scale"][sl], w["ln_out_bias"][sl])
+    return [(x[:, sl].contiguous(), w["w_z"][:, sl].contiguous(), w["ln_out_scale"][sl], w["ln_out_bias"][sl])
             for sl in (slice(0, h), slice(h, 2 * h))]
 
 
@@ -698,7 +797,8 @@ def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
     the same function or None): the projection of
     I rows of z with their own row mask; the outgoing contraction of I rows
     of a against all of b; the incoming partial sums over K rows; the
-    epilogue and its two stages on I rows; contract_cm_km at (I, J, K) =
+    epilogue and its two stages on I rows (the finish also on a part at an
+    odd float offset); contract_cm_km at (I, J, K) =
     (128, 256, 256), the outgoing block's backward; the IPA core with I
     query rows against N keys; the ending node's triangle attention with I
     queries against N keys."""
@@ -722,6 +822,7 @@ def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
     halves = split_epilogue_inputs(x_r.detach(), w)
     part_p = sum(trimul.epilogue_partial_plain(*h) for h in halves)
     hg, pg = [_leaf(t) for t in halves[0]], _leaf(part_p)
+    p_odd = at_float_offset(part_p, 1)
     epilogue_w, finish_w = [wg[k] for k in trimul.EPILOGUE_PARAMS], [wg[k] for k in trimul.FINISH_PARAMS]
     dx = _leaf(cot(x_r))
     cases = [
@@ -740,6 +841,10 @@ def row_block_cases(z, res_mask, w, ipa_args, ta_args, gen):
          lambda: trimul.epilogue_partial_plain(*hg), hg, (cot(part_p),), None),
         ("trimul_epilogue_finish", "rows", lambda: trimul.epilogue_finish(pg, zr, wg, H_MUL),
          lambda: trimul.epilogue_finish_plain(pg, zr, *finish_w, H_MUL), [pg, zr, *finish_w], (cot(zr),), None),
+        # The same at an odd float offset of the summed part: every span by
+        # 4-byte copies (forward only).
+        ("trimul_epilogue_finish", "rows_unaligned", lambda: trimul.epilogue_finish(p_odd, zr, wg, H_MUL),
+         lambda: trimul.epilogue_finish_plain(p_odd, zr, *finish_w, H_MUL), [], (), None),
         ("contract_cm_km", "rows", lambda: trimul.contract_cm_km(dx, b_full),
          lambda: trimul.contract_cm_km_plain(dx, b_full), [], (), lambda: torch.matmul(dx, b_full)),
     ]
@@ -1952,15 +2057,8 @@ def step_times(step, state, feats, inject, n=4):
 
 def device_ms(step, state, feats, inject, n=2):
     """Device ms a step (CUDA kernels and copies under torch.profiler)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(state, feats, **inject)
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = device_events(lambda: step(state, feats, **inject), iters=n, warmup=0)
+    us = sum(e.time_range.elapsed_us() for e in events)
     return us / 1e3 / n if us > 0 else None
 
 
@@ -3228,6 +3326,8 @@ def kernels_line(state):
         }
         if name == "trimul_project":
             entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
+        if name in state.get("kernels_per_call", {}):  # the epilogue and its stages
+            entry["kernels_per_call_bf16_weights"] = state["kernels_per_call"][name]
         rows = state.get("kernel_rows", {}).get(name)
         if rows:  # the row-block cases of sequence parallelism, float32, beside the square one
             entry["row_blocks"] = {case: {k: r.get(k) for k in ("I", "shapes", "ms", "plain_ms", "max_abs_err",

@@ -139,39 +139,6 @@ struct Args {
 // Copies
 // ------------------------------------------------------------------ //
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "WAIT_%=:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@!p bra WAIT_%=;\n"
-        "}\n" ::"r"(smem_addr(bar)),
-        "r"(parity)
-        : "memory");
-}
-
-// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, by the tensor memory accelerator; completes on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-            smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-}
-
 // Slot `slot` of run r of row (a0, a1, a2) into the row at dst: a w-byte
 // cp.async, or for w = 0 one element read through the run's stride.
 template <typename T>
@@ -179,7 +146,7 @@ __device__ __forceinline__ void copy_slot(unsigned char* dst, const Run& r, long
                                           int slot) {
     const char* src = r.p + a0 * r.s0 + a1 * r.s1 + a2 * r.s2;
     if (r.w) {
-        const unsigned s = smem_addr(dst + slot * r.w);
+        const unsigned s = tc::smem_addr(dst + slot * r.w);
         src += slot * r.w;
         if (r.w == 16)
             asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
@@ -362,13 +329,13 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
     // values meet p = 0. The fence orders these stores before the bulk
     // copies' writes.
     for (int e = tid; e < STAGES * L.stage / 16; e += THREADS) reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tc::fence_proxy_async();
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&full[s], 1);
-            mbar_init(&empty[s], CONSUMERS / 32);
+            tc::mbar_init(&full[s], 1);
+            tc::mbar_init(&empty[s], CONSUMERS / 32);
         }
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        tc::mbar_init_fence();
     }
     for (int j = tid; j < N; j += THREADS) mask_s[j] = load_any(a.mask, b * a.mask_sb + j * a.mask_sn, d.mask_dtype);
     for (int h = tid; h < H; h += THREADS) f_s[h] = sqrtf(load_any(a.hw, h, d.hw_dtype) * d.s_pt);
@@ -399,7 +366,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
         // slots, waited for here; then lane 0 arrives with the bulk bytes.
         for (int t = 0; t < KT; ++t) {
             const int s = t % STAGES;
-            if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+            if (t >= STAGES) tc::mbar_wait(&empty[s], (t / STAGES - 1) & 1);
             unsigned char* base = smem + s * L.stage;
             const int j0 = t * TJ, n_keys = min(TJ, N - j0);
             int bytes = 0;
@@ -411,16 +378,16 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
                     const int jj = job / d.spans, g = job % d.spans;
                     const Span& sp = d.span[g];
                     if (jj < n_keys)
-                        bulk_copy(base + L.kv + jj * d.JS + sp.dst, sp.p + b * sp.s0 + (j0 + jj) * sp.s1, sp.bytes,
-                                  &full[s]);
+                        tc::bulk_copy(base + L.kv + jj * d.JS + sp.dst, sp.p + b * sp.s0 + (j0 + jj) * sp.s1,
+                                      sp.bytes, &full[s]);
                 } else {
                     const int r = (job - kv_jobs) % TI, which = (job - kv_jobs) / TI;  // 0 z, 1 bias
                     const int i = min(i0 + r, NI - 1);
                     const Run& rr = a.run[which ? BIAS : Z];
                     if (which ? bias_bulk : d.bulk_z)
-                        bulk_copy(base + (which ? L.bias + r * TJ * H * es : L.z + r * TJ * CZ * es),
-                                  rr.p + b * rr.s0 + i * rr.s1 + j0 * rr.s2, n_keys * (which ? H : CZ) * es,
-                                  &full[s]);
+                        tc::bulk_copy(base + (which ? L.bias + r * TJ * H * es : L.z + r * TJ * CZ * es),
+                                      rr.p + b * rr.s0 + i * rr.s1 + j0 * rr.s2, n_keys * (which ? H : CZ) * es,
+                                      &full[s]);
                 }
             }
             for (int g = 0; g < d.spans; ++g) bytes += n_keys * d.span[g].bytes;
@@ -453,7 +420,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
             tc::cp_async_commit();
             tc::cp_async_wait<0>();
             __syncwarp();
-            if (lane == 0) mbar_expect_tx(&full[s], bytes);  // the arrival; bytes may be 0
+            if (lane == 0) tc::mbar_expect_tx(&full[s], bytes);  // the arrival; bytes may be 0
         }
         return;
     }
@@ -494,7 +461,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
     // and alpha_s of one tile before the next tile's logits rewrite them.
     auto consumers_sync = [] { asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory"); };
     for (int t = 0; t < KT; ++t) {
-        mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+        tc::mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
         consumers_sync();
 
         const unsigned char* base = smem + (t % STAGES) * L.stage;
@@ -602,7 +569,7 @@ __global__ void __launch_bounds__(THREADS, 1) ipa_kernel(const __grid_constant__
         }
         // The stage is read: the producer may refill it.
         __syncwarp();
-        if (lane == 0) asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(&empty[t % STAGES])) : "memory");
+        if (lane == 0) tc::mbar_arrive(&empty[t % STAGES]);
     }
 
     // The denominators into PO (free now), then every output divided by them.

@@ -1,7 +1,9 @@
-// Tensor-core and asynchronous-copy helpers of the product kernels: 16- and
-// 4-byte cp.async copies that zero-fill what lies past an edge, mma.sync
-// tiles with float32 accumulators (m16n8k8 TF32, m16n8k16 bf16), and the
-// fragment loads of both from shared-memory tiles stored either way round.
+// Tensor-core and asynchronous-copy helpers of the product kernels: 16-, 8-
+// and 4-byte cp.async copies that zero-fill what lies past an edge, bulk
+// copies of the tensor memory accelerator in both directions with the
+// mbarriers that complete them, mma.sync tiles with float32 accumulators
+// (m16n8k8 TF32, m16n8k16 bf16), and the fragment loads of both from
+// shared-memory tiles stored either way round.
 //
 // float32 operands take three TF32 products (3xTF32): x = hi + lo with hi
 // and lo both TF32 values, and a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi up
@@ -34,12 +36,91 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 8 bytes into shared memory, the same way (src_bytes 0 or 8).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // Wait until at most N of this thread's committed groups are still in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// Bulk copies (the tensor memory accelerator) and mbarriers
+// ------------------------------------------------------------------ //
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (the bulk copies).
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` (0 or more) of bulk copies.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "WAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+        "@!p bra WAIT_%=;\n"
+        "}\n" ::"r"(smem_addr(bar)),
+        "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the tensor memory accelerator; completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later bulk
+// copies (the async proxy): a writer of a tile that a bulk store reads
+// executes it before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// `bytes` (a multiple of 16) from shared src to global dst, both 16-byte
+// aligned, in this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's bulk groups are still reading their
+// shared-memory sources (READ) or still writing at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+    if constexpr (READ)
+        asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+    else
+        asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------------ //
@@ -202,6 +283,27 @@ struct Mma<__nv_bfloat16> {
 
     static __device__ __forceinline__ void mma(float (&c)[4], const A& a, const B& b) { mma_bf16(c, a.r, b.r); }
 };
+
+// c[n] += a . b[n] for NT tiles that share one A fragment, with consecutive
+// mma.sync independent of each other: in float32 the small terms of every
+// tile, then every hi.hi (each c[n] summed in Mma<float>::mma's order, so
+// the result is the same), where Mma<float>::mma tile by tile waits for
+// each of its three products before the next.
+template <int NT>
+__device__ __forceinline__ void mma_tiles(float (&c)[NT][4], const Mma<float>::A& a, const Mma<float>::B (&b)[NT]) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], a.lo, b[n].hi);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], a.hi, b[n].lo);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_tf32(c[n], a.hi, b[n].hi);
+}
+template <int NT>
+__device__ __forceinline__ void mma_tiles(float (&c)[NT][4], const Mma<__nv_bfloat16>::A& a,
+                                          const Mma<__nv_bfloat16>::B (&b)[NT]) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma_bf16(c[n], a.r, b[n].r);
+}
 
 // Two adjacent output values (columns 2t, 2t + 1 of an accumulator row).
 __device__ __forceinline__ void store_pair(float* p, float v0, float v1) {

@@ -227,20 +227,28 @@ def _f32(t: torch.Tensor, device) -> torch.Tensor:
     return _as(t, torch.float32, device)
 
 
+def _params(tensors, like: torch.Tensor, device):
+    """Kernel parameters as contiguous tensors on `device` in `like`'s dtype
+    where the kernels read it (float32 or bfloat16), else float32, and its
+    dtype code: a contiguous parameter of that dtype goes in as it is."""
+    dt = like.dtype if like.dtype in _DTYPE_CODES else torch.float32
+    return [_as(t, dt, device) for t in tensors], _DTYPE_CODES[dt]
+
+
 _ARGTYPES = {
     "trimul_project": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7,
     "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6,
-    "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7,
-    "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
-    "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7,
+    "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8,
+    "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
+    "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8,
 }
 
-# The parameters of the projection (float32 or bfloat16) and of the epilogue
-# (float32), in the order of their C entry points.
+# The parameters of the projection and of the epilogue (float32 or
+# bfloat16), in the order of their C entry points.
 PROJECT_PARAMS = ("ln_in_scale", "ln_in_bias", "w_ap", "w_ag", "w_bp", "w_bg", "b_ap", "b_ag", "b_bp", "b_bg")
 EPILOGUE_PARAMS = ("ln_in_scale", "ln_in_bias", "w_z", "ln_out_scale", "ln_out_bias", "b_z", "w_g", "b_g")
-# The finish stage's parameters (float32 to its kernel), in the order of
-# `epilogue_finish_plain`'s arguments.
+# The finish stage's parameters, in the order of `epilogue_finish_plain`'s
+# arguments.
 FINISH_PARAMS = ("ln_in_scale", "ln_in_bias", "b_z", "w_g", "b_g")
 
 
@@ -300,10 +308,9 @@ def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weight
     # The kernel rounds the product weights to the activation dtype and
     # orders them itself, as it stages them; it reads the parameters in
     # float32 or bfloat16, all in W_ap's dtype.
-    pdt = w["w_ap"].dtype if w["w_ap"].dtype in _DTYPE_CODES else torch.float32
-    params = [_as(w[k], pdt, dev) for k in PROJECT_PARAMS]
+    params, pcode = _params([w[k] for k in PROJECT_PARAMS], w["w_ap"], dev)
     _launch("trimul_project", dev, z, _f32(res_mask, dev), _f32(col_mask, dev), *params, a, b, B, I, N, C, H,
-            _DTYPE_CODES[z.dtype], _DTYPE_CODES[pdt])
+            _DTYPE_CODES[z.dtype], pcode)
     LAUNCHES["trimul_project"] += 1
     return a, b
 
@@ -374,9 +381,10 @@ def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.
     dev = x.device
     out = torch.empty((B, I, N, D), dtype=z.dtype, device=dev)
     # The kernel folds LN_out into linear_z (fold_ln_out) and rounds the
-    # product weights to the activation dtype itself, as it stages them.
-    params = [_f32(w[k], dev) for k in EPILOGUE_PARAMS]
-    _launch("trimul_epilogue", dev, x, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[x.dtype])
+    # product weights to the activation dtype itself, as it stages them; it
+    # reads the parameters in float32 or bfloat16, all in W_z's dtype.
+    params, pcode = _params([w[k] for k in EPILOGUE_PARAMS], w["w_z"], dev)
+    _launch("trimul_epilogue", dev, x, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[x.dtype], pcode)
     LAUNCHES["trimul_epilogue"] += 1
     return out
 
@@ -400,9 +408,9 @@ def _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias) -> torch.Tensor
     if tuple(w_z.shape) != (D, H) or ln_out_scale.shape != (H,) or ln_out_bias.shape != (H,) or H > _MAX_CHANNELS:
         raise ValueError(f"epilogue_partial: x {tuple(x.shape)}, w_z {tuple(w_z.shape)}")
     dev = x.device
-    params = [_f32(t, dev) for t in (w_z, ln_out_scale, ln_out_bias)]
+    params, pcode = _params((w_z, ln_out_scale, ln_out_bias), w_z, dev)
     part = torch.empty(part_size(B, N, D, I), dtype=torch.float32, device=dev)
-    _launch("trimul_epilogue_partial", dev, x, *params, part, B, I, N, H, D, _DTYPE_CODES[x.dtype],
+    _launch("trimul_epilogue_partial", dev, x, *params, part, B, I, N, H, D, _DTYPE_CODES[x.dtype], pcode,
             source="trimul_epilogue")
     LAUNCHES["trimul_epilogue_partial"] += 1
     return part
@@ -428,11 +436,11 @@ def _epilogue_finish_forward(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H:
             or tuple(w_g.shape) != (D, C) or C > _MAX_CHANNELS or H < 1:
         raise ValueError(f"epilogue_finish: part {tuple(part.shape)}, z {tuple(z.shape)}, C_out={D}")
     dev = z.device
-    u, vb = split_part(part, B, N, D, I)[1]  # the weight sums, views into part
-    params = [_f32(t, dev) for t in (ln_in_scale, ln_in_bias)] + [u, vb] + [_f32(t, dev) for t in (b_z, w_g, b_g)]
+    u, vb = split_part(part, B, N, D, I)[1]  # the weight sums, float32 views into part
+    (ln_s, ln_b, b_z, w_g, b_g), pcode = _params((ln_in_scale, ln_in_bias, b_z, w_g, b_g), w_g, dev)
     out = torch.empty((B, I, N, D), dtype=z.dtype, device=dev)
-    _launch("trimul_epilogue_finish", dev, part, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[z.dtype],
-            source="trimul_epilogue")
+    _launch("trimul_epilogue_finish", dev, part, z, ln_s, ln_b, u, vb, b_z, w_g, b_g, out, B, I, N, C, H, D,
+            _DTYPE_CODES[z.dtype], pcode, source="trimul_epilogue")
     LAUNCHES["trimul_epilogue_finish"] += 1
     return out
 

@@ -78,15 +78,35 @@ def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
     assert trimul.LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] == 1
 
 
+def _at_offset(part: torch.Tensor, offset: int) -> torch.Tensor:
+    """`part` as a contiguous view `offset` floats into a buffer of its own:
+    at an odd offset no span of it is 16-byte aligned."""
+    if not offset:
+        return part
+    buf = torch.empty(part.numel() + offset, dtype=part.dtype, device=part.device)
+    buf[offset:].copy_(part)
+    return buf[offset:]
+
+
 @pytest.mark.parametrize("dtype,weight_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-                                                (torch.bfloat16, torch.bfloat16)])
-@pytest.mark.parametrize("n,c,h,d", [(256, 128, 128, 128), (70, 40, 48, 24), (224, 48, 256, 200), (17, 256, 40, 72),
-                                     (1, 32, 32, 33)])
-def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d):
+                                                (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("n,c,h,d", [(256, 128, 128, 128), (255, 128, 128, 128), (70, 40, 48, 24),
+                                     (224, 48, 256, 200), (17, 256, 40, 72), (1, 32, 32, 33),
+                                     (224, 256, 256, 256), (130, 256, 128, 128), (40, 64, 64, 1000)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d, offset):
     """The partial and finish modes against their plain versions, each
     rank's partial on half the hidden channels; their sum through the
-    finish kernel against the one-launch epilogue kernel. D off the even
-    pair (33) stores element by element."""
+    finish kernel against the one-launch epilogue kernel. The kernels move
+    a tile's span of part by one bulk copy where it is 16-byte aligned and
+    by 8- or 4-byte copies (the finish) or plain stores (the partial)
+    where not: odd first positions (odd n), odd tails (n = 255), odd D
+    (33), and the summed part at an odd float offset (every span of the
+    finish's input unaligned). D off the even pair (33) stores element by
+    element. Wide C, H and D leave no room for part's span tiles beside the
+    resident weights (C = 256: the finish reads part in place in float32,
+    or stages the spans beside 64-channel chunks; D = 1000: both kernels
+    read or write part in place)."""
     gen = torch.Generator(device=device).manual_seed(n + h + d)
     w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device, d).items()}
     z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
@@ -98,11 +118,34 @@ def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d):
         got = trimul.epilogue_partial(*args)
         _close(got, trimul.epilogue_partial_plain(*args), torch.float32)
         part = part + got
+    part = _at_offset(part, offset)
     _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_finish_plain(
         part, z, *(w[k] for k in trimul.FINISH_PARAMS), h), dtype)
     _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_cm(x, z, w), dtype)
     torch.cuda.synchronize()
     assert trimul.LAUNCHES["trimul_epilogue_partial"] == 2 and trimul.LAUNCHES["trimul_epilogue_finish"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_wrappers_launch_one_kernel(device, dtype):
+    """Under bf16 weights (the bf16 policy) each epilogue wrapper call is
+    one device kernel: the kernels read the parameters in their own dtype,
+    so no conversion runs beside them (torch.profiler's device events)."""
+    import chip_smoke
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    n, c, h = 64, 32, 32
+    w = {k: v.to(torch.bfloat16) for k, v in _weights(c, h, gen, device).items()}
+    z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
+    x = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype)
+    half = slice(0, h // 2)
+    rank = (x[:, half].contiguous(), w["w_z"][:, half].contiguous(), w["ln_out_scale"][half], w["ln_out_bias"][half])
+    part = trimul.epilogue_partial(*rank)
+    with torch.no_grad():
+        for fn in (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_partial(*rank),
+                   lambda: trimul.epilogue_finish(part, z, w, h)):
+            names = [e.name for e in chip_smoke.device_events(fn)]
+            assert len(names) == 1 and "epilogue" in names[0], names
 
 
 def test_wrapper_rejects_bad_input(device):
@@ -355,7 +398,7 @@ def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,i", [(96, 48), (70, 35), (256, 128), (33, 17)])
+@pytest.mark.parametrize("n,i", [(96, 48), (70, 35), (256, 128), (255, 128), (33, 17)])
 def test_row_block_kernels_match_plain(device, dtype, n, i):
     """The row-block cases of sequence parallelism (the last i of n rows, as
     the last seq rank holds them) against the plain versions, forward and
@@ -399,11 +442,16 @@ def test_row_block_kernels_match_plain(device, dtype, n, i):
                 _grads_of(lambda: trimul.epilogue_cm_plain(x, z, w), inputs, dout), dtype)
     with torch.no_grad():
         _close(trimul.epilogue_cm(x, z, w), trimul.epilogue_cm_plain(x, z, w), dtype)
-        halves = [(x[:, hs].contiguous(), w["w_z"][:, hs], w["ln_out_scale"][hs], w["ln_out_bias"][hs])
-                  for hs in (slice(0, h // 2), slice(h // 2, h))]
-        part = sum(trimul.epilogue_partial(*hv) for hv in halves)
-        _close(part, sum(trimul.epilogue_partial_plain(*hv) for hv in halves), dtype)
-        _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_cm_plain(x, z, w), dtype)
+        # The two stages on the row block, with weights in the activation
+        # dtype and in float32, the summed part also at an odd float offset.
+        for wt in (w, {k: v.float() for k, v in w.items()}):
+            halves = [(x[:, hs].contiguous(), wt["w_z"][:, hs], wt["ln_out_scale"][hs], wt["ln_out_bias"][hs])
+                      for hs in (slice(0, h // 2), slice(h // 2, h))]
+            part = sum(trimul.epilogue_partial(*hv) for hv in halves)
+            _close(part, sum(trimul.epilogue_partial_plain(*hv) for hv in halves), dtype)
+            for offset in (0, 1):
+                _close(trimul.epilogue_finish(_at_offset(part, offset), z, wt, h), trimul.epilogue_cm_plain(x, z, wt),
+                       dtype)
 
     q, k, v, q_pts, k_pts, v_pts, bias, zz, hw, mask = _ipa_inputs(device, dtype, 2, n, 12, 16, 4, 8, 128, 5)
     args = [q[:, rows], k, v, q_pts[:, rows], k_pts, v_pts, bias[:, rows], zz[:, rows], hw]

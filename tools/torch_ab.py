@@ -4,9 +4,13 @@
 For each turn, in a process of its own whose genie2_tpu_torch is the
 checkout's (its kernels built into that checkout's build/): the square
 kernels at B=2, N=256, fp32 (the TriMul projection, both contraction
-directions, the epilogue, contract_cm_km, the IPA core, triangle
-attention; ms a call between CUDA events, chip_smoke.py's inputs) and
-chip_smoke.py's row-block cases (`row_block_cases`, forward and backward),
+directions, the epilogue, its partial stage on H_r=64 of the hidden
+channels and its finish stage on two such ranks' sums, contract_cm_km, the
+IPA core, triangle attention; ms a call between CUDA events, chip_smoke.py's
+inputs), the device-only ms a call of the epilogue and its two stages
+(torch.profiler's device events: CUDA events around a loop of Python calls
+can time the host's issue rate instead) and chip_smoke.py's row-block cases
+(`row_block_cases`, forward and backward),
 then the checkout's own tools/torch_profile_step.py for a reverse step
 (L=256, B=2) and a training step (`--train`: L=256, batch 4), their wall
 and device ms. Prints one JSON line a turn and, last, the medians of each
@@ -19,10 +23,13 @@ Needs a CUDA card; imports torch and genie2_tpu_torch only.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+
+OWN_CHIP_SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
 
 
 def kernel_times(tree: str) -> dict:
@@ -45,17 +52,26 @@ def kernel_times(tree: str) -> dict:
     x = trimul.contract_cm_plain(a, b, True)
     ipa_args = cs.random_ipa_inputs(B, N, z, res_mask, gen)
     ta_args = cs.random_tri_att_inputs(B, N, torch.float32, gen, dev)
+    # The epilogue's two stages as two model ranks run them: rank 0's
+    # partial sums over half the hidden channels, the finish on both ranks'.
+    halves = [(x[:, hs].contiguous(), w["w_z"][:, hs].contiguous(), w["ln_out_scale"][hs], w["ln_out_bias"][hs])
+              for hs in (slice(0, cs.H_MUL // 2), slice(cs.H_MUL // 2, cs.H_MUL))]
+    part = sum(trimul.epilogue_partial_plain(*h) for h in halves)
     cases = {
         "trimul_project": lambda: trimul.project_gated_cm(z, res_mask, w),
         "trimul_contract_out": lambda: trimul.contract_cm(a, b, True),
         "trimul_contract_in": lambda: trimul.contract_cm(a, b, False),
         "trimul_epilogue": lambda: trimul.epilogue_cm(x, z, w),
+        "trimul_epilogue_partial": lambda: trimul.epilogue_partial(*halves[0]),
+        "trimul_epilogue_finish": lambda: trimul.epilogue_finish(part, z, w, cs.H_MUL),
         "contract_cm_km": lambda: trimul.contract_cm_km(a, b),
         "ipa_attention": lambda: ipa.ipa_attention(*ipa_args),
         "tri_attention": lambda: tri_att.tri_attention(*ta_args),
     }
     with torch.no_grad():
         out = {name: cs.cuda_time_ms(fn, iters=50, warmup=5) for name, fn in cases.items()}
+        for name in ("trimul_epilogue", "trimul_epilogue_partial", "trimul_epilogue_finish"):
+            out[f"device_{name}"] = device_ms(cases[name])
     # The row-block cases of chip_smoke.py's kernels phase, forward and
     # backward, with its iteration counts, so that their spread across
     # turns reads on the numbers that the phase reports.
@@ -69,6 +85,17 @@ def kernel_times(tree: str) -> dict:
             out[f"rows_{name}_{rows}_backward"] = cs.cuda_time_ms(
                 lambda: torch.autograd.grad(out_k, inputs, cots, retain_graph=True), iters=10, warmup=2)
     return out
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device ms a call of `fn`: the summed time of the device events
+    (kernels and copies) of `iters` calls under torch.profiler, over
+    `iters`. The events come from this tool's own checkout's chip_smoke.py,
+    so that both trees are measured alike."""
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", OWN_CHIP_SMOKE)
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    return sum(e.time_range.elapsed_us() for e in own.device_events(fn, iters=iters, warmup=5)) / iters / 1e3
 
 
 def step_times(tree: str) -> dict:

@@ -4,9 +4,10 @@
 Each variant is a copy of genie2_tpu_torch/csrc with text substitutions,
 built with the port's own nvcc flags into build/variants/<name>/ and
 swapped in for the wrapper's library. For float32 and bf16 at the main
-path's shapes (B=2, N=256, C=H=128; triangle attention H=4, c=32; the
-IPA core H=12, C=16, Pq=4, Pv=8, Cz=128) it
-prints one JSON line per variant:
+path's shapes (B=2, N=256, C=H=128; the TriMul epilogue's partial stage
+on H_r=64 of the hidden channels, its finish stage on two such ranks'
+sums; triangle attention H=4, c=32; the IPA core H=12, C=16, Pq=4, Pv=8,
+Cz=128) it prints one JSON line per variant:
 the error against the plain version relative to max |plain|, the kernel's
 device time per launch (torch.profiler) and the wrapper's time between CUDA
 events, the HMMA count of the library and, for a variant marked "phases"
@@ -15,7 +16,7 @@ first values of its (first) output), those cycle counts. A variant that
 changes what the kernel computes is a measurement, not a candidate: its
 error says so.
 
-    python3 tools/torch_kernel_variants.py tools/torch_kernel_variants.json
+    python3 tools/torch_kernel_variants.py tools/torch_kernel_variants.json [--only NAME,NAME,...]
 
 Needs a CUDA card and nvcc; imports torch and genie2_tpu_torch only.
 """
@@ -34,7 +35,7 @@ if REPO not in sys.path:
 
 # The kernel function of each source, as the profiler names it.
 KERNEL_NAME = {"trimul_project": "project_kernel", "trimul_contract": "contract_kernel",
-               "trimul_epilogue": "epilogue_kernel", "tri_att_flash": "tri_att_kernel",
+               "trimul_epilogue": "epilogue_", "tri_att_flash": "tri_att_kernel",
                "ipa_attention": "ipa_kernel", "triangle_contract": "contract_kernel"}
 
 
@@ -69,6 +70,10 @@ def build_variants(variants, build):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if len(argv) == 3 and argv[1] == "--only":
+        only = set(argv[2].split(","))
+        argv = argv[:1]
     if len(argv) != 1:
         raise SystemExit(__doc__)
     import torch
@@ -81,7 +86,9 @@ def main(argv=None):
         raise SystemExit("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     with open(argv[0]) as fh:
-        variants = {k: v for k, v in json.load(fh).items() if not k.startswith("_")}
+        variants = {k: v for k, v in json.load(fh).items() if not k.startswith("_") and (only is None or k in only)}
+    if only is not None and set(variants) != only:
+        raise SystemExit(f"no such variants: {sorted(only - set(variants))}")
     libs = build_variants(variants, build)
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
 
@@ -147,7 +154,17 @@ def main(argv=None):
                                                          lambda o=o: trimul.contract_cm_plain(a, b, o))
                     for o in (True, False)}
         if source == "trimul_epilogue":
-            return {dname: (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_cm_plain(x, z, w))}
+            # The split modes as two model ranks run them: rank 0's partial
+            # sums over half the hidden channels, the finish on both ranks'.
+            halves = [(x[:, hs].contiguous(), w["w_z"][:, hs], w["ln_out_scale"][hs], w["ln_out_bias"][hs])
+                      for hs in (slice(0, H // 2), slice(H // 2, H))]
+            part = sum(trimul.epilogue_partial_plain(*hv) for hv in halves)
+            finish_w = [w[k] for k in trimul.FINISH_PARAMS]
+            return {dname: (lambda: trimul.epilogue_cm(x, z, w), lambda: trimul.epilogue_cm_plain(x, z, w)),
+                    f"{dname}_partial": (lambda: trimul.epilogue_partial(*halves[0]),
+                                         lambda: trimul.epilogue_partial_plain(*halves[0])),
+                    f"{dname}_finish": (lambda: trimul.epilogue_finish(part, z, w, H),
+                                        lambda: trimul.epilogue_finish_plain(part, z, *finish_w, H))}
         if source == "ipa_attention":
             return {dname: (lambda: ipa.ipa_attention(*ipa_args), lambda: ipa.ipa_attention_plain(*ipa_args))}
         if source == "triangle_contract":
