@@ -285,7 +285,8 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def device_events(fn, iters: int = 1, warmup: int = 1) -> list:
     """torch.profiler's device events (kernels and copies) of `iters` calls
     of `fn` on the card, after `warmup` calls (the build and the launch
-    attributes)."""
+    attributes). The program's spans (genie2:*), which the device timeline
+    shows too, are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,7 +298,7 @@ def device_events(fn, iters: int = 1, warmup: int = 1) -> list:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.name.startswith("genie2:")]
 
 
 # ------------------------------------------------------------------ #
@@ -2267,7 +2268,7 @@ def parallel_rank(rank, plan):
             grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]).cpu())
     launches = dict(trimul.LAUNCHES)
     params = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
-    # The step's gradient all-reduce (the grad_allreduce range) again, timed
+    # The step's gradient all-reduce (the span genie2:grad_allreduce) again, timed
     # alone on the last step's gradients (the same on every rank, so their
     # mean leaves them as they are).
     allreduce_ms = []

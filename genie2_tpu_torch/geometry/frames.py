@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from genie2_tpu_torch.utils.profiling import spanned
 
+
+@spanned("frames")
 def frenet_frames(
     coords: torch.Tensor,
     chain_index: torch.Tensor,

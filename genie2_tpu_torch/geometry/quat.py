@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from genie2_tpu_torch.utils.profiling import host_sync, span
+
 # cuSOLVER's batched symmetric eigensolver refuses a batch of 32768 4x4
 # matrices and takes 16384 (H100, CUDA 12.8), so "eigh" goes in chunks.
 _EIGH_BATCH = 16384
@@ -64,8 +66,12 @@ class TopEigenvector(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, k):
-        w, v = zip(*(torch.linalg.eigh(chunk) for chunk in k.split(_EIGH_BATCH)))
-        w, v = torch.cat(w), torch.cat(v)
+        with span("eigh"):
+            chunks = k.split(_EIGH_BATCH)
+            # torch reads each call's status on the host: one sync a chunk.
+            host_sync("eigh_status", k, len(chunks))
+            w, v = zip(*(torch.linalg.eigh(chunk) for chunk in chunks))
+            w, v = torch.cat(w), torch.cat(v)
         ctx.save_for_backward(w, v)
         return v[..., -1]
 

@@ -20,6 +20,7 @@ from genie2_tpu_torch.nn.feature_nets import PairFeatureNet, SingleFeatureNet
 from genie2_tpu_torch.nn.pair_stack import PairTransformNet
 from genie2_tpu_torch.nn.structure import StructureNet
 from genie2_tpu_torch.parallel.sequence_parallel import mean_grad_over_seq, padded_length, row_slice
+from genie2_tpu_torch.utils.profiling import spanned
 
 
 class Denoiser(nn.Module):
@@ -114,6 +115,7 @@ class Denoiser(nn.Module):
         n_pad = padded_length(features["residue_mask"].shape[1], self.seq)
         return self.pair_feature_net.static_bias(pad_residues(features, n_pad), dtype, row_slice(n_pad, self.seq))
 
+    @spanned("denoiser")
     def forward(
         self, ts: Rigid, timesteps: torch.Tensor, features: Dict[str, Any],
         static_pair_bias: torch.Tensor = None, generator: Optional[torch.Generator] = None,

@@ -22,6 +22,7 @@ from torch import nn
 from genie2_tpu_torch.features.residues import NUM_RESTYPES
 from genie2_tpu_torch.geometry import Rigid, distogram, rot_to_quat, sinusoidal_encoding
 from genie2_tpu_torch.nn.primitives import Linear
+from genie2_tpu_torch.utils.profiling import spanned
 
 
 class SingleFeatureNet(nn.Module):
@@ -33,6 +34,7 @@ class SingleFeatureNet(nn.Module):
         c_in = c_pos_emb + c_chain_emb + c_timestep_emb + NUM_RESTYPES + 3
         self.linear = Linear(c_in, c_s, bias=False)
 
+    @spanned("single_features")
     def forward(self, ts: Rigid, timesteps: torch.Tensor, features) -> torch.Tensor:
         n = ts.trans.shape[1]
         pos_emb = sinusoidal_encoding(features["residue_index"], self.max_n_res, self.c_pos_emb)
@@ -90,6 +92,7 @@ class PairFeatureNet(nn.Module):
         pair_mask = mask[:, rows, None] * mask[:, None, :]
         return oh * pair_mask[..., None].to(oh.dtype)
 
+    @spanned("orientations")
     def _encode_orientations(self, rots, mask, rows=slice(None)):
         """Pairwise orientation quaternions of r[i, j] = R_j @ R_i (the
         reference's broadcasting convention, not R_i^T R_j)."""
@@ -115,6 +118,7 @@ class PairFeatureNet(nn.Module):
         )
         return bias + self.linear_motif_template(motif_template)
 
+    @spanned("pair_features")
     def forward(self, s, ts: Rigid, features, static_bias=None, rows=slice(None)):
         """The pair representation's rows `rows` (all of them by default)."""
         dtype = s.dtype

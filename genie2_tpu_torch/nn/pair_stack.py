@@ -53,6 +53,7 @@ from genie2_tpu_torch.nn.primitives import Attention, Linear, dropout, layer_gen
 from genie2_tpu_torch.ops import trimul
 from genie2_tpu_torch.parallel.sequence_parallel import gather_seq_rows, reduce_seq_rows, row_slice
 from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
+from genie2_tpu_torch.utils.profiling import spanned
 
 
 class TriangleMultiplicativeUpdate(nn.Module):
@@ -91,6 +92,7 @@ class TriangleMultiplicativeUpdate(nn.Module):
     def shard_(self, tp):
         self.tp = tp
 
+    @spanned("trimul")
     def forward(self, z: torch.Tensor, res_mask: torch.Tensor) -> torch.Tensor:
         """z [B,I,N,C] (I = N, or this rank's rows under `seq`), res_mask
         [B,N] -> the update before the residual."""
@@ -151,6 +153,7 @@ class TriangleAttention(nn.Module):
         self.tp = tp
         self.mha.shard_(tp)
 
+    @spanned("tri_att")
     def forward(self, x: torch.Tensor, mask: torch.Tensor, res_mask: torch.Tensor = None) -> torch.Tensor:
         """x [B,I,N,C], mask [B,I,N] (the pair mask of the rows; I = N, or
         this rank's rows under `seq`; res_mask [B,N], read by the ending
@@ -205,6 +208,7 @@ class PairTransition(nn.Module):
     def shard_(self, tp):
         self.tp = tp
 
+    @spanned("pair_transition")
     def forward(self, z, mask):
         z = self.layer_norm(z)
         if self.tp is None:
@@ -236,6 +240,7 @@ class PairTransformLayer(nn.Module):
                                                  row_chunk=tri_att_chunk)
         self.pair_transition = PairTransition(c_p, pair_transition_n)
 
+    @spanned("pair_layer")
     def forward(self, p, pair_mask, res_mask, seed=None):
         """`seed` (a dropout key, nn/primitives.py) seeds this layer's dropout masks; None: no dropout."""
         gen = layer_generator(seed, p.device)
@@ -272,6 +277,7 @@ class PairTransformNet(nn.Module):
             for _ in range(n_pair_transform_layer)
         )
 
+    @spanned("pair_stack")
     def forward(self, p, features, seeds=None):
         """`seeds`: one dropout key a layer, or None (no dropout)."""
         mask = features["residue_mask"].to(p.dtype)

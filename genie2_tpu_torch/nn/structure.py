@@ -30,6 +30,7 @@ from genie2_tpu_torch.nn.primitives import SOFTPLUS_INVERSE_1, Linear, dropout, 
 from genie2_tpu_torch.ops.ipa import ipa_attention
 from genie2_tpu_torch.parallel.sequence_parallel import gather_seq_rows, row_slice
 from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
+from genie2_tpu_torch.utils.profiling import spanned
 
 
 def _to_points(x: torch.Tensor) -> torch.Tensor:
@@ -81,6 +82,7 @@ class InvariantPointAttention(nn.Module):
         self.tp = tp
         self.no_heads //= tp.size
 
+    @spanned("ipa")
     def forward(self, s, z, t: Rigid, mask):
         h, c = self.no_heads, self.c_hidden
         pq, pv = self.no_qk_points, self.no_v_points
@@ -160,6 +162,7 @@ class StructureTransition(nn.Module):
         self.layers = nn.ModuleList(_TransitionBlock(c) for _ in range(num_layers))
         self.layer_norm = layer_norm(c)
 
+    @spanned("structure_transition")
     def forward(self, s, generator=None):
         for layer in self.layers:
             s = layer(s)
@@ -174,6 +177,7 @@ class BackboneUpdate(nn.Module):
         super().__init__()
         self.linear = Linear(c_s, 6)
 
+    @spanned("backbone_update")
     def forward(self, s) -> Rigid:
         params = self.linear(s)
         quats, trans = params[..., :3], params[..., 3:]
@@ -197,6 +201,7 @@ class StructureLayer(nn.Module):
         self.transition = StructureTransition(c_s, n_structure_transition_layer, transition_dropout)
         self.bb_update = BackboneUpdate(c_s)
 
+    @spanned("structure_layer")
     def forward(self, s, p, t: Rigid, mask, seed=None):
         """`seed` (a dropout key, nn/primitives.py) seeds this application's dropout masks; None: no dropout."""
         gen = layer_generator(seed, s.device)

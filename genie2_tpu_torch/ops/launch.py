@@ -8,7 +8,8 @@ entry of `LAUNCHES` where it launches, and nowhere else. Where autograd
 records (grad mode on and an input that requires grad), a wrapper on the
 card goes through its `torch.autograd.Function`: the forward is the same
 launch, the backward either kernels (the TriMul contraction) or the
-gradient of the plain version, recomputed (`Recomputed`). A raw
+gradient of the plain version, recomputed (`Recomputed`, inside the span
+"recompute.<kernel>": the plain version's name without `_plain`). A raw
 `launch` whose inputs would need a gradient raises (`check_no_grad`): the
 kernels themselves return tensors without a graph.
 """
@@ -16,12 +17,14 @@ kernels themselves return tensors without a graph.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from genie2_tpu_torch.ops import build
+from genie2_tpu_torch.utils.profiling import span
 
 # Kernel launches on the card, counted by the wrappers.
 LAUNCHES: Dict[str, int] = {
@@ -109,7 +112,17 @@ class Recomputed(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, *grad_outputs):
-        return (None, None, *recompute_backward(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], grad_outputs))
+        with span("recompute." + recomputed_name(ctx.plain)):
+            grads = recompute_backward(ctx.plain, ctx.saved_tensors, ctx.needs_input_grad[2:], grad_outputs)
+        return (None, None, *grads)
+
+
+def recomputed_name(plain: Callable) -> str:
+    """The kernel a plain version stands for: its function's name (under
+    any functools.partial) without `_plain`."""
+    while isinstance(plain, functools.partial):
+        plain = plain.func
+    return plain.__name__.removesuffix("_plain")
 
 
 def check_activation(name: str, t: torch.Tensor, ndim: int, like: torch.Tensor = None):

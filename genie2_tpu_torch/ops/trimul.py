@@ -84,6 +84,7 @@ from genie2_tpu_torch.ops.launch import (
     records_grad,
     reset_launch_counts,
 )
+from genie2_tpu_torch.utils.profiling import spanned
 
 LN_EPS = 1e-6
 
@@ -489,6 +490,7 @@ class ContractCM(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("backward.trimul_contract")
     def backward(ctx, dx):
         a, b = ctx.saved_tensors
         need_a, need_b = ctx.needs_input_grad[:2]

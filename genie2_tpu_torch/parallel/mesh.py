@@ -46,6 +46,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from genie2_tpu_torch.utils.profiling import host_sync, span
+
+
 @dataclass(frozen=True)
 class Mesh:
     """This process's place in the (data x seq x model) grid: its rank, the
@@ -300,7 +303,7 @@ def average_gradients(grads: Sequence[torch.Tensor], mesh: Optional[Mesh]):
     Adam skips a None gradient but would update its moments on a zero one."""
     if mesh is None or not grads:
         return
-    with torch.profiler.record_function("grad_allreduce"):
+    with span("grad_allreduce"):
         buckets, size = [[]], 0
         for g in grads:
             if buckets[-1] and (size + g.numel() * g.element_size() > GRAD_BUCKET_BYTES
@@ -324,6 +327,7 @@ def any_rank(flag: bool, mesh: Optional[Mesh]) -> bool:
         return flag
     x = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
     dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    host_sync("any_rank", x)
     return bool(x.item() > 0)
 
 
@@ -333,6 +337,7 @@ def broadcast_int(value: int, mesh: Optional[Mesh]) -> int:
         return value
     x = torch.tensor([value], dtype=torch.int64, device=mesh.device)
     dist.broadcast(x, src=0)
+    host_sync("broadcast_int", x)
     return int(x.item())
 
 

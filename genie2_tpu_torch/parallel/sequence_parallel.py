@@ -47,7 +47,7 @@ collectives.
 
 `VOLUME` counts the bytes all-reduced over the seq group (forward: both
 collectives; backward: their backward and `mean_grad_over_seq`'s), each
-under the profiler range `seq_allreduce`.
+inside the span `seq_allreduce` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ from typing import Any, Dict, List
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from genie2_tpu_torch.utils.profiling import span
 
 # Bytes all-reduced over the seq group, by direction.
 VOLUME: Dict[str, int] = {"forward": 0, "backward": 0}
@@ -95,7 +97,7 @@ def row_slice(n: int, seq: SeqGroup) -> slice:
 
 
 def _all_reduce(buf: torch.Tensor, seq: SeqGroup, direction: str) -> torch.Tensor:
-    with torch.profiler.record_function("seq_allreduce"):
+    with span("seq_allreduce"):
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=seq.group)
     VOLUME[direction] += buf.numel() * buf.element_size()
     return buf

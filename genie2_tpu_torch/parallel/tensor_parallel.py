@@ -44,8 +44,8 @@ Adam's moments, the EMA). Every collective is an all-reduce: a full tensor
 is gathered as the sum of zero-padded buffers, as mesh.py:gather_rows.
 
 `VOLUME` counts the bytes all-reduced over the model group (forward:
-reduce_from_model; backward: copy_to_model), each under the profiler range
-`tp_allreduce`.
+reduce_from_model; backward: copy_to_model), each inside the span
+`tp_allreduce` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ import torch.distributed as dist
 from torch import nn
 
 from genie2_tpu_torch.parallel.sequence_parallel import shard_sequence
+from genie2_tpu_torch.utils.profiling import span
 
 # (state_dict name pattern, dimension split, layout). Linear weights are
 # [out, in]: dimension 0 splits the output features (column parallel), 1
@@ -110,7 +111,7 @@ class ModelGroup:
 def _all_reduce(x: torch.Tensor, tp: ModelGroup, direction: str) -> torch.Tensor:
     """The sum over the model group of a float32 copy of `x`, in x's dtype."""
     buf = x.to(torch.float32, copy=True)
-    with torch.profiler.record_function("tp_allreduce"):
+    with span("tp_allreduce"):
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=tp.group)
     VOLUME[direction] += buf.numel() * buf.element_size()
     return buf.to(x.dtype)

@@ -36,6 +36,7 @@ from genie2_tpu_torch.sampling.ddpm import (
     eta_schedule_below,
 )
 from genie2_tpu_torch.sampling.dpm_solver import dpm_solver_sample
+from genie2_tpu_torch.utils.profiling import host_sync
 
 
 def bucket_length(n: int, multiple: int = 32) -> int:
@@ -212,4 +213,5 @@ class BaseSampler(ABC):
             trans = ancestral_sample(model_fn, self.schedule, features, seed, ids, scale)
         out = to_device(padded, "cpu")
         out["atom_positions"] = gather_rows(self.mesh, trans)[0]
+        host_sync("sample_output", out["atom_positions"])
         return debatchify(to_host(out))[:n_real]

@@ -20,6 +20,7 @@ import torch
 
 from genie2_tpu_torch.diffusion import Schedule, ddim_step_from_eps, posterior_mean_from_eps
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
+from genie2_tpu_torch.utils.profiling import host_sync, span, spanned
 
 # model_fn(frames, timesteps [B]) -> predicted noise z [B, N, 3] (float32)
 ModelFn = Callable[[Rigid, torch.Tensor], torch.Tensor]
@@ -47,6 +48,7 @@ def trajectory_noise(seed: int, sample_ids: Sequence[int], n_timestep: int, n_re
     return torch.stack([step_noise(seed, sample_ids, t, n_res) for t in range(n_timestep, 0, -1)])
 
 
+@spanned("sample_step")
 def reverse_step(model_fn: ModelFn, schedule: Schedule, features, trans: torch.Tensor, t: int,
                  noise: torch.Tensor, scale: float) -> torch.Tensor:
     """One reverse-diffusion step x_t -> x_{t-1}; `noise` is ignored at t == 1."""
@@ -54,11 +56,12 @@ def reverse_step(model_fn: ModelFn, schedule: Schedule, features, trans: torch.T
     t_vec = torch.full((trans.shape[0],), t, dtype=torch.long, device=trans.device)
     rots = frenet_frames(trans, features["chain_index"], features["residue_mask"])
     z_pred = model_fn(Rigid(rots, trans), t_vec)
-    mean = posterior_mean_from_eps(schedule, trans, t_vec, z_pred) * mask
-    if t > 1:
-        sigma = schedule.sqrt_betas[t_vec][:, None, None]
-        return mean + scale * sigma * noise * mask
-    return mean
+    with span("posterior"):
+        mean = posterior_mean_from_eps(schedule, trans, t_vec, z_pred) * mask
+        if t > 1:
+            sigma = schedule.sqrt_betas[t_vec][:, None, None]
+            return mean + scale * sigma * noise * mask
+        return mean
 
 
 def init_translations(features, seed: int, sample_ids: Sequence[int]) -> torch.Tensor:
@@ -105,6 +108,7 @@ def ancestral_sample_with_trajectory(model_fn: ModelFn, schedule: Schedule, feat
     for i, t in enumerate(range(schedule.n_timestep, 0, -1)):
         trans = reverse_step(model_fn, schedule, features, trans, t, noises[i], scale)
         if t % record_every == 0:
+            host_sync("trajectory_snapshot", trans)
             snaps.append(trans.cpu().numpy())
             snap_steps.append(t)
     return trans, (np.stack(snaps) if snaps else np.zeros((0,))), snap_steps
@@ -154,13 +158,15 @@ def ddim_sample_injected(model_fn: ModelFn, schedule: Schedule, features, init_t
     trans = init_trans
     trajectory = []
     for (t, t_prev), eta, noise in zip(pairs.tolist(), etas, noises):
-        t_vec = torch.full((trans.shape[0],), t, dtype=torch.long, device=trans.device)
-        tp_vec = torch.full_like(t_vec, t_prev)
-        rots = frenet_frames(trans, features["chain_index"], features["residue_mask"])
-        eps = model_fn(Rigid(rots, trans), t_vec)
-        # The noise scale applies to the injected noise as in the ancestral
-        # loop; at eta = 0 nothing is injected.
-        trans = ddim_step_from_eps(schedule, trans, t_vec, tp_vec, eps, noise * scale, float(eta)) * mask
+        with span("sample_step"):
+            t_vec = torch.full((trans.shape[0],), t, dtype=torch.long, device=trans.device)
+            tp_vec = torch.full_like(t_vec, t_prev)
+            rots = frenet_frames(trans, features["chain_index"], features["residue_mask"])
+            eps = model_fn(Rigid(rots, trans), t_vec)
+            # The noise scale applies to the injected noise as in the ancestral
+            # loop; at eta = 0 nothing is injected.
+            with span("posterior"):
+                trans = ddim_step_from_eps(schedule, trans, t_vec, tp_vec, eps, noise * scale, float(eta)) * mask
         trajectory.append(trans)
     return trans, torch.stack(trajectory)
 

@@ -25,6 +25,7 @@ import torch
 from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
 from genie2_tpu_torch.sampling.ddpm import ModelFn, ddim_schedule, init_translations
+from genie2_tpu_torch.utils.profiling import span
 
 
 def _alpha_sigma_lambda(schedule: Schedule, t: int):
@@ -43,24 +44,25 @@ def dpm_solver_sample_injected(model_fn: ModelFn, schedule: Schedule, features, 
     prev_x0, prev_lam = None, None
     trajectory = []
     for t, t_prev in pairs.tolist():
-        t_vec = torch.full((trans.shape[0],), t, dtype=torch.long, device=trans.device)
-        rots = frenet_frames(trans, features["chain_index"], features["residue_mask"])
-        eps = model_fn(Rigid(rots, trans), t_vec)
-
-        a_s, s_s, lam_s = _alpha_sigma_lambda(schedule, t)
-        x0 = (trans - s_s * eps) / a_s
-        if t_prev == 0:
-            stepped = x0  # the h -> inf limit
-        else:
-            a_t, s_t, lam_t = _alpha_sigma_lambda(schedule, t_prev)
-            h = lam_t - lam_s
-            em1 = torch.expm1(-h)
-            stepped = (s_t / s_s) * trans - a_t * em1 * x0
-            if prev_x0 is not None:
-                r = (lam_s - prev_lam) / torch.where(h == 0, torch.ones_like(h), h)
-                d1 = (x0 - prev_x0) / torch.where(r == 0, torch.ones_like(r), r)
-                stepped = stepped - 0.5 * a_t * em1 * d1
-        trans = stepped * mask
+        with span("sample_step"):
+            t_vec = torch.full((trans.shape[0],), t, dtype=torch.long, device=trans.device)
+            rots = frenet_frames(trans, features["chain_index"], features["residue_mask"])
+            eps = model_fn(Rigid(rots, trans), t_vec)
+            with span("posterior"):
+                a_s, s_s, lam_s = _alpha_sigma_lambda(schedule, t)
+                x0 = (trans - s_s * eps) / a_s
+                if t_prev == 0:
+                    stepped = x0  # the h -> inf limit
+                else:
+                    a_t, s_t, lam_t = _alpha_sigma_lambda(schedule, t_prev)
+                    h = lam_t - lam_s
+                    em1 = torch.expm1(-h)
+                    stepped = (s_t / s_s) * trans - a_t * em1 * x0
+                    if prev_x0 is not None:
+                        r = (lam_s - prev_lam) / torch.where(h == 0, torch.ones_like(h), h)
+                        d1 = (x0 - prev_x0) / torch.where(r == 0, torch.ones_like(r), r)
+                        stepped = stepped - 0.5 * a_t * em1 * d1
+                trans = stepped * mask
         prev_x0, prev_lam = x0, lam_s
         trajectory.append(trans)
     return trans, torch.stack(trajectory)

@@ -36,6 +36,7 @@ from genie2_tpu_torch.sampling.resampling import (
     resampling_draws,
     systematic_resample_indices,
 )
+from genie2_tpu_torch.utils.profiling import span
 
 
 class FKResult(NamedTuple):
@@ -93,10 +94,11 @@ def smc_feynman_kac_injected(M: Callable, G: Callable, init_particles: Any, init
         new_particles, new_extra = M(noises[i], particles, extra, t)
         log_w_new = gather_rows(mesh, log_w + G(new_particles, particles, new_extra, t))[0]
 
-        ess = ess_from_log_weights(log_w_new)
-        do_resample = ess < ess_threshold * n_particles
-        idx = systematic_resample_indices(torch.softmax(log_w_new, dim=0), offsets[i])
-        sel = torch.where(do_resample, idx, keep)[rows]
+        with span("resample"):
+            ess = ess_from_log_weights(log_w_new)
+            do_resample = ess < ess_threshold * n_particles
+            idx = systematic_resample_indices(torch.softmax(log_w_new, dim=0), offsets[i])
+            sel = torch.where(do_resample, idx, keep)[rows]
 
         particles = _gather(_all_particles(new_particles, mesh), sel)
         extra = _gather(_all_particles(new_extra, mesh), sel)

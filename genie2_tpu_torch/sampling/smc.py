@@ -80,6 +80,7 @@ from genie2_tpu_torch.sampling.twisting import (
     twisting_log_prob_frames,
     xstart_variance,
 )
+from genie2_tpu_torch.utils.profiling import host_sync, span
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 PROPOSALS = ("posterior", "score")
@@ -208,7 +209,7 @@ def tds_sample_injected(
         grad_var = s.one_minus_alphas_cumprod[t] if proposal == "score" else None
         twisted = t >= untwist_below
         if twisted:
-            with torch.enable_grad():
+            with span("twist"), torch.enable_grad():
                 x = trans.detach().requires_grad_(True)
                 target, x0, log_prob, score = potential(x, t, t_vec, var, rot_var, grad_var)
                 (grad,) = torch.autograd.grad(target, x)
@@ -244,10 +245,11 @@ def tds_sample_injected(
             # The resampling population is every rank's particles.
             proposed_all, log_prob_all, log_w_all, x0_all, best_all = gather_rows(
                 mesh, proposed, log_prob, log_w_new, x0, torch.argmax(score, dim=1))
-            ess = ess_from_log_weights(log_w_all)
-            do_resample = ess < ess_frac * n_particles
-            idx = systematic_resample_indices(torch.softmax(log_w_all, dim=0), offsets[i])
-            sel = torch.where(do_resample, idx, identity)[rows]
+            with span("resample"):
+                ess = ess_from_log_weights(log_w_all)
+                do_resample = ess < ess_frac * n_particles
+                idx = systematic_resample_indices(torch.softmax(log_w_all, dim=0), offsets[i])
+                sel = torch.where(do_resample, idx, identity)[rows]
             if t > 1:
                 trans = proposed_all[sel]
                 log_proposal = log_prob_all[sel]
@@ -259,6 +261,8 @@ def tds_sample_injected(
             if record_every and t % record_every == 0:
                 snaps[t] = (x0_all, gather_rows(mesh, trans)[0])
     trace = TDSTrace(*(torch.stack(parts) for parts in zip(*traces)))
+    for x0, _ in snaps.values():
+        host_sync("tds_snapshots", x0, 2)
     snapshots = {t: (x0.cpu().numpy(), xt.cpu().numpy()) for t, (x0, xt) in snaps.items()}
     trans, score = gather_rows(mesh, trans, score)
     return trans, score, trace, snapshots
@@ -351,8 +355,10 @@ class SMCSampler(BaseSampler):
             score_grad_cap=float(params.get("score_grad_cap") or 0.0), mesh=self.mesh,
         )
 
+        host_sync("tds_trace", final_score, len(trace))
         self.trace = TDSTrace(*(t.cpu().numpy() for t in trace))
         self.snapshots = snapshots
+        host_sync("tds_score", final_score)
         score_np = final_score.cpu().numpy()
         # Per-particle inferred placements (sample i = particle i); particle
         # 0's is the one written to motif_location.txt.
@@ -363,6 +369,7 @@ class SMCSampler(BaseSampler):
 
         out = to_device(batch, "cpu")
         out["atom_positions"] = trans
+        host_sync("tds_output", trans)
         return debatchify(to_host(out))
 
     def on_sample_end(self, params: Dict[str, Any], list_np_features: List[Dict]):

@@ -72,6 +72,7 @@ from genie2_tpu_torch.utils.model_io import (
     save_params,
     to_cpu,
 )
+from genie2_tpu_torch.utils.profiling import host_sync
 
 # The batch index of an epoch's validation randomness (past any real batch).
 VAL_BATCH = 2**30
@@ -93,6 +94,8 @@ class MetricsLogger:
     def log(self, step: int, metrics: Dict, prefix: str = "train"):
         if prefix == "train" and step % self.log_every != 0:
             return
+        for v in metrics.values():
+            host_sync("log_metrics", v)
         floats = {k: float(v) for k, v in metrics.items()}
         self._set.log(step, floats, prefix)
         printable = " ".join(f"{k}={v:.4f}" for k, v in floats.items())
@@ -262,6 +265,7 @@ class Trainer:
                 rng, _ = step_randomness(self.config.training["seed"], epoch, VAL_BATCH + i, self.device)
                 t, z, frames = noised_input(self.schedule, feats, rng, mesh=self.mesh)
                 _, metrics = genie_loss(apply_denoiser(model, frames, t, feats), z, feats, w, self.mesh)
+                host_sync("validation_loss", metrics["weighted_loss"])
                 losses.append(float(metrics["weighted_loss"]))
         return float(np.mean(losses)) if losses else float("nan")
 

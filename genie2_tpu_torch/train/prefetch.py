@@ -1,5 +1,5 @@
 """Asynchronous input prefetch (a copy of genie2_tpu/train/prefetch.py;
-standard library only).
+the standard library and the port's spans only).
 
 One background thread runs the whole host side of the input pipeline
 (epoch iteration: augment, pad, stack; then the placement on the device) a
@@ -13,6 +13,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
+
+from genie2_tpu_torch.utils.profiling import span
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -75,7 +77,8 @@ class PrefetchIterator(Iterator[U]):
     def __next__(self) -> U:
         if self._stop.is_set():
             raise StopIteration
-        out = self._queue.get()
+        with span("prefetch_wait"):
+            out = self._queue.get()
         if out is self._DONE:
             self._stop.set()
             raise StopIteration

@@ -44,6 +44,7 @@ from genie2_tpu_torch.nn.policy import apply_denoiser_cast, compute_dtype
 from genie2_tpu_torch.parallel.mesh import Mesh, average_gradients, data_axis_size, local_rows
 from genie2_tpu_torch.parallel.tensor_parallel import gather_train_state, grad_norm, place_train_state
 from genie2_tpu_torch.train.loss import genie_loss
+from genie2_tpu_torch.utils.profiling import span, spanned
 
 
 class TrainState:
@@ -89,6 +90,7 @@ def step_randomness(seed: int, epoch: int, batch: int, device) -> Tuple[torch.Ge
     return rng, int(state[1]) & (2**62 - 1)
 
 
+@spanned("noise")
 def noised_input(schedule: Schedule, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                  mesh: Optional[Mesh] = None):
@@ -130,6 +132,7 @@ def make_train_step(schedule: Schedule, condition_loss_weight: float, compute_dt
     batch."""
     dtype = compute_dtype(compute_dtype_name)
 
+    @spanned("train_step")
     def train_step(state: TrainState, features: Dict[str, torch.Tensor], rng: Optional[torch.Generator] = None,
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                    dropout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -138,17 +141,24 @@ def make_train_step(schedule: Schedule, condition_loss_weight: float, compute_dt
         gen = torch.Generator().manual_seed(int(dropout_seed)) if dropout_seed is not None else None
         n = z.shape[0] * data_axis_size(mesh)
         rows = local_rows(n, mesh)
-        z_pred = apply_denoiser_cast(model, frames, t, features, dtype, gen, (rows.start, rows.stop, n))
-        loss, metrics = genie_loss(z_pred, z, features, condition_loss_weight, mesh)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("forward"):
+            z_pred = apply_denoiser_cast(model, frames, t, features, dtype, gen, (rows.start, rows.stop, n))
+        with span("loss"):
+            loss, metrics = genie_loss(z_pred, z, features, condition_loss_weight, mesh)
+        # The host's wait: on the card the backward runs on autograd's thread,
+        # under the Functions' and rematerialised layers' own spans.
+        with span("backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         params = [p for p in model.parameters() if p.grad is not None]
         average_gradients([p.grad for p in params], mesh)
-        # The global norm of the gradients (optax.global_norm), before the update.
-        metrics["grad_norm"] = grad_norm(model)
-        state.optimizer.step()
+        with span("grad_norm"):
+            # The global norm of the gradients (optax.global_norm), before the update.
+            metrics["grad_norm"] = grad_norm(model)
+        with span("optimizer"):
+            state.optimizer.step()
         if state.ema is not None:
-            with torch.no_grad():
+            with span("ema"), torch.no_grad():
                 ema = list(state.ema.values())
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, torch._foreach_mul([p for _, p in model.named_parameters()], 1.0 - ema_decay))

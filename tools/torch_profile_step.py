@@ -14,24 +14,27 @@ configuration's pair layers.
 (sampling/smc.py; defaults to L=75 and 4 particles, with a motif of 10 and
 8 residues and 1000 placements): the denoiser forward and its backward
 with respect to x_t, the potential and the weights. Its families add the
-backward's: the contraction's backward launches (`bwd_contract`, the
-trimul_contract and contract_cm_km kernels inside ContractCM.backward) and
-the recomputed plain versions (`bwd_recompute_project`, `_epilogue`,
-`_ipa`, `_tri_attention`), each the device time of the kernels that run
-inside its range (part of the kernel families too, not added to them) and
-the range's span on the device (`..._span`, idle gaps included); and it
+backward's, read from the program's spans (utils/profiling.py): the
+contraction's backward launches (`bwd_contract`, the span
+`genie2:backward.trimul_contract`: the trimul_contract and contract_cm_km
+kernels inside ContractCM.backward) and the recomputed plain versions
+(`bwd_recompute_project`, `_epilogue`, `_ipa`, `_tri_attention`: the spans
+`genie2:recompute.<kernel>`), each the device time of the kernels that run
+inside its span (part of the kernel families too, not added to them) and
+the span's extent on the device (`..._span`, idle gaps included); and it
 times the same steps untwisted (forward only) beside them.
 
 `--train` profiles one training step instead (train/state.py; defaults to
 L=256 and batch 4, the configuration's `batchSize`, with dropout and remat
 as configured, the full-length structures of random walks and fixed t,
-noise and dropout seed): the forward, remat's second forward of the pair
-layers during the backward (`remat_forward`, a range like the backward's),
-the backward families as `--tds` reports them, and the Adam update (its
-foreach kernels, family `optimizer`); peak memory. `--no_remat` turns
-remat off. The step runs as the one rank of a data-parallel NCCL group, so
-its gradient all-reduce (`grad_allreduce`, parallel/mesh.py) is a range
-of its own.
+noise and dropout seed): the forward's pair layers (`pair_layer_forward`),
+remat's second forward of them during the backward (`remat_forward`: the
+spans `genie2:pair_layer` outside the span `genie2:forward`), the backward
+families as `--tds` reports them, and the Adam update (its foreach kernels,
+family `optimizer`); peak memory. `--no_remat` turns remat off. The step
+runs as the one rank of a data-parallel NCCL group, so its gradient
+all-reduce (`grad_allreduce`, the span `genie2:grad_allreduce` of
+parallel/mesh.py) is a family of its own.
 
     python3 tools/torch_profile_step.py --length 256 --batch 2 --quat eigh [--tri_att]
     python3 tools/torch_profile_step.py --tds
@@ -70,6 +73,19 @@ FAMILIES = (
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
 )
+
+
+# The program's spans (utils/profiling.py) read by --tds and --train, under
+# the keys this tool has always printed.
+SPAN_PREFIX = "genie2:"
+BACKWARD_SPANS = {
+    "genie2:backward.trimul_contract": "bwd_contract",
+    "genie2:recompute.project_gated_cm": "bwd_recompute_project",
+    "genie2:recompute.epilogue_cm": "bwd_recompute_epilogue",
+    "genie2:recompute.ipa_attention": "bwd_recompute_ipa",
+    "genie2:recompute.tri_attention": "bwd_recompute_tri_attention",
+}
+TRAIN_SPANS = dict(BACKWARD_SPANS, **{"genie2:grad_allreduce": "grad_allreduce"})
 
 
 def family(name: str) -> str:
@@ -161,7 +177,10 @@ def main(argv=None):
     by_family = defaultdict(float)
     by_kernel = defaultdict(float)
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:  # kernels and copies on the card only
+        # Kernels and copies on the card only: the program's spans show on
+        # the device timeline too.
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith(SPAN_PREFIX):
             continue
         us = e.time_range.elapsed_us()
         by_kernel[e.name] += us
@@ -176,33 +195,6 @@ def main(argv=None):
         "family_ms_per_step": {k: v / 1e3 / args.steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [[k[:90], v / 1e3 / args.steps] for k, v in top],
     }), flush=True)
-
-
-def _label_backwards():
-    """Wrap the Functions' backwards in profiler ranges named as the
-    families of `--tds` (the names survive into key_averages)."""
-    from torch.profiler import record_function
-
-    from genie2_tpu_torch.ops import launch, trimul
-
-    def labelled(label, fn):
-        def wrapper(*a, **k):
-            with record_function(label):
-                return fn(*a, **k)
-        return wrapper
-
-    contract_backward = trimul.ContractCM.backward
-    trimul.ContractCM.backward = staticmethod(labelled("bwd_contract", contract_backward))
-    # Recomputed backwards by their plain version's name.
-    names = {"project_gated_cm_plain": "bwd_recompute_project", "epilogue_cm_plain": "bwd_recompute_epilogue",
-             "ipa_attention_plain": "bwd_recompute_ipa", "tri_attention_plain": "bwd_recompute_tri_attention"}
-    recomputed_backward = launch.Recomputed.backward
-
-    def backward(ctx, *grads):
-        return labelled(names[getattr(ctx.plain, "func", ctx.plain).__name__], recomputed_backward)(ctx, *grads)
-
-    launch.Recomputed.backward = staticmethod(backward)
-    return sorted(["bwd_contract", *names.values()])
 
 
 def profile_tds(args):
@@ -231,7 +223,6 @@ def profile_tds(args):
     dtype = compute_dtype(args.dtype)
     model = randomize_zero_init(Denoiser.from_config(config), args.seed).to(dev).eval().to(dtype)
     model.requires_grad_(False)
-    labels = _label_backwards()
 
     features = to_device(batchify([create_empty_features([length]) for _ in range(particles)]), dev)
     rng = np.random.default_rng(args.seed)
@@ -273,38 +264,49 @@ def profile_tds(args):
             run(twisted)
             torch.cuda.synchronize()
         out[f"peak_memory_bytes_{key}"] = torch.cuda.max_memory_allocated()
-        summary = summarize(prof, labels, steps, out[f"wall_ms_per_step_{key}"])
+        summary = summarize(prof, BACKWARD_SPANS, steps, out[f"wall_ms_per_step_{key}"])
         out.update({f"{k}_{key}": v for k, v in summary.items()})
     print(json.dumps(out), flush=True)
     return out
 
 
-def summarize(prof, labels, steps, wall_ms):
+def summarize(prof, labels, steps, wall_ms, pair_layers=False):
     """Device ms a step by kernel family, the top kernels, the busy share,
-    and for each labelled range its device ms (kernels that start inside
-    it) and its span. The ranges appear on the device timeline as spans
-    from their first kernel's start to their last one's end (idle gaps
-    included): they are not kernels, and neither is any other range the
-    device timeline shows (`Optimizer.step#Adam.step` showed there in the
-    training step run as an NCCL rank)."""
+    and for each of the program's spans named in `labels` (span name ->
+    output key) its device ms (kernels that start inside it) and its
+    extent. The spans appear on the device timeline from their first
+    kernel's start to their last one's end (idle gaps included): they are
+    not kernels, and neither is any other range the device timeline shows
+    (`Optimizer.step#Adam.step` showed there in the training step run as an
+    NCCL rank). With `pair_layers`, the pair layers' spans too: inside the
+    training step's forward span (`pair_layer_forward`) or outside it, remat's
+    recompute under the backward (`remat_forward`)."""
     from torch.autograd import DeviceType
 
     spans = defaultdict(list)
     by_family, by_kernel, count = defaultdict(float), defaultdict(float), defaultdict(int)
-    kernels = []
+    kernels, forwards, layers = [], [], []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
+        extent = (e.time_range.start, e.time_range.end)
         if e.name in labels:
-            spans[e.name].append((e.time_range.start, e.time_range.end))
+            spans[labels[e.name]].append(extent)
             continue
-        if getattr(e, "is_user_annotation", False):
+        if e.name == "genie2:forward":
+            forwards.append(extent)
+        elif e.name == "genie2:pair_layer" and pair_layers:
+            layers.append(extent)
+        if getattr(e, "is_user_annotation", False) or e.name.startswith(SPAN_PREFIX):
             continue
         us = e.time_range.elapsed_us()
         by_family[family(e.name)] += us
         by_kernel[e.name] += us
         count[e.name] += 1
         kernels.append((e.time_range.start, us))
+    for lo, hi in layers:
+        inside = any(a <= lo and hi <= b for a, b in forwards)
+        spans["pair_layer_forward" if inside else "remat_forward"].append((lo, hi))
     device_ms = sum(by_family.values()) / 1e3 / steps
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     fams = {k: v / 1e3 / steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])}
@@ -318,27 +320,6 @@ def summarize(prof, labels, steps, wall_ms):
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else "not measured",
         "family_ms_per_step": fams,
     }
-
-
-def _label_remat():
-    """Wrap the pair layers' forward in a profiler range named
-    `remat_forward` where it runs inside the backward (checkpoint's
-    recompute), and `pair_layer_forward` elsewhere."""
-    import torch
-    from torch.profiler import record_function
-
-    from genie2_tpu_torch.nn import pair_stack
-
-    forward = pair_stack.PairTransformLayer.forward
-
-    def labelled(self, *args, **kwargs):
-        # The autograd engine runs a graph task while it executes a backward.
-        in_backward = torch._C._current_graph_task_id() != -1
-        with record_function("remat_forward" if in_backward else "pair_layer_forward"):
-            return forward(self, *args, **kwargs)
-
-    pair_stack.PairTransformLayer.forward = labelled
-    return ["pair_layer_forward", "remat_forward"]
 
 
 def profile_train(args):
@@ -374,7 +355,6 @@ def profile_train(args):
     args.quat = config.tpu["rot_to_quat_method"]
     model = randomize_zero_init(init_model(config, args.seed, "cpu"), args.seed).to(dev)
     state = create_train_state(model, config.optimization["lr"])
-    labels = _label_backwards() + _label_remat() + ["grad_allreduce"]
     schedule = Schedule.create(config.diffusion["n_timestep"], device=dev)
     store = tempfile.mkdtemp(prefix="profile_store_")
     dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
@@ -411,7 +391,7 @@ def profile_train(args):
            "tri_att": args.tri_att, "dtype": args.dtype, "remat": not args.no_remat, "steps": args.steps,
            "wall_ms_per_step": wall_ms, "residues_per_s": batch * length / wall_ms * 1e3,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    out.update(summarize(prof, labels, args.steps, wall_ms))
+    out.update(summarize(prof, TRAIN_SPANS, args.steps, wall_ms, pair_layers=True))
     dist.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
     print(json.dumps(out), flush=True)
