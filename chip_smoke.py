@@ -30,7 +30,10 @@ Phases, in order; any failure exits non-zero:
                bound (row_block_bytes_ops); then each
                autograd Function's gradients (every input, one seeded
                cotangent) against autograd of the plain version, and the
-               time of each backward beside its forward;
+               time of each backward beside its forward; the projection's
+               backward kernel a call at B=2 and 4 (with and without the
+               weights' gradients, and padded) beside its bound, the plain
+               backward and the recomputed one;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
                with the plain versions swapped in, compared on z; then the
                gradient of sum(z . r) with respect to the translations
@@ -238,7 +241,7 @@ SPLIT_EPILOGUE = ("trimul_epilogue_partial", "trimul_epilogue_finish")
 CONTRACTIONS = (*OFF_PATH, "contract_cm_km")
 # How each kernel wrapper's autograd Function takes its backward (ops/).
 BACKWARD_ROUTE = {
-    "trimul_project": "gradient of the plain version, recomputed",
+    "trimul_project": "CUDA: trimul_project_backward for float32 (bfloat16: gradient of the plain version, recomputed)",
     "trimul_contract": "CUDA: contract_cm_km and trimul_contract (four contractions)",
     "trimul_epilogue": "gradient of the plain version, recomputed",
     "trimul_epilogue_partial": "gradient of the plain version, recomputed",
@@ -614,6 +617,9 @@ def phase_kernels(state):
                     results[rec["kernel"]][rec["outgoing"]]["backward"] = rec
     edge_failed, state["kernels_per_call"] = check_split_edges(gen, dev)
     failed += edge_failed
+    state["project_backward"] = time_project_backward(gen, dev)
+    for rec in state["project_backward"]:
+        emit({"phase": "kernels", "project_backward": True, **rec})
     state["kernel_main"] = results
     state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
     for rec in split_records:
@@ -622,6 +628,52 @@ def phase_kernels(state):
             failed.append(f"split epilogue N={rec['N']} {rec['dtype']}: rel {rec['rel_err']:.3g}")
     if failed:
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
+
+
+def time_project_backward(gen, dev) -> list:
+    """The projection's backward kernel a call at N=256, C=H=128, float32,
+    B=2 and 4 (the training step's batch): with the weights' gradients (a
+    training step), dz alone (TDS's twist) and with the train cell's padding
+    (lengths 20-220 padded to 256); its bound (three products, 3xTF32); the
+    plain version's own backward (autograd of project_gated_cm_plain, no
+    forward) and the gradient of the plain version recomputed, the
+    kernel's predecessor (both with the weights' gradients)."""
+    import functools
+
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.ops.launch import Recomputed
+
+    N = 256
+    recs = []
+    for B in (2, 4):
+        w = random_trimul_weights(C_P, H_MUL, gen, dev)
+        z = torch.randn(B, N, N, C_P, generator=gen, device=dev)
+        mask = torch.ones(B, N, device=dev)
+        lengths = [20 + (200 * k) // (B - 1) for k in range(B)]
+        padded = torch.stack([(torch.arange(N, device=dev) < n).float() for n in lengths])
+        da, db = (torch.randn(B, H_MUL, N, N, generator=gen, device=dev) for _ in range(2))
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: trimul.project_gated_cm_backward(z, mask, w, da, db), iters=10)
+            dz_ms = cuda_time_ms(lambda: trimul.project_gated_cm_backward(z, mask, w, da, db, weight_grads=False),
+                                 iters=10)
+            padded_ms = cuda_time_ms(lambda: trimul.project_gated_cm_backward(z, padded, w, da, db), iters=10)
+        leaves = [z.requires_grad_(True)] + [w[k].requires_grad_(True) for k in trimul.PROJECT_PARAMS]
+        out = trimul.project_gated_cm_plain(z, mask, w)
+        plain_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, (da, db), retain_graph=True), 5, 1)
+        out = Recomputed.apply(functools.partial(trimul._PROJECT_KERNEL, col_mask=mask),
+                               functools.partial(trimul._PROJECT_PLAIN, col_mask=mask), z, mask, *leaves[1:])
+        recomputed_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, (da, db), retain_graph=True), 5, 1)
+        del out
+        z.requires_grad_(False)
+        ops = 3 * 2 * B * N * N * C_P * 4 * H_MUL  # P recomputed, dzn, dW
+        recs.append({"B": B, "N": N, "C": C_P, "H": H_MUL, "dtype": "float32", "ms": ms, "dz_only_ms": dz_ms,
+                     "padded_ms": padded_ms, "padded_lengths": lengths,
+                     "bound_ms": ops / PEAK_OPS_PER_S["float32"] * 1e3, "bound_by": "operations",
+                     "plain_backward_ms": plain_ms, "recomputed_ms": recomputed_ms})
+        torch.cuda.empty_cache()
+    return recs
 
 
 def at_float_offset(t, offset: int):
@@ -1034,13 +1086,15 @@ def expected_launches(config, denoiser_calls: int):
 
 
 def backward_launches(config, twisted_calls: int):
-    """The launches one backward pass of the denoiser adds, times
+    """The launches one float32 backward pass of the denoiser adds, times
     `twisted_calls`: each pair layer's outgoing contraction takes
     contract_cm_km and an incoming contraction, its incoming one an
-    outgoing contraction and contract_cm_km (ops/trimul.py); the other
+    outgoing contraction and contract_cm_km, and each of its two
+    projections the projection's backward kernel (ops/trimul.py); the other
     Functions recompute their plain versions and launch nothing."""
     pair = config.model["n_pair_transform_layer"] * twisted_calls
-    return {"contract_cm_km": 2 * pair, "trimul_contract_out": pair, "trimul_contract_in": pair}
+    return {"contract_cm_km": 2 * pair, "trimul_contract_out": pair, "trimul_contract_in": pair,
+            "trimul_project_backward": 2 * pair}
 
 
 def with_backward(config, calls: int, twisted_calls: int):
@@ -3327,6 +3381,7 @@ def kernels_line(state):
         }
         if name == "trimul_project":
             entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
+            entry["backward_kernel"] = state.get("project_backward")
         if name in state.get("kernels_per_call", {}):  # the epilogue and its stages
             entry["kernels_per_call_bf16_weights"] = state["kernels_per_call"][name]
         rows = state.get("kernel_rows", {}).get(name)

@@ -7,7 +7,8 @@ kernel for a tensor on the card; anything else raises. It adds one to its
 entry of `LAUNCHES` where it launches, and nowhere else. Where autograd
 records (grad mode on and an input that requires grad), a wrapper on the
 card goes through its `torch.autograd.Function`: the forward is the same
-launch, the backward either kernels (the TriMul contraction) or the
+launch, the backward either kernels (the TriMul contraction; the TriMul
+projection for float32 activations, `trimul_project_backward`) or the
 gradient of the plain version, recomputed (`Recomputed`, inside the span
 "recompute.<kernel>": the plain version's name without `_plain`). A raw
 `launch` whose inputs would need a gradient raises (`check_no_grad`): the
@@ -29,6 +30,7 @@ from genie2_tpu_torch.utils.profiling import span
 # Kernel launches on the card, counted by the wrappers.
 LAUNCHES: Dict[str, int] = {
     "trimul_project": 0,
+    "trimul_project_backward": 0,
     "trimul_contract_out": 0,
     "trimul_contract_in": 0,
     "trimul_epilogue": 0,

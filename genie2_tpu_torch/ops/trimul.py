@@ -38,8 +38,13 @@ of the same kind, all kernels on the card,
   incoming  da = b . dx^T = contract_cm(b, dx, outgoing=True)
             db = a . dx   = contract_cm_km(a, dx)
 
-(a, b, dx per channel, [N, N] each); the projection's and the epilogue's
-backward are the gradients of their plain versions, recomputed.
+(a, b, dx per channel, [N, N] each). The projection's backward is a kernel
+too, for float32 activations (`ProjectGatedCM`, csrc/trimul_project.cu's
+second entry point; `project_gated_cm_backward_plain` is its closed form):
+LN_in and the four projections recomputed tile by tile, dz, the weights'
+and LN_in's gradients in one pass, the weight sums reduced in a fixed order.
+bfloat16 activations, H above 256 and the epilogue take the gradient of
+their plain versions, recomputed (`Recomputed`).
 
 Row blocks (sequence parallelism, nn/pair_stack.py): every stage takes a
 block of I rows of the pair representation against all N columns, through
@@ -122,6 +127,47 @@ def project_gated_cm_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, 
         return (proj(f"w_{p}", f"b_{p}") * gate * mask).to(dt).contiguous()
 
     return gated("ap", "ag"), gated("bp", "bg")
+
+
+def project_gated_cm_backward_plain(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, da: torch.Tensor,
+                                    db: torch.Tensor, col_mask: torch.Tensor = None, weight_grads: bool = True):
+    """The gradients of `project_gated_cm_plain` for the cotangents da, db
+    [B,H,I,N] in closed form, at autograd's rounding points -> (dz in z's
+    dtype, {name: gradient} of PROJECT_PARAMS in each parameter's dtype, or
+    None without `weight_grads`). Per position, with P_k = zn.W_k + b_k, s =
+    sigmoid(P_ag) and e = da r_i m_j: dP_ap = e s, dP_ag = e P_ap s (1 - s)
+    (bp, bg likewise with db); dzn = sum_k dP_k.W_k, rounded to z's dtype;
+    dz is LN_in's backward of dzn; dW_k = dP_k^T zn and db_k = sum dP_k over
+    positions, d ln_in_scale = sum dzn x^, d ln_in_bias = sum dzn."""
+    dt = z.dtype
+    col_mask = res_mask if col_mask is None else col_mask
+    xf = z.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(xc.square().mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * rstd
+    zn = (xhat * w["ln_in_scale"].float() + w["ln_in_bias"].float()).to(dt).float()
+    mask = (res_mask[:, :, None] * col_mask[:, None, :]).to(dt).float()[..., None]
+    weights = {k: w[f"w_{k}"].to(dt).float() for k in ("ap", "ag", "bp", "bg")}
+    dp = {}
+    for (pk, gk), cot in ((("ap", "ag"), da), (("bp", "bg"), db)):
+        proj = torch.matmul(zn, weights[pk].t()) + w[f"b_{pk}"].float()
+        gate = torch.sigmoid(torch.matmul(zn, weights[gk].t()) + w[f"b_{gk}"].float())
+        e = cot.float().permute(0, 2, 3, 1) * mask
+        dp[pk] = e * gate
+        dp[gk] = e * proj * (gate * (1.0 - gate))
+    dzn = sum(torch.matmul(dp[k], weights[k]) for k in ("ap", "ag", "bp", "bg")).to(dt).float()
+    g = dzn * w["ln_in_scale"].float()
+    dz = rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    if not weight_grads:
+        return dz.to(dt), None
+    positions = zn.reshape(-1, zn.shape[-1])
+    grads = {}
+    for k in ("ap", "ag", "bp", "bg"):
+        grads[f"w_{k}"] = torch.matmul(dp[k].reshape(-1, dp[k].shape[-1]).t(), positions).to(dt)
+        grads[f"b_{k}"] = dp[k].sum((0, 1, 2))
+    grads["ln_in_scale"] = (dzn * xhat).sum((0, 1, 2))
+    grads["ln_in_bias"] = dzn.sum((0, 1, 2))
+    return dz.to(dt), {k: grads[k].to(w[k].dtype) for k in PROJECT_PARAMS}
 
 
 def contract_cm_plain(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
@@ -238,6 +284,8 @@ def _params(tensors, like: torch.Tensor, device):
 
 _ARGTYPES = {
     "trimul_project": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7,
+    "trimul_project_backward": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7,
+    "trimul_project_backward_scratch": [ctypes.c_void_p] + [ctypes.c_int] * 5,
     "trimul_contract": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6,
     "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8,
     "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
@@ -276,6 +324,11 @@ def launch_triangle_contract(a, b, out, dims, sa, sb, so, variant: int):
 _MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
 
 
+# The projection's backward kernel holds a cluster of at most 8 blocks of 32
+# hidden channels.
+_BACKWARD_MAX_HIDDEN = 256
+
+
 def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
     """z [B,I,N,C], res_mask [B,I] (the rows' mask) and col_mask [B,N]
     (the columns'; default res_mask, I = N) -> (a, b) each [B,H,I,N]
@@ -283,6 +336,8 @@ def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_ma
     col_mask = res_mask if col_mask is None else col_mask
     params = [w[k] for k in PROJECT_PARAMS]
     if records_grad([z, *params]) and not _on_cpu(z):
+        if z.dtype == torch.float32 and w["w_ap"].shape[0] <= _BACKWARD_MAX_HIDDEN:
+            return ProjectGatedCM.apply(z, res_mask, col_mask, *params)
         return Recomputed.apply(functools.partial(_PROJECT_KERNEL, col_mask=col_mask),
                                 functools.partial(_PROJECT_PLAIN, col_mask=col_mask), z, res_mask, *params)
     return _project_gated_cm_forward(z, res_mask, w, col_mask)
@@ -314,6 +369,45 @@ def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weight
             _DTYPE_CODES[z.dtype], pcode)
     LAUNCHES["trimul_project"] += 1
     return a, b
+
+
+def project_gated_cm_backward(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, da: torch.Tensor,
+                              db: torch.Tensor, col_mask: torch.Tensor = None, weight_grads: bool = True):
+    """The gradients of `project_gated_cm` for the cotangents da, db
+    [B,H,I,N] -> (dz, {name: gradient} of PROJECT_PARAMS or None), as
+    `project_gated_cm_backward_plain`: the backward kernel for float32 on
+    the card (one launch, and one more that sums the weights' gradients
+    where `weight_grads`), the plain closed form on the CPU."""
+    col_mask = res_mask if col_mask is None else col_mask
+    if _on_cpu(z):
+        return project_gated_cm_backward_plain(z, res_mask, w, da, db, col_mask, weight_grads)
+    _check_activation("project backward z", z, 4)
+    B, I, N, C = z.shape
+    H = w["w_ap"].shape[0]
+    da, db = da.contiguous(), db.contiguous()
+    if z.dtype != torch.float32 or da.shape != (B, H, I, N) or db.shape != da.shape or da.dtype != z.dtype \
+            or db.dtype != z.dtype or C > _MAX_CHANNELS or H > _BACKWARD_MAX_HIDDEN:
+        raise ValueError(f"project backward: z {tuple(z.shape)} {z.dtype}, da {tuple(da.shape)} {da.dtype}, "
+                         f"db {tuple(db.shape)} {db.dtype}, H={H}")
+    dev = z.device
+    params, pcode = _params([w[k] for k in PROJECT_PARAMS], w["w_ap"], dev)
+    dz = torch.empty_like(z)
+    part = sums = None
+    if weight_grads:
+        floats = torch.zeros(1, dtype=torch.int64)  # filled in on the host
+        _launch("trimul_project_backward_scratch", dev, floats, B, I, N, C, H, source="trimul_project")
+        part = torch.empty(int(floats.item()), dtype=torch.float32, device=dev)
+        sums = torch.empty(4 * H * C + 4 * H + 2 * C, dtype=torch.float32, device=dev)
+    _launch("trimul_project_backward", dev, z, _f32(res_mask, dev), _f32(col_mask, dev), *params, da, db, dz, part,
+            sums, B, I, N, C, H, _DTYPE_CODES[z.dtype], pcode, source="trimul_project")
+    LAUNCHES["trimul_project_backward"] += 1
+    if not weight_grads:
+        return dz, None
+    dw, dbias, dln = sums.split([4 * H * C, 4 * H, 2 * C])
+    grads = dict(zip(("w_ap", "w_ag", "w_bp", "w_bg"), dw.view(4, H, C)))
+    grads.update(zip(("b_ap", "b_ag", "b_bp", "b_bg"), dbias.view(4, H)))
+    grads.update(ln_in_scale=dln[:C], ln_in_bias=dln[C:])
+    return dz, {k: grads[k].to(w[k].dtype) for k in PROJECT_PARAMS}
 
 
 def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
@@ -475,6 +569,30 @@ _PROJECT_KERNEL = _project(_project_gated_cm_forward)
 _PROJECT_PLAIN = _project(project_gated_cm_plain)
 _EPILOGUE_KERNEL = _flat(_epilogue_cm_forward, EPILOGUE_PARAMS)
 _EPILOGUE_PLAIN = _flat(epilogue_cm_plain, EPILOGUE_PARAMS)
+
+
+class ProjectGatedCM(torch.autograd.Function):
+    """`project_gated_cm` under autograd for float32 activations:
+    apply(z, row mask, column mask, *params in PROJECT_PARAMS order).
+    Forward: the projection kernel; backward: its backward kernel
+    (`project_gated_cm_backward`), the parameters' gradients only where
+    one of them needs one."""
+
+    @staticmethod
+    def forward(ctx, z, res_mask, col_mask, *params):
+        ctx.save_for_backward(z, res_mask, col_mask, *params)
+        return _project_gated_cm_forward(z, res_mask, dict(zip(PROJECT_PARAMS, params)), col_mask)
+
+    @staticmethod
+    @once_differentiable
+    @spanned("backward.trimul_project")
+    def backward(ctx, da, db):
+        z, res_mask, col_mask, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad[3:]
+        dz, grads = project_gated_cm_backward(z, res_mask, dict(zip(PROJECT_PARAMS, params)), da, db, col_mask,
+                                              weight_grads=any(needs))
+        dparams = [grads[k] if n else None for k, n in zip(PROJECT_PARAMS, needs)] if grads else [None] * len(needs)
+        return (dz if ctx.needs_input_grad[0] else None), None, None, *dparams
 
 
 class ContractCM(torch.autograd.Function):

@@ -365,6 +365,88 @@ def test_trimul_gradients_match_plain(device, dtype, n, outgoing):
                 _grads_of(lambda: trimul.epilogue_cm_plain(x, z, w), inputs, dout), dtype)
 
 
+@pytest.mark.parametrize("b,n,i,c,h,masked", [
+    (2, 256, 256, 128, 128, False),  # the training step's widths
+    (2, 77, 77, 128, 128, True),     # an odd N, padded
+    (2, 256, 128, 128, 128, True),   # a row block: the first 128 of 256 rows, its own column mask
+    (2, 256, 256, 128, 64, True),    # H_r = 64 channels of a model rank
+    (1, 70, 70, 40, 40, True),       # C and H off the tiles: 40 of two 32-channel chunks
+    (1, 33, 33, 256, 32, True),      # C above 128 (tiles of 16 positions)
+    (2, 9, 9, 30, 8, True),          # C off 16 bytes: z staged element by element
+])
+def test_project_backward_kernel_matches_plain(device, b, n, i, c, h, masked):
+    """trimul_project_backward (float32) against the plain closed form and
+    against the recomputed gradient it replaces (autograd of
+    project_gated_cm_plain): dz and every parameter's gradient within 1e-4
+    of max |plain gradient|, dz exactly 0.0 where a row or column is masked,
+    the same bits from two calls, and dz alone (no weight gradients) the
+    same as with them."""
+    gen = torch.Generator(device=device).manual_seed(n + i + h)
+    w = _weights(c, h, gen, device)
+    z = 2.0 * torch.randn(b, i, n, c, generator=gen, device=device) + 0.5
+    col_mask = torch.ones(b, n, device=device)
+    if masked:
+        col_mask[0, (3 * n) // 4:] = 0.0
+        col_mask[-1, 1] = 0.0
+    row_mask = col_mask[:, :i].clone()
+    if masked:
+        row_mask[0, min(2, i - 1)] = 0.0
+    da, db = (torch.randn(b, h, i, n, generator=gen, device=device) for _ in range(2))
+    with torch.no_grad():
+        dz, grads = trimul.project_gated_cm_backward(z, row_mask, w, da, db, col_mask)
+        dz2, grads2 = trimul.project_gated_cm_backward(z, row_mask, w, da, db, col_mask)
+        dz_alone, none = trimul.project_gated_cm_backward(z, row_mask, w, da, db, col_mask, weight_grads=False)
+        want_dz, want = trimul.project_gated_cm_backward_plain(z, row_mask, w, da, db, col_mask)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(dz, dz_alone) and torch.equal(dz, dz2)
+    assert all(torch.equal(grads[k], grads2[k]) for k in trimul.PROJECT_PARAMS)
+    got = [dz] + [grads[k] for k in trimul.PROJECT_PARAMS]
+    _grad_close(got, [want_dz] + [want[k] for k in trimul.PROJECT_PARAMS], torch.float32)
+    leaves = [z.clone().requires_grad_(True)] + [w[k].clone().requires_grad_(True) for k in trimul.PROJECT_PARAMS]
+    recomputed = _grads_of(lambda: trimul.project_gated_cm_plain(
+        leaves[0], row_mask, dict(zip(trimul.PROJECT_PARAMS, leaves[1:])), col_mask), leaves, (da, db))
+    _grad_close(got, recomputed, torch.float32)
+    off = (row_mask[:, :, None] * col_mask[:, None, :]) == 0
+    assert off.any() == masked and (dz[off] == 0.0).all()
+
+
+def test_project_backward_launches(device):
+    """Under autograd a float32 projection's backward is one launch of its
+    kernel (LAUNCHES["trimul_project_backward"], under the span
+    genie2:backward.trimul_project) and, where a weight needs a gradient,
+    one of the kernel that sums the weights' partial sums; with no weight
+    needing one (TDS's twist) that second kernel does not run. bfloat16
+    activations keep the recomputed plain gradient."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    w = _weights(64, 64, gen, device)
+    z = torch.randn(2, 40, 40, 64, generator=gen, device=device).requires_grad_(True)
+    mask = torch.ones(2, 40, device=device)
+    cot = tuple(torch.randn(2, 64, 40, 40, generator=gen, device=device) for _ in range(2))
+    for weights_need_grad in (True, False):
+        for k in trimul.PROJECT_PARAMS:
+            w[k].requires_grad_(weights_need_grad)
+        leaves = [z] + ([w[k] for k in trimul.PROJECT_PARAMS] if weights_need_grad else [])
+        out = trimul.project_gated_cm(z, mask, w)
+        assert type(out[0].grad_fn).__name__ == "ProjectGatedCMBackward"
+        trimul.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, cot)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+        assert counts == {"trimul_project_backward": 1}, counts
+        names = [e.name for e in prof.events()]
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert "genie2:backward.trimul_project" in names
+        assert sum("project_backward_kernel" in k for k in kernels) == 1
+        assert sum("project_backward_sum_kernel" in k for k in kernels) == int(weights_need_grad), kernels
+    out = trimul.project_gated_cm(z.detach().bfloat16().requires_grad_(True), mask,
+                                  {k: v.bfloat16() for k, v in w.items()})
+    assert type(out[0].grad_fn).__name__ == "RecomputedBackward"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("strided", [False, True])
 def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
@@ -480,8 +562,10 @@ def test_training_step_kernels_match_plain(device):
     kernels and then from the same state, t, noise and dropout seed with
     every plain version swapped in: the loss within 1e-5 relative, the
     whole gradient within 1e-3 of its max |entry|, grad_norm within 1e-4
-    relative; the step launches the TriMul kernels twice a pair layer
-    (remat) and the contraction's backward kernels."""
+    relative, and the median weight's gradient-norm gap within the train
+    cell's grad_err limit (2.5e-4, portbench/limits); the step launches the
+    TriMul kernels twice a pair layer (remat), the contraction's backward
+    kernels and the projection's backward kernel once a projection."""
     import copy
 
     import numpy as np
@@ -528,8 +612,15 @@ def test_training_step_kernels_match_plain(device):
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     assert (g_k - g_p).abs().max().item() <= 1e-3 * g_p.abs().max().item()
     assert abs(m_k["grad_norm"].item() - m_p["grad_norm"].item()) <= 1e-4 * m_p["grad_norm"].item()
+    # portbench/generators/train.py's grad_err: a weight's gap between the
+    # two gradients' norms over the larger of its norm and the median's.
+    norms = {n: (p.grad.norm().item(), q.grad.norm().item())
+             for (n, p), q in zip(state.model.named_parameters(), plain_state.model.parameters())}
+    median = float(np.median([want for _, want in norms.values()]))
+    gaps = [abs(got - want) / max(want, median) for got, want in norms.values()]
+    assert float(np.median(gaps)) <= 2.5e-4, float(np.median(gaps))
     assert launches == {"trimul_project": 8, "trimul_contract_out": 6, "trimul_contract_in": 6, "trimul_epilogue": 8,
-                        "ipa_attention": 2, "contract_cm_km": 4}, launches
+                        "ipa_attention": 2, "contract_cm_km": 4, "trimul_project_backward": 4}, launches
 
 
 def test_two_rank_training_step_matches_one_process(device):

@@ -189,6 +189,77 @@ def test_tri_attention_function_matches_plain_autograd():
             _close(x, y)
 
 
+# ------------------------------------------------------------------ #
+# The projection's backward in closed form
+# ------------------------------------------------------------------ #
+
+
+def _project_case(gen, rows, masked, weights_need_grad):
+    """z [B, I, N, C] with the row mask of its I rows (the last I of N, as
+    the last seq rank holds them; I = N square) and the column mask; with
+    `masked`, rows and columns of both masked out."""
+    B, N, C, H = 2, 9, 12, 6
+    I = N if rows is None else rows
+    w = _trimul_weights(C, H, gen, grad=weights_need_grad)
+    z = torch.randn(B, I, N, C, generator=gen).requires_grad_(True)
+    col_mask = torch.ones(B, N)
+    if masked:
+        col_mask[0, N - 2:] = 0.0
+        col_mask[1, 1] = 0.0
+    row_mask = col_mask[:, N - I:].contiguous()
+    if masked:
+        row_mask[1, 0] = 0.0
+    cot = (torch.randn(B, H, I, N, generator=gen), torch.randn(B, H, I, N, generator=gen))
+    return z, row_mask, col_mask, w, cot
+
+
+@pytest.mark.parametrize("rows", [None, 4])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("weights_need_grad", [True, False])
+def test_project_backward_plain_matches_autograd(rows, masked, weights_need_grad):
+    """project_gated_cm_backward_plain (the backward kernel's closed form)
+    against autograd of project_gated_cm_plain: square and a row block of 4
+    of 9 rows with its own column mask, masks with zero rows and columns
+    (where dz is exactly 0.0), weights with and without requires_grad (no
+    weight gradients then)."""
+    z, row_mask, col_mask, w, cot = _project_case(_gen(11), rows, masked, weights_need_grad)
+    params = [w[k] for k in trimul.PROJECT_PARAMS]
+    inputs = [z] + [p for p in params if p.requires_grad]
+    want = _grads(trimul.project_gated_cm_plain(z, row_mask, w, col_mask), inputs, cot)
+    with torch.no_grad():
+        dz, grads = trimul.project_gated_cm_backward_plain(z, row_mask, w, *cot, col_mask,
+                                                           weight_grads=weights_need_grad)
+    assert (grads is None) != weights_need_grad
+    got = [dz] + ([grads[k] for k in trimul.PROJECT_PARAMS] if weights_need_grad else [])
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        _close(x, y)
+    off = (row_mask[:, :, None] * col_mask[:, None, :]) == 0
+    assert off.any() == masked
+    assert (dz[off] == 0.0).all() and (want[0][off] == 0.0).all()
+
+
+@pytest.mark.parametrize("rows", [None, 4])
+@pytest.mark.parametrize("weights_need_grad", [True, False])
+def test_project_function_matches_plain_autograd(rows, weights_need_grad):
+    """ProjectGatedCM (the card's Function for float32) on the CPU: the
+    plain forward, the closed-form backward; every input's gradient against
+    autograd of the plain version, None for what needs none."""
+    z, row_mask, col_mask, w, cot = _project_case(_gen(12), rows, True, weights_need_grad)
+    params = [w[k] for k in trimul.PROJECT_PARAMS]
+    inputs = [z] + [p for p in params if p.requires_grad]
+    out = trimul.ProjectGatedCM.apply(z, row_mask, col_mask, *params)
+    assert "ProjectGatedCM" in type(out[0].grad_fn).__name__
+    got = _grads(out, inputs, cot)
+    want = _grads(trimul.project_gated_cm_plain(z, row_mask, w, col_mask), inputs, cot)
+    for x, y in zip(got, want):
+        _close(x, y)
+    w["w_ap"].requires_grad_(True)  # one weight: the others' gradients are None
+    grads = torch.autograd.grad(trimul.ProjectGatedCM.apply(z, row_mask, col_mask, *params), [z, w["w_ap"]], cot)
+    _close(grads[1], _grads(trimul.project_gated_cm_plain(z, row_mask, w, col_mask), [w["w_ap"]], cot)[0])
+
+
 def test_recompute_backward_skips_inputs_that_need_no_grad():
     calls = []
 

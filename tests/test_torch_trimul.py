@@ -258,6 +258,42 @@ def test_projection_row_order_gives_the_plain_result(H, hc):
     np.testing.assert_allclose(out[1].numpy(), b.numpy(), atol=1e-5, rtol=0)
 
 
+def test_projection_backward_fragment_order_gives_dw():
+    """trimul_project.cu's backward takes dW = dP . zn over a tile's
+    positions with positions 2t and 2t + 1 of each 8 standing for k = t and
+    t + 4 of m16n8k8's fragments: lane (g, t) gives A dP of rows g, g + 8 at
+    those two positions and B zn of those two positions at channel g.
+    Placed lane by lane at the PTX layouts (A: (g, t) (g+8, t) (g, t+4)
+    (g+8, t+4); B: (k t, n g) (k t+4, n g)), the products over a tile's k
+    steps sum to dP . zn."""
+    rng = np.random.default_rng(17)
+    TJ = 32
+    dp, zn = rng.normal(size=(16, TJ)), rng.normal(size=(TJ, 8))
+    out = np.zeros((16, 8))
+    for kk in range(TJ // 8):
+        a, b = np.full((16, 8), np.nan), np.full((8, 8), np.nan)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            p0, p1 = 8 * kk + 2 * t, 8 * kk + 2 * t + 1
+            a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = dp[g, p0], dp[g + 8, p0], dp[g, p1], dp[g + 8, p1]
+            b[t, g], b[t + 4, g] = zn[p0, g], zn[p1, g]
+        assert not np.isnan(a).any() and not np.isnan(b).any()  # every fragment element placed
+        out += a @ b
+    np.testing.assert_allclose(out, dp @ zn, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("tj", [64, 16])
+def test_projection_backward_rows_split_over_the_cluster(tj):
+    """The backward's cluster of nch blocks (one a chunk of 32 hidden
+    channels, 1 to 8) finishes LN_in's backward of a tile of tj positions
+    block q on rows [q RB, min(tj, (q + 1) RB)), RB = ceil(tj / nch): every
+    row exactly once."""
+    for nch in range(1, 9):
+        rb = -(-tj // nch)
+        rows = [r for q in range(nch) for r in range(q * rb, min(tj, (q + 1) * rb))]
+        assert rows == list(range(tj)), nch
+
+
 def test_smoke_script_bounds_use_tensor_core_rates():
     """chip_smoke.py bounds the kernels' products by the tensor cores' rates
     (float32 as three TF32 products): at the main path's shapes both the

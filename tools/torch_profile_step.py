@@ -17,12 +17,15 @@ with respect to x_t, the potential and the weights. Its families add the
 backward's, read from the program's spans (utils/profiling.py): the
 contraction's backward launches (`bwd_contract`, the span
 `genie2:backward.trimul_contract`: the trimul_contract and contract_cm_km
-kernels inside ContractCM.backward) and the recomputed plain versions
-(`bwd_recompute_project`, `_epilogue`, `_ipa`, `_tri_attention`: the spans
+kernels inside ContractCM.backward), the projection's backward kernel
+(`bwd_project`, the span `genie2:backward.trimul_project`: float32) and the
+recomputed plain versions (`bwd_recompute_project` for bf16,
+`_epilogue`, `_ipa`, `_tri_attention`: the spans
 `genie2:recompute.<kernel>`), each the device time of the kernels that run
 inside its span (part of the kernel families too, not added to them) and
-the span's extent on the device (`..._span`, idle gaps included); and it
-times the same steps untwisted (forward only) beside them.
+the span's extent on the device (`..._span`, idle gaps included), 0 where
+the step has no such span; and it times the same steps untwisted (forward
+only) beside them.
 
 `--train` profiles one training step instead (train/state.py; defaults to
 L=256 and batch 4, the configuration's `batchSize`, with dropout and remat
@@ -61,6 +64,7 @@ FAMILIES = (
     # torch's foreach kernels: the Adam update (and the EMA where it is on).
     ("optimizer", ("multi_tensor_apply",)),
     ("trimul_project", ("project_kernel",)),
+    ("trimul_project_backward", ("project_backward",)),
     # The standalone model-layout contraction; its channel-major variants
     # share the TriMul contraction's tile kernel and name.
     ("triangle_contract", ("chan_contract_kernel",)),
@@ -80,6 +84,7 @@ FAMILIES = (
 SPAN_PREFIX = "genie2:"
 BACKWARD_SPANS = {
     "genie2:backward.trimul_contract": "bwd_contract",
+    "genie2:backward.trimul_project": "bwd_project",
     "genie2:recompute.project_gated_cm": "bwd_recompute_project",
     "genie2:recompute.epilogue_cm": "bwd_recompute_epilogue",
     "genie2:recompute.ipa_attention": "bwd_recompute_ipa",
@@ -310,7 +315,8 @@ def summarize(prof, labels, steps, wall_ms, pair_layers=False):
     device_ms = sum(by_family.values()) / 1e3 / steps
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     fams = {k: v / 1e3 / steps for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])}
-    for label, ranges in sorted(spans.items()):
+    for label in sorted(set(labels.values()) | set(spans)):
+        ranges = spans.get(label, [])
         inside = sum(us for start, us in kernels if any(lo <= start < hi for lo, hi in ranges))
         fams[label] = inside / 1e3 / steps
         fams[label + "_span"] = sum(hi - lo for lo, hi in ranges) / 1e3 / steps
