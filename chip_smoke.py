@@ -31,9 +31,11 @@ Phases, in order; any failure exits non-zero:
                autograd Function's gradients (every input, one seeded
                cotangent) against autograd of the plain version, and the
                time of each backward beside its forward; the projection's
-               backward kernel a call at B=2 and 4 (with and without the
-               weights' gradients, and padded) beside its bound, the plain
-               backward and the recomputed one;
+               and the epilogue's backward kernels a call at B=2 and 4
+               (with and without the weights' gradients, and padded)
+               beside their bounds, the plain backward and the recomputed
+               one, the epilogue's held against its closed form
+               (epilogue_cm_backward_plain);
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
                with the plain versions swapped in, compared on z; then the
                gradient of sum(z . r) with respect to the translations
@@ -243,7 +245,7 @@ CONTRACTIONS = (*OFF_PATH, "contract_cm_km")
 BACKWARD_ROUTE = {
     "trimul_project": "CUDA: trimul_project_backward for float32 (bfloat16: gradient of the plain version, recomputed)",
     "trimul_contract": "CUDA: contract_cm_km and trimul_contract (four contractions)",
-    "trimul_epilogue": "gradient of the plain version, recomputed",
+    "trimul_epilogue": "CUDA: trimul_epilogue_backward for float32 (bfloat16: gradient of the plain version, recomputed)",
     "trimul_epilogue_partial": "gradient of the plain version, recomputed",
     "trimul_epilogue_finish": "gradient of the plain version, recomputed",
     "ipa_attention": "gradient of the plain version, recomputed",
@@ -620,6 +622,11 @@ def phase_kernels(state):
     state["project_backward"] = time_project_backward(gen, dev)
     for rec in state["project_backward"]:
         emit({"phase": "kernels", "project_backward": True, **rec})
+    state["epilogue_backward"] = time_epilogue_backward(gen, dev)
+    for rec in state["epilogue_backward"]:
+        emit({"phase": "kernels", "epilogue_backward": True, **rec})
+        if not rec["ok"]:
+            failed.append(f"trimul_epilogue_backward B={rec['B']} against its closed form: rel {rec['rel_err']:.3g}")
     state["kernel_main"] = results
     state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
     for rec in split_records:
@@ -672,6 +679,70 @@ def time_project_backward(gen, dev) -> list:
                      "padded_ms": padded_ms, "padded_lengths": lengths,
                      "bound_ms": ops / PEAK_OPS_PER_S["float32"] * 1e3, "bound_by": "operations",
                      "plain_backward_ms": plain_ms, "recomputed_ms": recomputed_ms})
+        torch.cuda.empty_cache()
+    return recs
+
+
+def time_epilogue_backward(gen, dev) -> list:
+    """The epilogue's backward kernel a call at N=256, C=H=D=128, float32,
+    B=2 and 4 (the training step's batch): with the weights' gradients (a
+    training step), dx and dz alone (TDS's twist) and with the train cell's
+    padding (x zero past lengths 20-220 of 256), each call's gradients
+    against the closed form (epilogue_cm_backward_plain) within TOL
+    relative to max |plain| of each; its bound (six products, 3xTF32,
+    against reading x, z, dout and writing dx, dz); the plain version's own
+    backward (autograd of epilogue_cm_plain, no forward) and the gradient of
+    the plain version recomputed, the kernel's predecessor (both with the
+    weights' gradients)."""
+    import torch
+
+    from genie2_tpu_torch.ops import trimul
+    from genie2_tpu_torch.ops.launch import Recomputed
+
+    N = 256
+    recs = []
+    for B in (2, 4):
+        w = random_trimul_weights(C_P, H_MUL, gen, dev)
+        x = torch.randn(B, H_MUL, N, N, generator=gen, device=dev)
+        z = torch.randn(B, N, N, C_P, generator=gen, device=dev)
+        dout = torch.randn(B, N, N, C_P, generator=gen, device=dev)
+        lengths = [20 + (200 * k) // (B - 1) for k in range(B)]
+        x_padded = x.clone()
+        for row, n in enumerate(lengths):
+            x_padded[row, :, n:] = 0.0
+            x_padded[row, :, :, n:] = 0.0
+        rel = 0.0
+        with torch.no_grad():
+            for xx in (x, x_padded):
+                dx, dz, grads = trimul.epilogue_cm_backward(xx, z, w, dout)
+                want_dx, want_dz, want = trimul.epilogue_cm_backward_plain(xx, z, w, dout)
+                for got_t, want_t in [(dx, want_dx), (dz, want_dz)] + [(grads[k], want[k])
+                                                                         for k in trimul.EPILOGUE_PARAMS]:
+                    err = (got_t - want_t).abs().max().item() / max(want_t.abs().max().item(), 1e-30)
+                    rel = max(rel, err if torch.isfinite(got_t).all().item() else float("inf"))
+                del dx, dz, grads, want_dx, want_dz, want
+            ms = cuda_time_ms(lambda: trimul.epilogue_cm_backward(x, z, w, dout), iters=10)
+            alone_ms = cuda_time_ms(lambda: trimul.epilogue_cm_backward(x, z, w, dout, weight_grads=False), iters=10)
+            padded_ms = cuda_time_ms(lambda: trimul.epilogue_cm_backward(x_padded, z, w, dout), iters=10)
+        del x_padded
+        leaves = [x.requires_grad_(True), z.requires_grad_(True)] + \
+            [w[k].requires_grad_(True) for k in trimul.EPILOGUE_PARAMS]
+        out = trimul.epilogue_cm_plain(x, z, w)
+        plain_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 5, 1)
+        out = Recomputed.apply(trimul._EPILOGUE_KERNEL, trimul._EPILOGUE_PLAIN, *leaves)
+        recomputed_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), 5, 1)
+        del out
+        x.requires_grad_(False)
+        z.requires_grad_(False)
+        ops = 6 * 2 * B * N * N * C_P * H_MUL  # x.ws, zn.W_g, dx^, dzn, d ws, d W_g
+        bytes_ = 5 * B * N * N * C_P * 4  # x, z, dout read; dx, dz written
+        bound_ops, bound_bytes = ops / PEAK_OPS_PER_S["float32"] * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+        recs.append({"B": B, "N": N, "C": C_P, "H": H_MUL, "D": C_P, "dtype": "float32", "ms": ms,
+                     "dx_dz_only_ms": alone_ms, "padded_ms": padded_ms, "padded_lengths": lengths,
+                     "bound_ms": max(bound_ops, bound_bytes),
+                     "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+                     "plain_backward_ms": plain_ms, "recomputed_ms": recomputed_ms, "rel_err": rel,
+                     "tol": TOL["float32"], "ok": rel <= TOL["float32"]})
         torch.cuda.empty_cache()
     return recs
 
@@ -1089,12 +1160,13 @@ def backward_launches(config, twisted_calls: int):
     """The launches one float32 backward pass of the denoiser adds, times
     `twisted_calls`: each pair layer's outgoing contraction takes
     contract_cm_km and an incoming contraction, its incoming one an
-    outgoing contraction and contract_cm_km, and each of its two
-    projections the projection's backward kernel (ops/trimul.py); the other
-    Functions recompute their plain versions and launch nothing."""
+    outgoing contraction and contract_cm_km, each of its two projections
+    the projection's backward kernel and each of its two epilogues the
+    epilogue's (ops/trimul.py); the other Functions recompute their plain
+    versions and launch nothing."""
     pair = config.model["n_pair_transform_layer"] * twisted_calls
     return {"contract_cm_km": 2 * pair, "trimul_contract_out": pair, "trimul_contract_in": pair,
-            "trimul_project_backward": 2 * pair}
+            "trimul_project_backward": 2 * pair, "trimul_epilogue_backward": 2 * pair}
 
 
 def with_backward(config, calls: int, twisted_calls: int):
@@ -2701,10 +2773,12 @@ def tp_volume(config, B, N):
 
 def split_epilogue(table):
     """A launch table with the TriMul epilogue's launches moved to its two
-    stages, as a model split over a model axis launches them."""
+    stages, as a model split over a model axis launches them; their
+    backward is the plain versions' gradient, recomputed, which launches
+    no backward kernel."""
     out = dict(table)
     out["trimul_epilogue_partial"] = out["trimul_epilogue_finish"] = out["trimul_epilogue"]
-    out["trimul_epilogue"] = 0
+    out["trimul_epilogue"] = out["trimul_epilogue_backward"] = 0
     return out
 
 
@@ -3382,6 +3456,8 @@ def kernels_line(state):
         if name == "trimul_project":
             entry["bare_matmul_ms"] = rs[0]["bare_matmul_ms"]
             entry["backward_kernel"] = state.get("project_backward")
+        if name == "trimul_epilogue":
+            entry["backward_kernel"] = state.get("epilogue_backward")
         if name in state.get("kernels_per_call", {}):  # the epilogue and its stages
             entry["kernels_per_call_bf16_weights"] = state["kernels_per_call"][name]
         rows = state.get("kernel_rows", {}).get(name)

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers of the product kernels: 16-, 8-
 // and 4-byte cp.async copies that zero-fill what lies past an edge, bulk
 // copies of the tensor memory accelerator in both directions with the
-// mbarriers that complete them, mma.sync tiles with float32 accumulators
+// mbarriers that complete them, the ranks, barriers and distributed shared
+// memory of thread-block clusters, mma.sync tiles with float32 accumulators
 // (m16n8k8 TF32, m16n8k16 bf16), and the fragment loads of both from
 // shared-memory tiles stored either way round.
 //
@@ -121,6 +122,48 @@ __device__ __forceinline__ void bulk_wait() {
         asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
     else
         asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------------ //
+// Thread-block clusters: ranks, barriers, distributed shared memory
+// ------------------------------------------------------------------ //
+
+// This block's rank in its cluster, the cluster's blocks, the cluster's
+// index in the grid and the grid's clusters.
+__device__ __forceinline__ int cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_blocks() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_index() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+    return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+// The address of `p` (in this block's shared memory) in block `rank`'s, for ld_remote.
+__device__ __forceinline__ unsigned remote(const void* p, int rank) {
+    unsigned a;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+    return a;
+}
+// No memory clobber: the cluster barriers, volatile too, keep these loads
+// between them, and other loads may move across them.
+__device__ __forceinline__ float ld_remote(unsigned addr) {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+    return v;
 }
 
 // ------------------------------------------------------------------ //

@@ -102,6 +102,51 @@
 //     halves are staged as 4 x 4 transposes of their rows (row_of_slot), so
 //     that a warp's reads of the span at its stride of D + 2 = 130 floats
 //     fall in distinct banks.
+//
+// trimul_epilogue_backward: the epilogue's gradients, float32 on the tensor
+// cores. It replaces no TPU kernel: no Pallas kernel of genie2_tpu has a
+// backward (autograd differentiates the XLA form of the op there). It was
+// added for the training step, where the port's earlier backward, the plain
+// version's gradient recomputed, took a third of the card's time. With the
+// cotangent dout [B,I,N,D] and, per position, x^ = r (x - mu) over H (LN_out
+// without its affine), lin = x^ . ws + vb, zn = LN_in(z), g = zn . W_g + b_g,
+// s = sigmoid(g):
+//   dlin = dout s, dg = dout lin s (1 - s)
+//   dx^ = dlin . ws, dx = r (dx^ - mean dx^ - x^ mean(dx^ x^))  (LN_out)
+//   dzn = dg . W_g,  dz = LN_in's backward of dzn
+//   d ws = sum over positions of dlin^T x^, d vb = sum dlin,
+//   d W_g = sum dg^T zn, d b_g = sum dg, d ln_in_scale = sum dzn z^,
+//   d ln_in_bias = sum dzn
+// and the wrapper (ops/trimul.py) turns d ws and d vb into the gradients of
+// W_z, LN_out's scale and bias and b_z. Work at the training step's shapes
+// (B=4, N=256, C=H=D=128): six [B N N, 128] x [128, 128] products, 51.5
+// GFLOP, 0.31 ms as three TF32 products at 495 TFLOP/s, against 0.20 ms for
+// reading x, z, dout and writing dx, dz: bound by operations.
+//
+// Design: the projection's backward's (csrc/trimul_project.cu): a cluster of
+// blocks walks tiles of TJ positions (b, i, j0..) together, each block a
+// chunk of DC output channels (64 at C, H <= 128; else 32 in tiles of 16
+// positions), so that its rows of ws and W_g stay in shared memory and its
+// weight sums in registers, and D <= 256 takes at most 8 blocks. Each block
+// stages the tile's x columns and z rows by cp.async (the next tile's
+// behind this one's products), normalises them in place (x^, zn, with the
+// statistics as the forward takes them), and runs P1: main = x^ . ws^T and
+// g = zn . W_g^T of its channels (mma.sync m16n8k8, 3xTF32), with dout read
+// while P1 runs; one elementwise pass turns them into dlin and dg in shared
+// memory, position-major. P3 adds dlin^T . x^ and dg^T . zn into the
+// weight sums held in registers (added into the cluster's float32 partial
+// sums every 512 positions), and P2 takes the block's shares of dx^ and dzn
+// (K = its DC channels). Both take positions (P3) or channels (P2) 2t and
+// 2t + 1 of each 8 for m16n8k8's k = t and t + 4, so that the row strides of
+// bwd::Layout put their loads in distinct banks. After a cluster barrier
+// each block sums its rows of the tile's shares over the cluster
+// (distributed shared memory, in rank order) and finishes both LayerNorms'
+// backward, z re-read from device memory and x^ from a transposed copy of
+// its rows (an odd row stride), and writes dz row by row and dx
+// channel-major from that copy. The bias, LN_in and cluster sums are summed
+// by a second launch in a fixed order: two calls give the same bits.
+// Without weight gradients (TDS's twist) P3, the scratch and the second
+// launch are left out.
 
 #include <limits.h>
 #include <stdint.h>
@@ -1143,6 +1188,751 @@ int launch_finish(const float* part, const void* z, const Params& p, void* out, 
     return launch_finish_dc<T, 128>(part, pz, p, po, pl, B, I, N, C, Hn, D, vec_z, vec_out, stream);
 }
 
+// ------------------------------------------------------------------ //
+// The backward (float32)
+// ------------------------------------------------------------------ //
+
+namespace bwd {
+
+constexpr int WARPS = 8, THREADS = 32 * WARPS;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int MAX_OUT = 256;    // D at most: 8 blocks of 32 output channels, or 4 of 64
+// The weight gradients' tensor-core accumulators take at most this many
+// positions, then are added into the cluster's float32 partial sums by
+// plain float adds: the tensor cores' accumulation is not rounded to
+// nearest, and its error grows with the chain's length.
+constexpr int FLUSH_POSITIONS = 512;
+
+// One block's shared memory, in floats: its chunk of DC output channels of
+// ws [DC][ldw] and W_g [DC][ldg], two stages of the x tile [Hp][ldx] (x^
+// once normalised) and the z tile [TJ][ldz] (zn), dlin and dg [TJ][ldd]
+// (first main and g), this block's shares of dx^ [TJ][ldsx] and dzn
+// [TJ][ldsz], which the cluster reads, x^ of the block's rows [TJ][ldt]
+// (then their dx), vb and b_g of the chunk, each stage's r of its x
+// columns [2][TJ] and mean and rstd of its z rows [2][TJ][2], and the x
+// columns' partial sums [2][THREADS].
+struct Layout {
+    int hp, cp, ldw, ldg, ldx, ldz, ldd, ldsx, ldsz, ldt;
+    int wg, xs, zs, dl, dg, sx, sz, xt, vb, bg, rstat, zstat, red, total;
+
+    __host__ __device__ Layout(int C, int H, int TJ, int DC) {
+        hp = (H + 7) / 8 * 8;
+        cp = (C + 7) / 8 * 8;
+        ldw = hp + 4;                    // P1's ldmatrix rows and P2's pair loads (k rows 2t, 2t + 1) in distinct banks
+        ldg = cp + 4;
+        ldx = TJ + 8;                    // P1's A loads (k rows t) and P3's pair loads in distinct banks
+        ldz = cp + 4;                    // P1's ldmatrix rows and P3's pair loads in distinct banks
+        ldd = DC + 8;                    // P2's pair loads and P1's pair stores in distinct banks
+        ldsx = (hp + 15) / 16 * 16 + 8;  // 8 mod 16: P2's pair stores in distinct banks
+        ldsz = (cp + 15) / 16 * 16 + 8;
+        ldt = hp + 1;                    // odd: rows and columns both in distinct banks
+        int o = DC * ldw;
+        wg = o, o += DC * ldg;
+        xs = o, o += 2 * hp * ldx;
+        zs = o, o += 2 * TJ * ldz;
+        dl = o, o += TJ * ldd;
+        dg = o, o += TJ * ldd;
+        sx = o, o += TJ * ldsx;
+        sz = o, o += TJ * ldsz;
+        xt = o, o += (TJ * ldt + 3) / 4 * 4;
+        vb = o, o += DC;
+        bg = o, o += DC;
+        rstat = o, o += 2 * TJ;
+        zstat = o, o += 4 * TJ;
+        red = o, o += 2 * THREADS;
+        total = o;
+    }
+    __host__ __device__ size_t bytes() const { return (size_t)total * sizeof(float); }
+};
+
+// The scratch of one cluster: d ws [D][H], d W_g [D][C], d vb [D], d b_g
+// [D]; after all clusters', LN_in's two sums [2][C] of each block.
+__host__ __device__ inline long long part_stride(int C, int H, int D) {
+    return (long long)D * H + (long long)D * C + 2LL * D;
+}
+
+// The block's rows of ws = W_z * scale_out and of W_g (zero past D, H and
+// C, up to Hp and Cp), vb = W_z . bias_out + b_z and b_g; P: the
+// parameters' type.
+template <typename P>
+__device__ void stage_rows(const Params& p, int d0, int DC, int D, int H, int C, int Hp, int Cp, int ldw, int ldg,
+                           float* ws, float* wg, float* vbs, float* bgs) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const P *w_z = static_cast<const P*>(p.w_z), *w_g = static_cast<const P*>(p.w_g);
+    const P *lo_s = static_cast<const P*>(p.lo_s), *lo_b = static_cast<const P*>(p.lo_b);
+    const P *b_z = static_cast<const P*>(p.b_z), *b_g = static_cast<const P*>(p.b_g);
+    for (int d = warp; d < DC; d += WARPS) {
+        const int ch = d0 + d;
+        const bool ok = ch < D;
+        float sv = 0.f;
+        for (int k = lane; k < Hp; k += 32) {
+            const bool in = ok && k < H;
+            const float a = in ? Cvt<P>::to_f(w_z[(size_t)ch * H + k]) : 0.f;
+            ws[d * ldw + k] = in ? a * Cvt<P>::to_f(lo_s[k]) : 0.f;
+            sv += in ? a * Cvt<P>::to_f(lo_b[k]) : 0.f;
+        }
+        for (int k = lane; k < Cp; k += 32) wg[d * ldg + k] = ok && k < C ? Cvt<P>::to_f(w_g[(size_t)ch * C + k]) : 0.f;
+        sv = warp_sum(sv);
+        if (lane == 0) {
+            vbs[d] = ok ? sv + Cvt<P>::to_f(b_z[ch]) : 0.f;
+            bgs[d] = ok ? Cvt<P>::to_f(b_g[ch]) : 0.f;
+        }
+    }
+}
+
+// CMAX: H and C at most (128 or 256); TJ: positions a tile (32 or 16); DC:
+// output channels a block (64 or 32).
+template <int CMAX, int TJ, int DC>
+__global__ void __launch_bounds__(THREADS, 1)
+epilogue_backward_kernel(const float* __restrict__ x, const float* __restrict__ z, const Params p,
+                         const float* __restrict__ dout, float* __restrict__ dx, float* __restrict__ dz,
+                         float* __restrict__ part, int B, int I, int N, int C, int H, int D, int want_dw, int vec_x,
+                         int vec_z) {
+    using M = tc::Mma<float>;
+    constexpr int MT = TJ / 16;         // m16 tiles of a tile's positions
+    constexpr int MD = DC / 16;         // m16 tiles of the block's channels (P3)
+    constexpr int NP1 = DC * MT / 32;   // P1: n8 tiles of a warp
+    constexpr int NP = CMAX / 32;       // P2, P3: n8 tiles of a warp, a quarter of CMAX
+    constexpr int CQ = CMAX / 32;       // channels a lane in the row work
+    constexpr int EJ = THREADS / DC;    // the elementwise pass: threads a channel
+    constexpr int OJ = TJ / EJ;         // ... and rows a thread
+    constexpr int TPC = THREADS / TJ;   // threads a column in LN_out's statistics
+    constexpr int XQ = CMAX / TPC;      // ... and values a thread
+    constexpr int MAXR = MAX_OUT / DC;  // blocks a cluster, at most
+    constexpr int RPW = TJ / WARPS;     // z rows a warp normalises at once; the finishing's rows a warp, at most
+    constexpr int FLUSH = FLUSH_POSITIONS / TJ;
+    static_assert(NP1 >= 1 && (DC / 8) % NP1 == 0 && (2 * DC / 8 / NP1) * MT == WARPS && OJ >= 1 && RPW >= 1,
+                  "tiling");
+    const Layout L(C, H, TJ, DC);
+    const int Hp = L.hp, Cp = L.cp, ldw = L.ldw, ldg = L.ldg, ldx = L.ldx, ldz = L.ldz, ldd = L.ldd,
+              ldsx = L.ldsx, ldsz = L.ldsz, ldt = L.ldt;
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* const sm = reinterpret_cast<float*>(smem_raw);
+    float* const ws = sm;
+    float* const wg = sm + L.wg;
+    float* const xbuf = sm + L.xs;
+    float* const zbuf = sm + L.zs;
+    float* const dlt = sm + L.dl;  // main, then dlin
+    float* const dgt = sm + L.dg;  // g, then dg
+    float* const sx = sm + L.sx;
+    float* const sz = sm + L.sz;
+    float* const xt = sm + L.xt;
+    float* const vbs = sm + L.vb;
+    float* const bgs = sm + L.bg;
+    float* const rstat = sm + L.rstat;
+    float* const zstat = sm + L.zstat;
+    float* const red = sm + L.red;
+
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+    const int q = tc::cluster_rank(), nch = tc::cluster_blocks(), cid = tc::cluster_index(), G = tc::cluster_count();
+    const int d0 = q * DC;
+    const int JT = (N + TJ - 1) / TJ, tiles = B * I * JT;
+    const int mine = cid < tiles ? (tiles - cid + G - 1) / G : 0;  // this cluster's tiles: cid + k G
+    // This block's rows of a tile in the LayerNorms' backward.
+    const int RB = (TJ + nch - 1) / nch, r_lo = min(q * RB, TJ), r_hi = min(r_lo + RB, TJ);
+    const size_t plane = (size_t)I * N;
+    const bool zside = warp >= 4;         // P2, P3: warps 0-3 the x side (H), 4-7 the z side (C)
+    const int n0w = 8 * NP * (warp & 3);  // P2, P3: this warp's first column
+    const int Kw = zside ? Cp : Hp;       // ... and the side's width
+
+    if (p.bf16 != 0)
+        stage_rows<__nv_bfloat16>(p, d0, DC, D, H, C, Hp, Cp, ldw, ldg, ws, wg, vbs, bgs);
+    else
+        stage_rows<float>(p, d0, DC, D, H, C, Hp, Cp, ldw, ldg, ws, wg, vbs, bgs);
+
+    float lns[CQ], lnb[CQ], dls[CQ], dlb[CQ];
+#pragma unroll
+    for (int qq = 0; qq < CQ; ++qq) {
+        const int c = lane + 32 * qq;
+        lns[qq] = c < C ? p.at(p.ln_s, c) : 0.f;
+        lnb[qq] = c < C ? p.at(p.ln_b, c) : 0.f;
+        dls[qq] = dlb[qq] = 0.f;
+    }
+    // d ws (x side) or d W_g (z side) of this warp: the chunk's rows 0..DC -
+    // 1, columns n0w + 0 .. 8 NP - 1.
+    float dw[MD][NP][4];
+#pragma unroll
+    for (int m = 0; m < MD; ++m)
+#pragma unroll
+        for (int n = 0; n < NP; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dw[m][n][e] = 0.f;
+    float sum_vb = 0.f, sum_bg = 0.f;  // d vb and d b_g of channel ed, over this thread's rows
+    float* const pc = want_dw ? part + (size_t)cid * part_stride(C, H, D) : nullptr;  // the cluster's partial sums
+    int held = 0;         // tiles in dw since it was last added to pc
+    bool stored = false;  // pc holds this thread's entries of dw
+
+    // dw added into pc (stored the first time), then zeroed; each entry has
+    // one owner thread, which adds its flushes in order. An m16 tile's old
+    // sums are all loaded before any is stored: one round trip, not one a
+    // value.
+    auto flush_dw = [&]() {
+        const int W = zside ? C : H;
+        float* const base = pc + (zside ? (size_t)D * H : 0);
+#pragma unroll
+        for (int m = 0; m < MD; ++m) {
+            float old[2][NP][2];
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int d = d0 + 16 * m + 8 * half + g;
+#pragma unroll
+                for (int n = 0; n < NP; ++n)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int c = n0w + 8 * n + 2 * t + e;
+                        old[half][n][e] = stored && d < D && c < W ? base[(size_t)d * W + c] : 0.f;
+                    }
+            }
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int d = d0 + 16 * m + 8 * half + g;
+#pragma unroll
+                for (int n = 0; n < NP; ++n)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int c = n0w + 8 * n + 2 * t + e;
+                        if (d < D && c < W) base[(size_t)d * W + c] = old[half][n][e] + dw[m][n][2 * half + e];
+                        dw[m][n][2 * half + e] = 0.f;
+                    }
+            }
+        }
+        stored = true;
+        held = 0;
+    };
+
+    auto coords = [&](int k, int& bb, int& i, int& j0) {
+        const int tile = cid + k * G;
+        bb = tile / (I * JT);
+        const int rem = tile - bb * (I * JT);
+        i = rem / JT;
+        j0 = (rem - i * JT) * TJ;
+    };
+    // Tile k's x columns and z rows into stage s: 16-byte cp.async copies
+    // (zero past H and N) where aligned, else element by element.
+    auto stage = [&](int k, int s) {
+        int bb, i, j0;
+        coords(k, bb, i, j0);
+        float* const xs = xbuf + s * Hp * ldx;
+        float* const zs = zbuf + s * TJ * ldz;
+        const float* xtile = x + (size_t)bb * H * plane + (size_t)i * N + j0;
+        if (vec_x) {
+            constexpr int V = TJ / 4;
+            for (int idx = threadIdx.x; idx < Hp * V; idx += THREADS) {
+                const int h = idx / V, c = (idx - h * V) * 4;
+                const bool ok = h < H && j0 + c < N;
+                tc::cp_async16(xs + h * ldx + c, ok ? xtile + h * plane + c : x, ok ? 16 : 0);
+            }
+        } else {
+            for (int idx = threadIdx.x; idx < Hp * TJ; idx += THREADS) {
+                const int h = idx / TJ, c = idx - h * TJ;
+                xs[h * ldx + c] = h < H && j0 + c < N ? xtile[h * plane + c] : 0.f;
+            }
+        }
+        const float* ztile = z + (((size_t)bb * I + i) * N + j0) * C;
+        for (int r = warp; r < TJ; r += WARPS) {
+            const bool ok = j0 + r < N;
+            if (vec_z) {
+                for (int c = 4 * lane; c < C; c += 128)
+                    tc::cp_async16(zs + r * ldz + c, ok ? ztile + (size_t)r * C + c : z, ok ? 16 : 0);
+            } else {
+                for (int c = lane; c < C; c += 32) zs[r * ldz + c] = ok ? ztile[(size_t)r * C + c] : 0.f;
+            }
+        }
+        tc::cp_async_commit();
+    };
+    // Once stage s has landed: LN_in of its z rows in place (each row's
+    // mean and rstd kept), and x^ of its x columns in place (each column's r
+    // kept), the statistics as the forward takes them.
+    auto normalise = [&](int s) {
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        float* const xs = xbuf + s * Hp * ldx;
+        float* const zs = zbuf + s * TJ * ldz;
+        {
+            const int r0 = warp * RPW;
+            float v[RPW][CQ], mu[RPW], rstd[RPW];
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+                float sum = 0.f;
+#pragma unroll
+                for (int qq = 0; qq < CQ; ++qq) {
+                    const int c = lane + 32 * qq;
+                    v[r][qq] = c < C ? zs[(r0 + r) * ldz + c] : 0.f;
+                    sum += v[r][qq];
+                }
+                mu[r] = warp_sum(sum) / C;
+            }
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+                float s2 = 0.f;
+#pragma unroll
+                for (int qq = 0; qq < CQ; ++qq) {
+                    const float dv = lane + 32 * qq < C ? v[r][qq] - mu[r] : 0.f;
+                    s2 += dv * dv;
+                }
+                rstd[r] = rsqrtf(warp_sum(s2) / C + LN_EPS);
+            }
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+#pragma unroll
+                for (int qq = 0; qq < CQ; ++qq) {
+                    const int c = lane + 32 * qq;
+                    if (c < Cp) zs[(r0 + r) * ldz + c] = (v[r][qq] - mu[r]) * rstd[r] * lns[qq] + lnb[qq];
+                }
+                if (lane == 0) {
+                    zstat[(s * TJ + r0 + r) * 2] = mu[r];
+                    zstat[(s * TJ + r0 + r) * 2 + 1] = rstd[r];
+                }
+            }
+        }
+        {
+            const int j = threadIdx.x % TJ, pt = threadIdx.x / TJ;
+            float v[XQ], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+            for (int u = 0; u < XQ; ++u) {
+                const int h = pt + TPC * u;
+                v[u] = h < H ? xs[h * ldx + j] : 0.f;
+                s1 += v[u];
+                s2 += v[u] * v[u];
+            }
+            red[pt * TJ + j] = s1;
+            red[THREADS + pt * TJ + j] = s2;
+            __syncthreads();
+            s1 = s2 = 0.f;
+#pragma unroll
+            for (int w = 0; w < TPC; ++w) {
+                s1 += red[w * TJ + j];
+                s2 += red[THREADS + w * TJ + j];
+            }
+            const float mean = s1 / H, r = rsqrtf(s2 / H - mean * mean + LN_EPS);
+#pragma unroll
+            for (int u = 0; u < XQ; ++u) {
+                const int h = pt + TPC * u;
+                if (h < H) xs[h * ldx + j] = (v[u] - mean) * r;
+            }
+            if (pt == 0) rstat[s * TJ + j] = r;
+        }
+    };
+
+    int buf = 0;
+    if (mine > 0) {
+        stage(0, 0);
+        normalise(0);
+    }
+    bool pending = false;  // this thread's arrival on the cluster barrier awaits its wait
+    const int ed = threadIdx.x % DC, ej = threadIdx.x / DC;  // the elementwise pass: channel, first row
+    for (int k = 0; k < mine; ++k) {
+        int bb, i, j0;
+        coords(k, bb, i, j0);
+        const int rows = min(TJ, N - j0);
+        const int r_end = min(r_hi, rows);
+        const size_t pos0 = ((size_t)bb * I + i) * N + j0;
+        float* const xs = xbuf + buf * Hp * ldx;
+        float* const zs = zbuf + buf * TJ * ldz;
+        // The cotangents of the elementwise pass, in flight during P1.
+        float ov[OJ];
+#pragma unroll
+        for (int u = 0; u < OJ; ++u) {
+            const int j = ej + EJ * u;
+            ov[u] = j < rows && d0 + ed < D ? dout[(pos0 + j) * D + d0 + ed] : 0.f;
+        }
+        __syncthreads();  // the tile is normalised; the last tile's dlin, dg and dx are read
+
+        // P1: main = x^ . ws^T and g = zn . W_g^T of the chunk, into dlt and
+        // dgt: warp w takes m16 tile w % MT and NP1 n8 tiles of the 2 DC
+        // channels (main's, then g's).
+        {
+            const int m0 = 16 * (warp % MT), nb = (warp / MT) * NP1;
+            const bool gate = nb >= DC / 8;
+            float acc[NP1][4];
+#pragma unroll
+            for (int n = 0; n < NP1; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+            if (!gate) {
+                const tc::Tile<float, false> ta{xs, ldx};
+                const tc::Tile<float, true> tb{ws, ldw};
+#pragma unroll 4
+                for (int k0 = 0; k0 < Hp; k0 += 8) {
+                    M::A fa;
+                    M::load_a(fa, ta, m0, k0, lane);
+                    M::B fb[NP1];
+#pragma unroll
+                    for (int n = 0; n < NP1; ++n) M::load_b(fb[n], tb, 8 * (nb + n), k0, lane);
+                    tc::mma_tiles(acc, fa, fb);
+                }
+            } else {
+                const tc::Tile<float, true> ta{zs, ldz}, tb{wg, ldg};
+#pragma unroll 4
+                for (int k0 = 0; k0 < Cp; k0 += 8) {
+                    M::A fa;
+                    M::load_a(fa, ta, m0, k0, lane);
+                    M::B fb[NP1];
+#pragma unroll
+                    for (int n = 0; n < NP1; ++n) M::load_b(fb[n], tb, 8 * (nb - DC / 8 + n), k0, lane);
+                    tc::mma_tiles(acc, fa, fb);
+                }
+            }
+            float* const out = gate ? dgt : dlt;
+#pragma unroll
+            for (int n = 0; n < NP1; ++n) {
+                const int col = 8 * (nb % (DC / 8) + n) + 2 * t;
+                tc::store_pair(out + (m0 + g) * ldd + col, acc[n][0], acc[n][1]);
+                tc::store_pair(out + (m0 + g + 8) * ldd + col, acc[n][2], acc[n][3]);
+            }
+        }
+        // The next tile into the other stage, behind this one's work.
+        if (k + 1 < mine) stage(k + 1, buf ^ 1);
+        __syncthreads();  // dlt, dgt hold main and g
+
+        // dlin = dout sigmoid(g), dg = dout lin sigmoid'(g), lin = main + vb.
+        {
+            const float vb = vbs[ed], bg = bgs[ed];
+#pragma unroll
+            for (int u = 0; u < OJ; ++u) {
+                const int j = ej + EJ * u;
+                const float lin = dlt[j * ldd + ed] + vb, s = fast_sigmoid(dgt[j * ldd + ed] + bg);
+                const float a = ov[u] * s, b = ov[u] * lin * (s * (1.f - s));
+                dlt[j * ldd + ed] = a;
+                dgt[j * ldd + ed] = b;
+                sum_vb += a;
+                sum_bg += b;
+            }
+        }
+        __syncthreads();  // dlt, dgt hold dlin and dg
+
+        // P3: d ws += dlin^T . x^ and d W_g += dg^T . zn over the tile's
+        // positions. Positions 2t and 2t + 1 of each 8 stand for k = t and
+        // t + 4 in both operands.
+        const float* const A = zside ? dgt : dlt;
+        if (want_dw) {
+            if (n0w < Kw) {
+#pragma unroll 2
+                for (int k0 = 0; k0 < TJ; k0 += 8) {
+                    M::B fb[NP];
+#pragma unroll
+                    for (int n = 0; n < NP; ++n) {
+                        const int c = n0w + 8 * n;
+                        float b0 = 0.f, b1 = 0.f;
+                        if (!zside && c < Hp) {
+                            const float2 v = *reinterpret_cast<const float2*>(xs + (c + g) * ldx + k0 + 2 * t);
+                            b0 = v.x;
+                            b1 = v.y;
+                        } else if (zside && c < Cp) {
+                            b0 = zs[(k0 + 2 * t) * ldz + c + g];
+                            b1 = zs[(k0 + 2 * t + 1) * ldz + c + g];
+                        }
+                        tc::split_tf32(__float_as_uint(b0), fb[n].hi[0], fb[n].lo[0]);
+                        tc::split_tf32(__float_as_uint(b1), fb[n].hi[1], fb[n].lo[1]);
+                    }
+                    const float* pa = A + (k0 + 2 * t) * ldd + g;
+#pragma unroll
+                    for (int m = 0; m < MD; ++m) {
+                        M::A fa;
+                        tc::split_tf32(__float_as_uint(pa[16 * m]), fa.hi[0], fa.lo[0]);
+                        tc::split_tf32(__float_as_uint(pa[16 * m + 8]), fa.hi[1], fa.lo[1]);
+                        tc::split_tf32(__float_as_uint(pa[ldd + 16 * m]), fa.hi[2], fa.lo[2]);
+                        tc::split_tf32(__float_as_uint(pa[ldd + 16 * m + 8]), fa.hi[3], fa.lo[3]);
+                        tc::mma_tiles(dw[m], fa, fb);
+                    }
+                }
+            }
+            if (++held == FLUSH) flush_dw();
+        }
+
+        // P2: this block's shares of dx^ = dlin . ws and dzn = dg . W_g (K =
+        // its DC channels). Channels 2t and 2t + 1 of each 8 stand for k = t
+        // and t + 4 in both operands.
+        float acc2[MT][NP][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int n = 0; n < NP; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc2[m][n][e] = 0.f;
+        if (n0w < Kw) {
+            const float* const W = zside ? wg : ws;
+            const int ldW = zside ? ldg : ldw;
+#pragma unroll 4
+            for (int k0 = 0; k0 < DC; k0 += 8) {
+                M::B fb[NP];
+#pragma unroll
+                for (int n = 0; n < NP; ++n) {
+                    const int c = n0w + 8 * n;
+                    const bool in = c < Kw;
+                    tc::split_tf32(in ? __float_as_uint(W[(k0 + 2 * t) * ldW + c + g]) : 0u, fb[n].hi[0], fb[n].lo[0]);
+                    tc::split_tf32(in ? __float_as_uint(W[(k0 + 2 * t + 1) * ldW + c + g]) : 0u, fb[n].hi[1],
+                                   fb[n].lo[1]);
+                }
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+                    M::A fa;
+                    const float2 r0 = *reinterpret_cast<const float2*>(A + (16 * m + g) * ldd + k0 + 2 * t);
+                    const float2 r1 = *reinterpret_cast<const float2*>(A + (16 * m + g + 8) * ldd + k0 + 2 * t);
+                    tc::split_tf32(__float_as_uint(r0.x), fa.hi[0], fa.lo[0]);
+                    tc::split_tf32(__float_as_uint(r1.x), fa.hi[1], fa.lo[1]);
+                    tc::split_tf32(__float_as_uint(r0.y), fa.hi[2], fa.lo[2]);
+                    tc::split_tf32(__float_as_uint(r1.y), fa.hi[3], fa.lo[3]);
+                    tc::mma_tiles(acc2[m], fa, fb);
+                }
+            }
+        }
+        // The shares into sx, sz, once the cluster has read the last tile's.
+        if (pending) tc::cluster_wait();
+        pending = false;
+        if (n0w < Kw) {
+            float* const S = zside ? sz : sx;
+            const int ldS = zside ? ldsz : ldsx;
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int n = 0; n < NP; ++n) {
+                    if (n0w + 8 * n >= Kw) continue;
+                    const int c = n0w + 8 * n + 2 * t;
+                    tc::store_pair(S + (16 * m + g) * ldS + c, acc2[m][n][0], acc2[m][n][1]);
+                    tc::store_pair(S + (16 * m + g + 8) * ldS + c, acc2[m][n][2], acc2[m][n][3]);
+                }
+        }
+        tc::cluster_arrive();
+        // While the cluster's shares are awaited: x^ of this block's rows
+        // into xt, row by row (from the tile's columns), the z of this
+        // warp's rows into registers, and the next tile normalised.
+        if (lane < r_end - r_lo)
+            for (int h = warp; h < Hp; h += WARPS) xt[lane * ldt + h] = xs[h * ldx + r_lo + lane];
+        float zv[RPW][CQ];
+#pragma unroll
+        for (int u = 0; u < RPW; ++u) {
+            const int r = r_lo + warp + WARPS * u;
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) {
+                const int c = lane + 32 * qq;
+                zv[u][qq] = r < r_end && c < C ? z[(pos0 + r) * C + c] : 0.f;
+            }
+        }
+        if (k + 1 < mine) normalise(buf ^ 1);
+        __syncthreads();  // xt holds x^ of the block's rows
+        tc::cluster_wait();  // every block's shares of the tile are in place
+
+        // This block's rows, warp w rows r_lo + w + 8 u: the shares summed
+        // over the cluster in rank order, then LN_out's backward (dx into
+        // xt, over x^) and LN_in's backward (dz, x^ of z from z, mean and
+        // rstd as found). The cluster's loads of all of a warp's rows first.
+        float sxv[RPW][CQ], szv[RPW][CQ];
+#pragma unroll
+        for (int u = 0; u < RPW; ++u)
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) sxv[u][qq] = szv[u][qq] = 0.f;
+#pragma unroll
+        for (int pr = 0; pr < MAXR; ++pr) {
+            if (pr >= nch) break;
+#pragma unroll
+            for (int u = 0; u < RPW; ++u) {
+                const int r = r_lo + warp + WARPS * u;
+                if (r >= r_end) continue;
+                const unsigned bx = tc::remote(sx + r * ldsx, pr), bz = tc::remote(sz + r * ldsz, pr);
+#pragma unroll
+                for (int qq = 0; qq < CQ; ++qq) {
+                    const int c = lane + 32 * qq;
+                    if (c < H) sxv[u][qq] += tc::ld_remote(bx + 4u * c);
+                    if (c < C) szv[u][qq] += tc::ld_remote(bz + 4u * c);
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < RPW; ++u) {
+            const int r = r_lo + warp + WARPS * u;
+            if (r >= r_end) continue;
+            float* const xr = xt + (r - r_lo) * ldt;
+            float hv[CQ], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) {
+                const int h = lane + 32 * qq;
+                hv[qq] = h < H ? xr[h] : 0.f;
+                s1 += sxv[u][qq];
+                s2 += sxv[u][qq] * hv[qq];
+            }
+            s1 = warp_sum(s1) / H;
+            s2 = warp_sum(s2) / H;
+            const float rr = rstat[buf * TJ + r];
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) {
+                const int h = lane + 32 * qq;
+                if (h < H) xr[h] = rr * (sxv[u][qq] - s1 - hv[qq] * s2);
+            }
+
+            const float mu = zstat[(buf * TJ + r) * 2], rstd = zstat[(buf * TJ + r) * 2 + 1];
+            float gg[CQ];
+            s1 = s2 = 0.f;
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) {
+                const int c = lane + 32 * qq;
+                hv[qq] = c < C ? (zv[u][qq] - mu) * rstd : 0.f;
+                gg[qq] = szv[u][qq] * lns[qq];
+                s1 += gg[qq];
+                s2 += gg[qq] * hv[qq];
+            }
+            s1 = warp_sum(s1) / C;
+            s2 = warp_sum(s2) / C;
+            float* const dzr = dz + (pos0 + r) * C;
+#pragma unroll
+            for (int qq = 0; qq < CQ; ++qq) {
+                const int c = lane + 32 * qq;
+                if (c < C) {
+                    dzr[c] = rstd * (gg[qq] - s1 - hv[qq] * s2);
+                    dls[qq] += szv[u][qq] * hv[qq];
+                    dlb[qq] += szv[u][qq];
+                }
+            }
+        }
+        tc::cluster_arrive();  // done reading the cluster's shares: waited on before they are written again
+        pending = true;
+        __syncthreads();  // xt holds dx of the block's rows
+        if (lane < r_end - r_lo) {
+            float* const out = dx + (size_t)bb * H * plane + (size_t)i * N + j0 + r_lo + lane;
+            for (int h = warp; h < H; h += WARPS) out[h * plane] = xt[lane * ldt + h];
+        }
+        buf ^= 1;
+    }
+    if (pending) tc::cluster_wait();  // no block leaves while another reads its shared memory
+    if (!want_dw) return;
+
+    if (held > 0 || !stored) flush_dw();
+    // The bias sums (thread (ed, ej) holds channel ed over rows ej mod EJ)
+    // and LN_in's sums of the warps in shared memory (the tiles are done
+    // with), then the block's in order.
+    __syncthreads();
+    float* const fin = xbuf;  // [2][THREADS], then [WARPS][2][Cp]
+    fin[threadIdx.x] = sum_vb;
+    fin[THREADS + threadIdx.x] = sum_bg;
+    float* const lnred = fin + 2 * THREADS;
+#pragma unroll
+    for (int qq = 0; qq < CQ; ++qq) {
+        const int c = lane + 32 * qq;
+        if (c < C) {
+            lnred[(2 * warp) * Cp + c] = dls[qq];
+            lnred[(2 * warp + 1) * Cp + c] = dlb[qq];
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * DC) {
+        const int half = threadIdx.x / DC, d = threadIdx.x - half * DC;
+        float s = 0.f;
+        for (int e = 0; e < EJ; ++e) s += fin[half * THREADS + DC * e + d];
+        if (d0 + d < D) pc[(size_t)D * H + (size_t)D * C + (size_t)half * D + d0 + d] = s;
+    }
+    float* const pl = part + (size_t)G * part_stride(C, H, D) + ((size_t)cid * nch + q) * 2 * C;
+    for (int e = threadIdx.x; e < 2 * C; e += THREADS) {
+        const int half = e / C, c = e - half * C;
+        float s = 0.f;
+        for (int w = 0; w < WARPS; ++w) s += lnred[(2 * w + half) * Cp + c];
+        pl[e] = s;
+    }
+}
+
+// out[e] = the clusters' (then, for LN_in's sums, the blocks') partial sums
+// of element e, in order.
+__global__ void epilogue_backward_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int clusters,
+                                             int blocks, long long stride, int c2) {
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    float s = 0.f;
+    if (e < stride) {
+        for (int k = 0; k < clusters; ++k) s += part[k * stride + e];
+        out[e] = s;
+    } else if (e < stride + c2) {
+        const float* pl = part + clusters * stride + (e - stride);
+        for (int k = 0; k < blocks; ++k) s += pl[(size_t)k * c2];
+        out[e] = s;
+    }
+}
+
+// The clusters of a launch: as many as the card holds at once (asked once
+// per device, shape and cluster size), no more than there are tiles.
+template <int CMAX, int TJ, int DC>
+int clusters(int C, int H, int nch, long long tiles, int& G) {
+    static size_t asked[MAX_DEVICES][MAX_CLUSTER + 1];
+    static int active[MAX_DEVICES][MAX_CLUSTER + 1];
+    static bool allowed[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    auto kernel = epilogue_backward_kernel<CMAX, TJ, DC>;
+    const size_t smem = Layout(C, H, TJ, DC).bytes();
+    if (smem > SMEM_LIMIT || nch > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+    if (!allowed[dev]) {
+        if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT)) !=
+            cudaSuccess)
+            return (int)err;
+        allowed[dev] = true;
+    }
+    if (asked[dev][nch] != smem) {
+        cudaLaunchConfig_t cfg = {};
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = nch;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.gridDim = dim3(nch);
+        cfg.blockDim = dim3(THREADS);
+        cfg.dynamicSmemBytes = smem;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int n = 0;
+        if ((err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) != cudaSuccess) return (int)err;
+        if (n < 1) return (int)cudaErrorInvalidConfiguration;
+        active[dev][nch] = n;
+        asked[dev][nch] = smem;
+    }
+    G = (int)(active[dev][nch] < tiles ? active[dev][nch] : tiles);
+    return 0;
+}
+
+template <int CMAX, int TJ, int DC>
+int launch(const float* x, const float* z, const Params& p, const float* dout, float* dx, float* dz, float* part,
+           float* sums, int B, int I, int N, int C, int H, int D, cudaStream_t stream) {
+    const int nch = (D + DC - 1) / DC;
+    const long long tiles = (long long)B * I * ((N + TJ - 1) / TJ);
+    if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+    int G = 0, err = clusters<CMAX, TJ, DC>(C, H, nch, tiles, G);
+    if (err) return err;
+    const bool want = part != nullptr && sums != nullptr;
+    const int vec_x = (uintptr_t)x % 16 == 0 && N % 4 == 0;
+    const int vec_z = (uintptr_t)z % 16 == 0 && C % 4 == 0;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nch;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)(G * nch));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = Layout(C, H, TJ, DC).bytes();
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, epilogue_backward_kernel<CMAX, TJ, DC>, x, z, p, dout, dx, dz, part, B, I,
+                                       N, C, H, D, (int)want, vec_x, vec_z);
+    if (e != cudaSuccess || !want) return (int)e;
+    const long long stride = part_stride(C, H, D), total = stride + 2LL * C;
+    epilogue_backward_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, sums, G, G * nch, stride,
+                                                                                       2 * C);
+    return (int)cudaGetLastError();
+}
+
+template <int CMAX, int TJ, int DC>
+int scratch(long long* floats, int B, int I, int N, int C, int H, int D) {
+    const int nch = (D + DC - 1) / DC;
+    const long long tiles = (long long)B * I * ((N + TJ - 1) / TJ);
+    if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+    int G = 0, err = clusters<CMAX, TJ, DC>(C, H, nch, tiles, G);
+    if (err) return err;
+    *floats = (long long)G * part_stride(C, H, D) + (long long)G * nch * 2 * C;
+    return 0;
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // x [B,H,I,N], z [B,I,N,C] and out [B,I,N,D] of dtype 0 = float32 or 1 =
@@ -1199,4 +1989,42 @@ extern "C" int trimul_epilogue_finish(const void* part, const void* z, const voi
     if (dtype == 0) return launch_finish<float>(pp, z, p, out, B, I, N, C, H, D, s);
     if (dtype == 1) return launch_finish<__nv_bfloat16>(pp, z, p, out, B, I, N, C, H, D, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// The float32 scratch of trimul_epilogue_backward for these shapes, in
+// floats, into *floats. Returns the cudaError_t (0 on success).
+extern "C" int trimul_epilogue_backward_scratch(long long* floats, int B, int I, int N, int C, int H, int D,
+                                                void* stream) {
+    (void)stream;
+    if (B < 1 || I < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || H > MAX_CHANNELS || D < 1 ||
+        D > bwd::MAX_OUT)
+        return (int)cudaErrorInvalidValue;
+    return C <= 128 && H <= 128 ? bwd::scratch<128, 32, 64>(floats, B, I, N, C, H, D)
+                                : bwd::scratch<256, 16, 32>(floats, B, I, N, C, H, D);
+}
+
+// The gradients of trimul_epilogue, float32 activations (dtype 0): x
+// [B,H,I,N], z [B,I,N,C] and the eight parameters as trimul_epilogue takes
+// them, the cotangent dout [B,I,N,D] -> dx [B,H,I,N] and dz [B,I,N,C];
+// and, where part (the scratch above) and sums are given, sums [D H + D C +
+// 2 D + 2 C] float32: the gradients of ws = W_z * scale_out [D,H], of W_g
+// [D,C], of vb = W_z . bias_out + b_z [D] and of b_g [D], then LN_in's scale
+// and bias [C] each. Returns the cudaError_t of the launches (0 on success).
+extern "C" int trimul_epilogue_backward(const void* x, const void* z, const void* ln_in_scale, const void* ln_in_bias,
+                                        const void* w_z, const void* ln_out_scale, const void* ln_out_bias,
+                                        const void* b_z, const void* w_g, const void* b_g, const void* dout, void* dx,
+                                        void* dz, void* part, void* sums, int B, int I, int N, int C, int H, int D,
+                                        int dtype, int param_dtype, void* stream) {
+    if (B < 1 || I < 1 || N < 1 || C < 1 || C > MAX_CHANNELS || H < 1 || H > MAX_CHANNELS || D < 1 ||
+        D > bwd::MAX_OUT || dtype != 0 || (param_dtype != 0 && param_dtype != 1))
+        return (int)cudaErrorInvalidValue;
+    const Params p{ln_in_scale, ln_in_bias, w_z, ln_out_scale, ln_out_bias, b_z, w_g, b_g, nullptr, nullptr, nullptr,
+                   param_dtype};
+    const float *px = static_cast<const float*>(x), *pz = static_cast<const float*>(z),
+                *po = static_cast<const float*>(dout);
+    float *pdx = static_cast<float*>(dx), *pdz = static_cast<float*>(dz), *pp = static_cast<float*>(part),
+          *ps = static_cast<float*>(sums);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return C <= 128 && H <= 128 ? bwd::launch<128, 32, 64>(px, pz, p, po, pdx, pdz, pp, ps, B, I, N, C, H, D, s)
+                                : bwd::launch<256, 16, 32>(px, pz, p, po, pdx, pdz, pp, ps, B, I, N, C, H, D, s);
 }

@@ -478,44 +478,6 @@ constexpr int MAX_CLUSTER = 8;  // the portable cluster size: H <= 8 HC
 // with the chain's length.
 constexpr int FLUSH = 8;
 
-// This block's rank in its cluster, the cluster's blocks, the cluster's
-// index in the grid and the grid's clusters.
-__device__ __forceinline__ int cluster_rank() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ int cluster_blocks() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ int cluster_index() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ int cluster_count() {
-    unsigned r;
-    asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
-    return (int)r;
-}
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
-// The address of `p` (in this block's shared memory) in block `rank`'s, for ld_remote.
-__device__ __forceinline__ unsigned remote(const void* p, int rank) {
-    unsigned a;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(tc::smem_addr(p)), "r"(rank));
-    return a;
-}
-// No memory clobber: the cluster barriers, volatile too, keep these loads
-// between them, and other loads may move across them.
-__device__ __forceinline__ float ld_remote(unsigned addr) {
-    float v;
-    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
-    return v;
-}
-
 // One block's shared memory, in floats: the weight chunk [ROWS][ldw], two
 // z tiles [TJ][ldz] (this one and the next, staged and normalised
 // meanwhile), ps (dP, position-major [TJ][ldp], then the block's share of
@@ -566,7 +528,7 @@ project_backward_kernel(const float* __restrict__ z, const float* __restrict__ r
     float* const stat = ws + L.stat;
 
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-    const int q = cluster_rank(), nch = cluster_blocks(), cid = cluster_index(), G = cluster_count();
+    const int q = tc::cluster_rank(), nch = tc::cluster_blocks(), cid = tc::cluster_index(), G = tc::cluster_count();
     const int h0 = q * HC;
     const int JT = (N + TJ - 1) / TJ, tiles = B * I * JT;
     const int mine = cid < tiles ? (tiles - cid + G - 1) / G : 0;  // this cluster's tiles: cid + k G
@@ -826,7 +788,7 @@ project_backward_kernel(const float* __restrict__ z, const float* __restrict__ r
 
         // dP in place of P, and into ps, position-major, once the cluster has
         // read the last tile's dzn out of it.
-        if (pending) cluster_wait();
+        if (pending) tc::cluster_wait();
         pending = false;
         const float ri = rmask[4 * buf];
 #pragma unroll
@@ -930,9 +892,9 @@ project_backward_kernel(const float* __restrict__ z, const float* __restrict__ r
                 }
         }
         // The cluster's shares are awaited while the next tile is normalised.
-        cluster_arrive();
+        tc::cluster_arrive();
         if (next < mine) normalise(buf ^ 1);
-        cluster_wait();  // every block's share of the tile's dzn is in place
+        tc::cluster_wait();  // every block's share of the tile's dzn is in place
 
         // This block's rows: dzn summed over the cluster in rank order, then
         // LN_in's backward, x^ from z, mean and rstd as the forward found them.
@@ -948,11 +910,11 @@ project_backward_kernel(const float* __restrict__ z, const float* __restrict__ r
                 dn[qq] = 0.f;
             }
             for (int pr = 0; pr < nch; ++pr) {
-                const unsigned base = remote(ps + r * ldz, pr);
+                const unsigned base = tc::remote(ps + r * ldz, pr);
 #pragma unroll
                 for (int qq = 0; qq < CQ; ++qq) {
                     const int c = lane + 32 * qq;
-                    if (c < C) dn[qq] += ld_remote(base + 4u * c);
+                    if (c < C) dn[qq] += tc::ld_remote(base + 4u * c);
                 }
             }
             const float mu = stat[(buf * TJ + r) * 2], rstd = stat[(buf * TJ + r) * 2 + 1];
@@ -977,11 +939,11 @@ project_backward_kernel(const float* __restrict__ z, const float* __restrict__ r
                 }
             }
         }
-        cluster_arrive();  // done reading the cluster's ps: waited on before ps is written again
+        tc::cluster_arrive();  // done reading the cluster's ps: waited on before ps is written again
         pending = true;
         buf ^= 1;
     }
-    if (pending) cluster_wait();  // no block leaves while another reads its shared memory
+    if (pending) tc::cluster_wait();  // no block leaves while another reads its shared memory
     if (!want_dw) return;
 
     if (held > 0 || !stored) flush_dw();

@@ -8,9 +8,10 @@ entry of `LAUNCHES` where it launches, and nowhere else. Where autograd
 records (grad mode on and an input that requires grad), a wrapper on the
 card goes through its `torch.autograd.Function`: the forward is the same
 launch, the backward either kernels (the TriMul contraction; the TriMul
-projection for float32 activations, `trimul_project_backward`) or the
-gradient of the plain version, recomputed (`Recomputed`, inside the span
-"recompute.<kernel>": the plain version's name without `_plain`). A raw
+projection and epilogue for float32 activations, `trimul_project_backward`
+and `trimul_epilogue_backward`) or the gradient of the plain version,
+recomputed (`Recomputed`, inside the span "recompute.<kernel>": the plain
+version's name without `_plain`). A raw
 `launch` whose inputs would need a gradient raises (`check_no_grad`): the
 kernels themselves return tensors without a graph.
 """
@@ -34,6 +35,7 @@ LAUNCHES: Dict[str, int] = {
     "trimul_contract_out": 0,
     "trimul_contract_in": 0,
     "trimul_epilogue": 0,
+    "trimul_epilogue_backward": 0,
     "trimul_epilogue_partial": 0,
     "trimul_epilogue_finish": 0,
     "ipa_attention": 0,

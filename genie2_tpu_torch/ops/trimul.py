@@ -43,8 +43,14 @@ too, for float32 activations (`ProjectGatedCM`, csrc/trimul_project.cu's
 second entry point; `project_gated_cm_backward_plain` is its closed form):
 LN_in and the four projections recomputed tile by tile, dz, the weights'
 and LN_in's gradients in one pass, the weight sums reduced in a fixed order.
-bfloat16 activations, H above 256 and the epilogue take the gradient of
-their plain versions, recomputed (`Recomputed`).
+So is the epilogue's, for float32 activations and C_out <= 256
+(`EpilogueCM`, csrc/trimul_epilogue.cu's backward entry point;
+`epilogue_cm_backward_plain` is its closed form): LN_out's statistics, x.ws,
+LN_in and the gate recomputed tile by tile, dx, dz, and the gradients of
+W_z, the LN_out scale and bias, b_z, W_g, b_g and the LN_in scale and bias in
+one pass. bfloat16 activations, H above 256 (the projection), C_out above
+256 (the epilogue) and the epilogue's two stages under tensor parallelism
+take the gradient of their plain versions, recomputed (`Recomputed`).
 
 Row blocks (sequence parallelism, nn/pair_stack.py): every stage takes a
 block of I rows of the pair representation against all N columns, through
@@ -256,6 +262,61 @@ def epilogue_cm_plain(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Ten
     return (lin * torch.sigmoid(g)).to(dt)
 
 
+def epilogue_cm_backward_plain(x: torch.Tensor, z: torch.Tensor, w: Weights, dout: torch.Tensor,
+                               weight_grads: bool = True):
+    """The gradients of `epilogue_cm_plain` for the cotangent dout
+    [B,I,N,C_out] in closed form, at autograd's rounding points -> (dx in
+    x's dtype, dz in z's dtype, {name: gradient} of EPILOGUE_PARAMS in each
+    parameter's dtype, or None without `weight_grads`). Per position, with
+    x^ = r (x - mu) over H, lin = x^.ws + vb (fold_ln_out), zn = LN_in(z), g
+    = zn.W_g + b_g and s = sigmoid(g): dlin = dout s, dg = dout lin s (1 -
+    s); dx^ = dlin.ws, dx = LN_out's backward of dx^, r (dx^ - mean dx^ - x^
+    mean(dx^ x^)); dzn = dg.W_g, dz = LN_in's backward of dzn. Over
+    positions: d ws = dlin^T x^, d vb = sum dlin, d W_g = dg^T zn, d b_g =
+    sum dg, d ln_in_scale = sum dzn z^, d ln_in_bias = sum dzn; then those of
+    W_z, LN_out's scale and bias and b_z (`unfold_ln_out_grads`)."""
+    dt = z.dtype
+    xf = x.float().permute(0, 2, 3, 1)
+    mu = xf.mean(-1, keepdim=True)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) - mu.square() + LN_EPS)
+    xhat = (xf - mu) * r
+    ws, u, vb = fold_ln_out(w, x.dtype)
+    lin = r * torch.matmul(xf, ws.t()) - (r * mu) * u + vb
+    zf = z.float()
+    zc = zf - zf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(zc.square().mean(-1, keepdim=True) + LN_EPS)
+    zhat = zc * rstd
+    zn = (zhat * w["ln_in_scale"].float() + w["ln_in_bias"].float()).to(dt).float()
+    wg = w["w_g"].to(dt).float()
+    s = torch.sigmoid(torch.matmul(zn, wg.t()) + w["b_g"].float())
+    o = dout.float()
+    dlin = o * s
+    dg = o * lin * (s * (1.0 - s))
+    dxh = torch.matmul(dlin, ws)
+    dx = r * (dxh - dxh.mean(-1, keepdim=True) - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    dzn = torch.matmul(dg, wg).to(dt).float()
+    gs = dzn * w["ln_in_scale"].float()
+    dz = rstd * (gs - gs.mean(-1, keepdim=True) - zhat * (gs * zhat).mean(-1, keepdim=True))
+    dx = dx.permute(0, 3, 1, 2).to(x.dtype).contiguous()
+    if not weight_grads:
+        return dx, dz.to(dt), None
+    flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    dws = torch.matmul(flat(dlin).t(), flat(xhat)).to(x.dtype).float()
+    grads = unfold_ln_out_grads(w, dws, flat(dlin).sum(0))
+    grads.update(w_g=torch.matmul(flat(dg).t(), flat(zn)), b_g=flat(dg).sum(0),
+                 ln_in_scale=flat(dzn * zhat).sum(0), ln_in_bias=flat(dzn).sum(0))
+    return dx, dz.to(dt), {k: grads[k].to(w[k].dtype) for k in EPILOGUE_PARAMS}
+
+
+def unfold_ln_out_grads(w: Weights, dws: torch.Tensor, dvb: torch.Tensor) -> Weights:
+    """The gradients of W_z, LN_out's scale and bias and b_z from those of
+    fold_ln_out's ws [C_out, H] and vb [C_out]: d W_z = d ws * scale + d vb
+    bias^T, d scale = sum_d d ws * W_z, d bias = W_z^T d vb, d b_z = d vb."""
+    w_z = w["w_z"].float()
+    return {"w_z": dws * w["ln_out_scale"].float() + dvb[:, None] * w["ln_out_bias"].float(),
+            "ln_out_scale": (dws * w_z).sum(0), "ln_out_bias": torch.mv(w_z.t(), dvb), "b_z": dvb}
+
+
 # --------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------- #
@@ -290,6 +351,8 @@ _ARGTYPES = {
     "trimul_epilogue": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8,
     "trimul_epilogue_partial": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7,
     "trimul_epilogue_finish": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8,
+    "trimul_epilogue_backward": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8,
+    "trimul_epilogue_backward_scratch": [ctypes.c_void_p] + [ctypes.c_int] * 6,
 }
 
 # The parameters of the projection and of the epilogue (float32 or
@@ -325,8 +388,10 @@ _MAX_CHANNELS = 256  # the kernels' shared-memory tiles hold at most this many
 
 
 # The projection's backward kernel holds a cluster of at most 8 blocks of 32
-# hidden channels.
+# hidden channels; the epilogue's one of at most 8 blocks of 32 output
+# channels.
 _BACKWARD_MAX_HIDDEN = 256
+_BACKWARD_MAX_OUT = 256
 
 
 def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
@@ -455,6 +520,8 @@ def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
     """x [B,H,I,N] + z [B,I,N,C] -> gated output [B,I,N,C_out] row-major."""
     params = [w[k] for k in EPILOGUE_PARAMS]
     if records_grad([x, z, *params]) and not _on_cpu(x):
+        if x.dtype == torch.float32 and w["w_z"].shape[0] <= _BACKWARD_MAX_OUT:
+            return EpilogueCM.apply(x, z, *params)
         return Recomputed.apply(_EPILOGUE_KERNEL, _EPILOGUE_PLAIN, x, z, *params)
     return _epilogue_cm_forward(x, z, w)
 
@@ -482,6 +549,47 @@ def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.
     _launch("trimul_epilogue", dev, x, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[x.dtype], pcode)
     LAUNCHES["trimul_epilogue"] += 1
     return out
+
+
+def epilogue_cm_backward(x: torch.Tensor, z: torch.Tensor, w: Weights, dout: torch.Tensor,
+                         weight_grads: bool = True):
+    """The gradients of `epilogue_cm` for the cotangent dout [B,I,N,C_out]
+    -> (dx, dz, {name: gradient} of EPILOGUE_PARAMS or None), as
+    `epilogue_cm_backward_plain`: the backward kernel for float32 on the
+    card (one launch, and one more that sums the weights' gradients where
+    `weight_grads`), the plain closed form on the CPU."""
+    if _on_cpu(x):
+        return epilogue_cm_backward_plain(x, z, w, dout, weight_grads)
+    _check_activation("epilogue backward x", x, 4)
+    _check_activation("epilogue backward z", z, 4, like=x)
+    B, H, I, N = x.shape
+    C = z.shape[-1]
+    D = w["w_z"].shape[0]
+    dout = dout.contiguous()
+    if x.dtype != torch.float32 or tuple(z.shape) != (B, I, N, C) or tuple(dout.shape) != (B, I, N, D) \
+            or dout.dtype != x.dtype or tuple(w["w_z"].shape) != (D, H) or tuple(w["w_g"].shape) != (D, C) \
+            or H > _MAX_CHANNELS or C > _MAX_CHANNELS or D > _BACKWARD_MAX_OUT:
+        raise ValueError(f"epilogue backward: x {tuple(x.shape)} {x.dtype}, z {tuple(z.shape)}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype}, C_out={D}")
+    dev = x.device
+    params, pcode = _params([w[k] for k in EPILOGUE_PARAMS], w["w_z"], dev)
+    dx, dz = torch.empty_like(x), torch.empty_like(z)
+    part = sums = None
+    if weight_grads:
+        floats = torch.zeros(1, dtype=torch.int64)  # filled in on the host
+        _launch("trimul_epilogue_backward_scratch", dev, floats, B, I, N, C, H, D, source="trimul_epilogue")
+        part = torch.empty(int(floats.item()), dtype=torch.float32, device=dev)
+        sums = torch.empty(D * H + D * C + 2 * D + 2 * C, dtype=torch.float32, device=dev)
+    _launch("trimul_epilogue_backward", dev, x, z, *params, dout, dx, dz, part, sums, B, I, N, C, H, D,
+            _DTYPE_CODES[x.dtype], pcode, source="trimul_epilogue")
+    LAUNCHES["trimul_epilogue_backward"] += 1
+    if not weight_grads:
+        return dx, dz, None
+    # The kernel sums the gradients of the folded weights (fold_ln_out).
+    dws, dwg, dvb, dbg, dls, dlb = sums.split([D * H, D * C, D, D, C, C])
+    grads = unfold_ln_out_grads(w, dws.view(D, H), dvb)
+    grads.update(w_g=dwg.view(D, C), b_g=dbg, ln_in_scale=dls, ln_in_bias=dlb)
+    return dx, dz, {k: grads[k].to(w[k].dtype) for k in EPILOGUE_PARAMS}
 
 
 def epilogue_partial(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
@@ -593,6 +701,29 @@ class ProjectGatedCM(torch.autograd.Function):
                                               weight_grads=any(needs))
         dparams = [grads[k] if n else None for k, n in zip(PROJECT_PARAMS, needs)] if grads else [None] * len(needs)
         return (dz if ctx.needs_input_grad[0] else None), None, None, *dparams
+
+
+class EpilogueCM(torch.autograd.Function):
+    """`epilogue_cm` under autograd for float32 activations: apply(x, z,
+    *params in EPILOGUE_PARAMS order). Forward: the epilogue kernel;
+    backward: its backward kernel (`epilogue_cm_backward`), the parameters'
+    gradients only where one of them needs one."""
+
+    @staticmethod
+    def forward(ctx, x, z, *params):
+        ctx.save_for_backward(x, z, *params)
+        return _epilogue_cm_forward(x, z, dict(zip(EPILOGUE_PARAMS, params)))
+
+    @staticmethod
+    @once_differentiable
+    @spanned("backward.trimul_epilogue")
+    def backward(ctx, dout):
+        x, z, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        dx, dz, grads = epilogue_cm_backward(x, z, dict(zip(EPILOGUE_PARAMS, params)), dout,
+                                             weight_grads=any(needs))
+        dparams = [grads[k] if n else None for k, n in zip(EPILOGUE_PARAMS, needs)] if grads else [None] * len(needs)
+        return (dx if ctx.needs_input_grad[0] else None), (dz if ctx.needs_input_grad[1] else None), *dparams
 
 
 class ContractCM(torch.autograd.Function):

@@ -447,6 +447,92 @@ def test_project_backward_launches(device):
     assert type(out[0].grad_fn).__name__ == "RecomputedBackward"
 
 
+@pytest.mark.parametrize("b,n,i,h,c,d,lengths", [
+    (4, 256, 256, 128, 128, 128, None),               # the training step's widths
+    (4, 256, 256, 128, 128, 128, (20, 86, 153, 220)),  # the train cell's padding: x zero past each length
+    (2, 256, 128, 128, 128, 128, None),               # a row block: 128 of 256 rows
+    (2, 256, 256, 64, 128, 128, None),                # H = 64
+    (4, 75, 75, 128, 128, 128, None),                 # the TDS shape, N off the tiles
+    (1, 70, 70, 40, 40, 24, None),                    # H, C and D off the tiles: 40 of 48, one block of D
+    (1, 33, 17, 256, 200, 200, None),                 # H, C above 128 (tiles of 16), 7 blocks of D
+    (2, 9, 9, 30, 30, 30, None),                      # N and C off 16 bytes: tiles staged element by element
+])
+def test_epilogue_backward_kernel_matches_plain(device, b, n, i, h, c, d, lengths):
+    """trimul_epilogue_backward (float32) against the plain closed form and
+    against the recomputed gradient it replaces (autograd of
+    epilogue_cm_plain): dx, dz and every parameter's gradient within 1e-4 of
+    max |plain gradient| (3xTF32 products and float32 sums in another
+    order), the same bits from two calls, and dx, dz alone (no weight
+    gradients) the same as with them."""
+    gen = torch.Generator(device=device).manual_seed(n + i + h + c)
+    w = _weights(c, h, gen, device, d)
+    x = 2.0 * torch.randn(b, h, i, n, generator=gen, device=device) + 0.5
+    if lengths is not None:
+        for row, length in enumerate(lengths):
+            x[row, :, length:] = 0.0
+            x[row, :, :, length:] = 0.0
+    z = torch.randn(b, i, n, c, generator=gen, device=device)
+    dout = torch.randn(b, i, n, d, generator=gen, device=device)
+    with torch.no_grad():
+        dx, dz, grads = trimul.epilogue_cm_backward(x, z, w, dout)
+        dx2, dz2, grads2 = trimul.epilogue_cm_backward(x, z, w, dout)
+        dx_alone, dz_alone, none = trimul.epilogue_cm_backward(x, z, w, dout, weight_grads=False)
+        want_dx, want_dz, want = trimul.epilogue_cm_backward_plain(x, z, w, dout)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(dx, dx_alone) and torch.equal(dz, dz_alone)
+    assert torch.equal(dx, dx2) and torch.equal(dz, dz2)
+    assert all(torch.equal(grads[k], grads2[k]) for k in trimul.EPILOGUE_PARAMS)
+    got = [dx, dz] + [grads[k] for k in trimul.EPILOGUE_PARAMS]
+    _grad_close(got, [want_dx, want_dz] + [want[k] for k in trimul.EPILOGUE_PARAMS], torch.float32)
+    leaves = [x.clone().requires_grad_(True), z.clone().requires_grad_(True)] + \
+        [w[k].clone().requires_grad_(True) for k in trimul.EPILOGUE_PARAMS]
+    recomputed = _grads_of(lambda: trimul.epilogue_cm_plain(
+        leaves[0], leaves[1], dict(zip(trimul.EPILOGUE_PARAMS, leaves[2:]))), leaves, dout)
+    _grad_close(got, recomputed, torch.float32)
+
+
+def test_epilogue_backward_launches(device):
+    """Under autograd a float32 epilogue's backward is one launch of its
+    kernel (LAUNCHES["trimul_epilogue_backward"], under the span
+    genie2:backward.trimul_epilogue) and, where a weight needs a gradient,
+    one of the kernel that sums the weights' partial sums; with no weight
+    needing one (TDS's twist) that second kernel does not run. bfloat16
+    activations and the two stages of tensor parallelism keep the
+    recomputed plain gradient."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    w = _weights(64, 64, gen, device)
+    x = torch.randn(2, 64, 40, 40, generator=gen, device=device).requires_grad_(True)
+    z = torch.randn(2, 40, 40, 64, generator=gen, device=device).requires_grad_(True)
+    cot = torch.randn(2, 40, 40, 64, generator=gen, device=device)
+    for weights_need_grad in (True, False):
+        for k in trimul.EPILOGUE_PARAMS:
+            w[k].requires_grad_(weights_need_grad)
+        leaves = [x, z] + ([w[k] for k in trimul.EPILOGUE_PARAMS] if weights_need_grad else [])
+        out = trimul.epilogue_cm(x, z, w)
+        assert type(out.grad_fn).__name__ == "EpilogueCMBackward"
+        trimul.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, cot)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+        assert counts == {"trimul_epilogue_backward": 1}, counts
+        names = [e.name for e in prof.events()]
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert "genie2:backward.trimul_epilogue" in names
+        assert not any(n.startswith("genie2:recompute.") for n in names), names
+        assert sum("epilogue_backward_kernel" in k for k in kernels) == 1
+        assert sum("epilogue_backward_sum_kernel" in k for k in kernels) == int(weights_need_grad), kernels
+    bf = {k: v.detach().bfloat16() for k, v in w.items()}
+    out = trimul.epilogue_cm(x.detach().bfloat16().requires_grad_(True), z.detach().bfloat16(), bf)
+    assert type(out.grad_fn).__name__ == "RecomputedBackward"
+    part = trimul.epilogue_partial(x, w["w_z"], w["ln_out_scale"], w["ln_out_bias"])
+    assert type(part.grad_fn).__name__ == "RecomputedBackward"
+    assert type(trimul.epilogue_finish(part, z, w, 64).grad_fn).__name__ == "RecomputedBackward"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("strided", [False, True])
 def test_ipa_and_tri_attention_gradients_match_plain(device, dtype, strided):
@@ -565,7 +651,8 @@ def test_training_step_kernels_match_plain(device):
     relative, and the median weight's gradient-norm gap within the train
     cell's grad_err limit (2.5e-4, portbench/limits); the step launches the
     TriMul kernels twice a pair layer (remat), the contraction's backward
-    kernels and the projection's backward kernel once a projection."""
+    kernels, and the projection's and the epilogue's backward kernels once
+    a projection and once an epilogue."""
     import copy
 
     import numpy as np
@@ -620,7 +707,8 @@ def test_training_step_kernels_match_plain(device):
     gaps = [abs(got - want) / max(want, median) for got, want in norms.values()]
     assert float(np.median(gaps)) <= 2.5e-4, float(np.median(gaps))
     assert launches == {"trimul_project": 8, "trimul_contract_out": 6, "trimul_contract_in": 6, "trimul_epilogue": 8,
-                        "ipa_attention": 2, "contract_cm_km": 4, "trimul_project_backward": 4}, launches
+                        "ipa_attention": 2, "contract_cm_km": 4, "trimul_project_backward": 4,
+                        "trimul_epilogue_backward": 4}, launches
 
 
 def test_two_rank_training_step_matches_one_process(device):

@@ -143,10 +143,13 @@ def test_project_and_epilogue_functions_match_plain_autograd(weights_need_grad):
     dout = torch.randn(B, N, N, C, generator=g)
     params = [w[k] for k in trimul.EPILOGUE_PARAMS]
     inputs = [x, z] + [p for p in params if p.requires_grad]
-    got = _grads(Recomputed.apply(trimul._EPILOGUE_KERNEL, trimul._EPILOGUE_PLAIN, x, z, *params), inputs, dout)
     want = _grads(trimul.epilogue_cm_plain(x, z, w), inputs, dout)
-    for gx, gy in zip(got, want):
-        _close(gx, gy)
+    for out in (Recomputed.apply(trimul._EPILOGUE_KERNEL, trimul._EPILOGUE_PLAIN, x, z, *params),
+                trimul.EpilogueCM.apply(x, z, *params)):
+        got = _grads(out, inputs, dout)
+        assert len(got) == len(want)
+        for gx, gy in zip(got, want):
+            _close(gx, gy)
 
 
 def test_ipa_function_matches_plain_autograd():
@@ -258,6 +261,99 @@ def test_project_function_matches_plain_autograd(rows, weights_need_grad):
     w["w_ap"].requires_grad_(True)  # one weight: the others' gradients are None
     grads = torch.autograd.grad(trimul.ProjectGatedCM.apply(z, row_mask, col_mask, *params), [z, w["w_ap"]], cot)
     _close(grads[1], _grads(trimul.project_gated_cm_plain(z, row_mask, w, col_mask), [w["w_ap"]], cot)[0])
+
+
+# ------------------------------------------------------------------ #
+# The epilogue's backward in closed form
+# ------------------------------------------------------------------ #
+
+
+def _epilogue_case(gen, rows, weights_need_grad):
+    """x [B, H, I, N] and z [B, I, N, C] of I rows (I = N square), their
+    cotangent [B, I, N, C_out] with C_out = C, the weights; the first
+    sample's last two columns of x zero, as a padded tail leaves them."""
+    B, N, C, H = 2, 9, 12, 6
+    I = N if rows is None else rows
+    w = _trimul_weights(C, H, gen, grad=weights_need_grad)
+    x = 2.0 * torch.randn(B, H, I, N, generator=gen) + 0.5
+    x[0, :, :, N - 2:] = 0.0
+    z = torch.randn(B, I, N, C, generator=gen)
+    dout = torch.randn(B, I, N, C, generator=gen)
+    return x.requires_grad_(True), z.requires_grad_(True), w, dout
+
+
+@pytest.mark.parametrize("rows", [None, 4])
+@pytest.mark.parametrize("weights_need_grad", [True, False])
+def test_epilogue_backward_plain_matches_autograd(rows, weights_need_grad):
+    """epilogue_cm_backward_plain (the backward kernel's closed form)
+    against autograd of epilogue_cm_plain: square and a row block of 4 of 9
+    rows, columns of x zero (LN_out's rstd then 1/sqrt(eps)), weights with
+    and without requires_grad (no weight gradients then)."""
+    x, z, w, dout = _epilogue_case(_gen(13), rows, weights_need_grad)
+    params = [w[k] for k in trimul.EPILOGUE_PARAMS]
+    inputs = [x, z] + [p for p in params if p.requires_grad]
+    want = _grads(trimul.epilogue_cm_plain(x, z, w), inputs, dout)
+    with torch.no_grad():
+        dx, dz, grads = trimul.epilogue_cm_backward_plain(x, z, w, dout, weight_grads=weights_need_grad)
+    assert (grads is None) != weights_need_grad
+    got = [dx, dz] + ([grads[k] for k in trimul.EPILOGUE_PARAMS] if weights_need_grad else [])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b)
+
+
+@pytest.mark.parametrize("rows", [None, 4])
+@pytest.mark.parametrize("weights_need_grad", [True, False])
+def test_epilogue_function_matches_plain_autograd(rows, weights_need_grad):
+    """EpilogueCM (the card's Function for float32) on the CPU: the plain
+    forward, the closed-form backward; every input's gradient against
+    autograd of the plain version, None for what needs none."""
+    x, z, w, dout = _epilogue_case(_gen(14), rows, weights_need_grad)
+    params = [w[k] for k in trimul.EPILOGUE_PARAMS]
+    inputs = [x, z] + [p for p in params if p.requires_grad]
+    out = trimul.EpilogueCM.apply(x, z, *params)
+    assert "EpilogueCM" in type(out.grad_fn).__name__
+    for a, b in zip(_grads(out, inputs, dout), _grads(trimul.epilogue_cm_plain(x, z, w), inputs, dout)):
+        _close(a, b)
+    w["w_g"].requires_grad_(True)  # one weight and x: z's and the other weights' gradients are None
+    got = torch.autograd.grad(trimul.EpilogueCM.apply(x, z.detach(), *params), [x, w["w_g"]], dout)
+    want = _grads(trimul.epilogue_cm_plain(x, z.detach(), w), [x, w["w_g"]], dout)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_epilogue_backward_routes(monkeypatch):
+    """Which Function the wrappers take on the card, as the CPU can show it
+    (the device test and the Functions stubbed): a float32 epilogue under
+    autograd takes EpilogueCM, its backward kernel; bfloat16 activations,
+    C_out above the kernel's 256, and the two stages of tensor parallelism
+    (epilogue_partial, epilogue_finish) keep Recomputed."""
+    taken = []
+
+    class Taken:
+        def __init__(self, name):
+            self.name = name
+
+        def apply(self, *args):
+            taken.append(self.name)
+
+    monkeypatch.setattr(trimul, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(trimul, "EpilogueCM", Taken("EpilogueCM"))
+    monkeypatch.setattr(trimul, "Recomputed", Taken("Recomputed"))
+    g = _gen(15)
+    B, N, C, H = 1, 4, 8, 6
+    w = _trimul_weights(C, H, g)
+    x = torch.randn(B, H, N, N, generator=g).requires_grad_(True)
+    z = torch.randn(B, N, N, C, generator=g)
+    trimul.epilogue_cm(x, z, w)
+    trimul.epilogue_cm(x.detach().bfloat16().requires_grad_(True), z.bfloat16(),
+                       {k: v.detach().bfloat16() for k, v in w.items()})
+    wide = dict(w, w_z=torch.randn(257, H, generator=g), w_g=torch.randn(257, C, generator=g))
+    trimul.epilogue_cm(x, z, wide)
+    trimul.epilogue_partial(x, w["w_z"], w["ln_out_scale"], w["ln_out_bias"])
+    trimul.epilogue_finish(torch.zeros(trimul.part_size(B, N, C)), z, w, H)
+    assert taken == ["EpilogueCM", "Recomputed", "Recomputed", "Recomputed", "Recomputed"], taken
 
 
 def test_recompute_backward_skips_inputs_that_need_no_grad():

@@ -9,8 +9,9 @@ the program opens profiler ranges through `span` alone.
 Marked `cuda` (skipped without a card, decided inside each test): sync
 debug mode counts as many synchronising calls in a reverse step and a
 training step as the host-sync counters; the `recompute.*` spans and the
-projection's `backward.trimul_project` open on autograd's thread and hold
-their kernels; the TriMul, triangle
+projection's and the epilogue's `backward.trimul_project` and
+`backward.trimul_epilogue` open on autograd's thread and hold their
+kernels; the TriMul, triangle
 attention and IPA spans hold the same device time as the benchmark's
 forward hooks on those modules. On a machine with a card:
     python -m pytest --noconftest tests/test_torch_profiling.py -m cuda -q
@@ -304,13 +305,14 @@ def test_recompute_spans_run_on_autograd_thread_around_their_kernels(device, tmp
     # The host's ranges (the device timeline repeats them as gpu_user_annotation).
     host = [e for e in events if e.get("cat") == "user_annotation"]
     main = {e["tid"] for e in host if e["name"] == "genie2:train_step"}
-    # The recomputed backwards, and the projection's backward kernel (float32).
+    # The recomputed backwards, and the projection's and the epilogue's
+    # backward kernels (float32).
     spans = [e for e in host if e["name"].startswith("genie2:recompute.")
-             or e["name"] == "genie2:backward.trimul_project"]
+             or e["name"] in ("genie2:backward.trimul_project", "genie2:backward.trimul_epilogue")]
     names = {e["name"] for e in spans}
-    assert {"genie2:backward.trimul_project", "genie2:recompute.epilogue_cm",
+    assert {"genie2:backward.trimul_project", "genie2:backward.trimul_epilogue",
             "genie2:recompute.ipa_attention"} <= names, names
-    assert "genie2:recompute.project_gated_cm" not in names
+    assert not {"genie2:recompute.project_gated_cm", "genie2:recompute.epilogue_cm"} & names, names
     assert all(e["tid"] not in main for e in spans)
     kernels = {e["args"]["correlation"] for e in events if e.get("cat") == "kernel" and "correlation" in e["args"]}
     launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("args", {}).get("correlation") in kernels]

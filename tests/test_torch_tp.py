@@ -462,8 +462,9 @@ def test_smoke_script_counts_the_tp_phase():
     B=2, N=256 of the example configuration (10 TriMuls' partial sums of
     C_p + 2 channels and 2 C_p weight sums, 5 pair transitions, 8 IPA
     layers and 8 structure transitions), the launches that move to the
-    epilogue's two stages, and the partial stage's and the finish stage's
-    bytes and operations."""
+    epilogue's two stages (and the epilogue's backward kernel, which a
+    training step under a model axis does not launch), and the partial
+    stage's and the finish stage's bytes and operations."""
     import chip_smoke
 
     config = chip_smoke.example_config()
@@ -476,6 +477,11 @@ def test_smoke_script_counts_the_tp_phase():
     assert with_tri_att == trimuls + 3 * transitions + structure
     split = chip_smoke.split_epilogue(chip_smoke.expected_launches(config, 1))
     assert (split["trimul_epilogue"], split["trimul_epilogue_partial"], split["trimul_epilogue_finish"]) == (0, 10, 10)
+    # A training step: the epilogue's backward kernel once an epilogue, none
+    # under a model axis (its two stages recompute their plain versions).
+    step = chip_smoke.train_launches(config, 1, eval_calls=0)
+    assert (step["trimul_epilogue"], step["trimul_epilogue_backward"]) == (20, 10)
+    assert chip_smoke.split_epilogue(step)["trimul_epilogue_backward"] == 0
     bytes_, ops = chip_smoke.kernel_bytes_ops("trimul_epilogue_partial", B, N, 128, 64, 4)
     assert ops == 2 * B * N * N * 64 * 129
     assert bytes_ == B * N * N * 64 * 4 + 4 * (128 * 64 + 128) + 4 * (B * N * N * 130 + 256)

@@ -294,6 +294,120 @@ def test_projection_backward_rows_split_over_the_cluster(tj):
         assert rows == list(range(tj)), nch
 
 
+# csrc/trimul_epilogue.cu's backward: one block holds DC output channels
+# (64 at C, H <= 128 in tiles of 32 positions; else 32 in tiles of 16);
+# dlin and dg lie position-major [TJ][DC + 8], ws [DC][Hp + 4], W_g
+# [DC][Cp + 4], the x tile channel-major [Hp][TJ + 8], the z tile
+# position-major [TJ][Cp + 4], the shares of dx^ and dzn with rows of 8 mod
+# 16 floats (bwd::Layout).
+def _bwd_layout(tj, hp, cp, dc):
+    return {"ldw": hp + 4, "ldg": cp + 4, "ldx": tj + 8, "ldz": cp + 4, "ldd": dc + 8,
+            "ldsx": -(-hp // 16) * 16 + 8, "ldsz": -(-cp // 16) * 16 + 8}
+
+
+def _bwd_fragments(product, L, k0, m0, n0, lane):
+    """The flat shared-memory offsets lane (g, t) reads for one m16n8k8 step
+    of `product`, as the kernel computes them: {(operand, row, slot): (buffer,
+    offset)}, A's rows m and B's rows n, slots t and t + 4 of the k step. P2
+    and P3 take k = 2t and 2t + 1 for the slots t and t + 4."""
+    g, t = divmod(lane, 4)
+    out = {}
+    if product in ("p2_x", "p2_z"):  # dx^ = dlin . ws, dzn = dg . W_g over the block's channels d
+        buf, ld = ("ws", L["ldw"]) if product == "p2_x" else ("wg", L["ldg"])
+        for half in range(2):
+            base = (m0 + g + 8 * half) * L["ldd"] + k0 + 2 * t  # one float2: slots t, t + 4
+            out[("a", g + 8 * half, t)] = ("dl", base)
+            out[("a", g + 8 * half, t + 4)] = ("dl", base + 1)
+        out[("b", g, t)] = (buf, (k0 + 2 * t) * ld + n0 + g)
+        out[("b", g, t + 4)] = (buf, (k0 + 2 * t + 1) * ld + n0 + g)
+    else:  # d ws += dlin^T . x^, d W_g += dg^T . zn over the tile's positions j
+        pa = (k0 + 2 * t) * L["ldd"] + m0 + g
+        out[("a", g, t)], out[("a", g + 8, t)] = ("dl", pa), ("dl", pa + 8)
+        out[("a", g, t + 4)], out[("a", g + 8, t + 4)] = ("dl", pa + L["ldd"]), ("dl", pa + L["ldd"] + 8)
+        if product == "p3_x":
+            base = (n0 + g) * L["ldx"] + k0 + 2 * t  # one float2
+            out[("b", g, t)], out[("b", g, t + 4)] = ("xs", base), ("xs", base + 1)
+        else:
+            out[("b", g, t)] = ("zs", (k0 + 2 * t) * L["ldz"] + n0 + g)
+            out[("b", g, t + 4)] = ("zs", (k0 + 2 * t + 1) * L["ldz"] + n0 + g)
+    return out
+
+
+@pytest.mark.parametrize("product", ["p2_x", "p2_z", "p3_x", "p3_z"])
+@pytest.mark.parametrize("tj,dc", [(32, 64), (16, 32)])
+def test_epilogue_backward_fragment_orders_give_the_products(product, tj, dc):
+    """The backward's products P2 (dx^ = dlin . ws and dzn = dg . W_g, K =
+    the block's dc channels) and P3 (d ws += dlin^T . x^, d W_g += dg^T . zn,
+    K = the tile's positions), with k slots t and t + 4 standing for k = 2t
+    and 2t + 1: placed lane by lane at the PTX layouts from the kernel's
+    shared-memory offsets, the m16n8k8 steps sum to the products, every
+    fragment element placed."""
+    rng = np.random.default_rng(19)
+    hp, cp = 128, 128
+    L = _bwd_layout(tj, hp, cp, dc)
+    dlin, ws = rng.normal(size=(tj, dc)), rng.normal(size=(dc, hp))
+    xhat, zn = rng.normal(size=(hp, tj)), rng.normal(size=(tj, cp))
+    store = {"dl": np.full(tj * L["ldd"], np.nan), "ws": np.full(dc * L["ldw"], np.nan),
+             "wg": np.full(dc * L["ldg"], np.nan), "xs": np.full(hp * L["ldx"], np.nan),
+             "zs": np.full(tj * L["ldz"], np.nan)}
+    for j in range(tj):
+        store["dl"][j * L["ldd"]:j * L["ldd"] + dc] = dlin[j]
+        store["zs"][j * L["ldz"]:j * L["ldz"] + cp] = zn[j]
+    for d in range(dc):
+        store["ws"][d * L["ldw"]:d * L["ldw"] + hp] = ws[d]
+        store["wg"][d * L["ldg"]:d * L["ldg"] + cp] = ws[d]
+    for h in range(hp):
+        store["xs"][h * L["ldx"]:h * L["ldx"] + tj] = xhat[h]
+    if product.startswith("p2"):
+        want, (M, Nn, K) = dlin @ ws, (tj, hp, dc)
+    else:
+        want = dlin.T @ (xhat.T if product == "p3_x" else zn)
+        M, Nn, K = dc, want.shape[1], tj
+    got = np.zeros((M, Nn))
+    for m0 in range(0, M, 16):
+        for n0 in range(0, Nn, 8):
+            for k0 in range(0, K, 8):
+                a, b = np.full((16, 8), np.nan), np.full((8, 8), np.nan)
+                for lane in range(32):
+                    for (op, row, slot), (buf, off) in _bwd_fragments(product, L, k0, m0, n0, lane).items():
+                        if op == "a":
+                            a[row, slot] = store[buf][off]
+                        else:
+                            b[slot, row] = store[buf][off]
+                assert not np.isnan(a).any() and not np.isnan(b).any()
+                got[m0:m0 + 16, n0:n0 + 8] += a @ b
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("tj,hp,cp,dc", [(32, 128, 128, 64), (16, 256, 256, 32), (32, 40, 48, 64)])
+def test_epilogue_backward_loads_fall_in_distinct_banks(tj, hp, cp, dc):
+    """The strides of bwd::Layout put each conflict-free load of P2 and P3
+    in distinct banks: a 4-byte load's 32 lanes, or each half-warp of an
+    8-byte one, touch 32 distinct banks. P3's A loads (dlin^T by position
+    pairs) are the one 2-way conflict the strides leave."""
+    L = _bwd_layout(tj, hp, cp, dc)
+
+    def worst(product, key, pair):
+        offsets = [_bwd_fragments(product, L, 8, 16 if product.startswith("p2") else 0, 8, lane)[key(lane)][1]
+                   for lane in range(32)]
+        groups = [offsets[:16], offsets[16:]] if pair else [offsets]
+        banks = [[(o + e) % 32 for o in grp for e in range(2 if pair else 1)] for grp in groups]
+        return max(max(b.count(x) for x in b) for b in banks)
+
+    for product in ("p2_x", "p2_z", "p3_x", "p3_z"):
+        pair_b = product == "p3_x"
+        assert worst(product, lambda lane: ("b", lane // 4, lane % 4), pair_b) == 1, product
+        if product.startswith("p2"):
+            assert worst(product, lambda lane: ("a", lane // 4, lane % 4), True) == 1, product
+        else:
+            assert worst(product, lambda lane: ("a", lane // 4, lane % 4), False) == 2, product
+    # The shares' 8-byte stores of P2 (rows g, columns 2t, 2t + 1).
+    for ld in (L["ldsx"], L["ldsz"]):
+        for half in ((0, 16), (16, 32)):
+            banks = [((lane // 4) * ld + 2 * (lane % 4) + e) % 32 for lane in range(*half) for e in range(2)]
+            assert len(set(banks)) == 32
+
+
 def test_smoke_script_bounds_use_tensor_core_rates():
     """chip_smoke.py bounds the kernels' products by the tensor cores' rates
     (float32 as three TF32 products): at the main path's shapes both the

@@ -17,10 +17,11 @@ with respect to x_t, the potential and the weights. Its families add the
 backward's, read from the program's spans (utils/profiling.py): the
 contraction's backward launches (`bwd_contract`, the span
 `genie2:backward.trimul_contract`: the trimul_contract and contract_cm_km
-kernels inside ContractCM.backward), the projection's backward kernel
-(`bwd_project`, the span `genie2:backward.trimul_project`: float32) and the
-recomputed plain versions (`bwd_recompute_project` for bf16,
-`_epilogue`, `_ipa`, `_tri_attention`: the spans
+kernels inside ContractCM.backward), the projection's and the epilogue's
+backward kernels (`bwd_project`, `bwd_epilogue`, the spans
+`genie2:backward.trimul_project` and `genie2:backward.trimul_epilogue`:
+float32) and the recomputed plain versions (`bwd_recompute_project` and
+`bwd_recompute_epilogue` for bf16, `_ipa`, `_tri_attention`: the spans
 `genie2:recompute.<kernel>`), each the device time of the kernels that run
 inside its span (part of the kernel families too, not added to them) and
 the span's extent on the device (`..._span`, idle gaps included), 0 where
@@ -65,6 +66,8 @@ FAMILIES = (
     ("optimizer", ("multi_tensor_apply",)),
     ("trimul_project", ("project_kernel",)),
     ("trimul_project_backward", ("project_backward",)),
+    # Before trimul_epilogue: the backward's kernels are named epilogue_backward_*.
+    ("trimul_epilogue_backward", ("epilogue_backward",)),
     # The standalone model-layout contraction; its channel-major variants
     # share the TriMul contraction's tile kernel and name.
     ("triangle_contract", ("chan_contract_kernel",)),
@@ -85,6 +88,7 @@ SPAN_PREFIX = "genie2:"
 BACKWARD_SPANS = {
     "genie2:backward.trimul_contract": "bwd_contract",
     "genie2:backward.trimul_project": "bwd_project",
+    "genie2:backward.trimul_epilogue": "bwd_epilogue",
     "genie2:recompute.project_gated_cm": "bwd_recompute_project",
     "genie2:recompute.epilogue_cm": "bwd_recompute_epilogue",
     "genie2:recompute.ipa_attention": "bwd_recompute_ipa",
