@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
                epilogue, the IPA attention core on
                strided inputs as nn/structure.py passes them, the three
                standalone triangle contractions, the triangle attention
-               core) against its plain PyTorch version on the card, float32
+               core, the pair transition in float32) against its plain
+               PyTorch version on the card, float32
                and bfloat16, at N=256 and the ragged N=224 with B=2 and at
                the tds phase's N=75 with B=4, and the epilogue's two
                stages at their edges (SPLIT_EDGES, float32 and bf16
@@ -35,7 +36,9 @@ Phases, in order; any failure exits non-zero:
                (with and without the weights' gradients, and padded)
                beside their bounds, the plain backward and the recomputed
                one, the epilogue's held against its closed form
-               (epilogue_cm_backward_plain);
+               (epilogue_cm_backward_plain); the pair transition a call at
+               B=2 and 4 beside its bound, its plain version and torch's
+               two addmm calls;
   3. denoiser  one full-width denoiser call at L=256 with the kernels, then
                with the plain versions swapped in, compared on z; then the
                gradient of sum(z . r) with respect to the translations
@@ -176,6 +179,7 @@ H_MUL = 128  # triangularMultiplicativeHiddenDimension (default)
 IPA = {"H": 12, "C": 16, "PQ": 4, "PV": 8}
 # Triangle attention widths (the configuration's defaults): heads, head width.
 TRI_ATT = {"H": 4, "c": 32}
+TRANSITION_N = 4  # pairTransitionN (default): the transition's hidden width is 4 C_P
 # The second configuration: the example file with triangle attention on.
 TRI_ATT_LINE = "includeTriangularAttention True\n"
 
@@ -229,6 +233,13 @@ KERNELS = [
         "source": "genie2_tpu_torch/csrc/triangle_contract.cu",
         "replaces": "genie2_tpu/ops/trimul_fused.py:213",
     },
+    # No TPU kernel: genie2_tpu leaves the transition to XLA. float32 at
+    # C = 128 (the configurations); bf16 runs torch's products.
+    {
+        "name": "pair_transition",
+        "source": "genie2_tpu_torch/csrc/pair_transition.cu",
+        "replaces": "none (genie2_tpu/nn/pair_stack.py PairTransition, on XLA)",
+    },
     # On the path of the configuration with triangle attention only.
     {
         "name": "tri_attention",
@@ -250,8 +261,9 @@ BACKWARD_ROUTE = {
     "trimul_epilogue_finish": "gradient of the plain version, recomputed",
     "ipa_attention": "gradient of the plain version, recomputed",
     "tri_attention": "gradient of the plain version, recomputed",
+    "pair_transition": "gradient of the plain version, recomputed",
 }
-# Kernels whose products must run on the tensor cores: all ten (the IPA
+# Kernels whose products must run on the tensor cores: all eleven (the IPA
 # core's o_pair product among them; the epilogue's modes share its library).
 TENSOR_CORE = tuple(k["name"] for k in KERNELS)
 
@@ -386,6 +398,26 @@ def random_trimul_weights(C: int, H: int, gen, device):
     }
 
 
+def random_transition_weights(C: int, H: int, gen, device):
+    """The pair transition's ln_w, ln_b, w1, b1, w2, b2 (ops/transition.py)."""
+    import torch
+
+    def r(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(*shape, generator=gen, device=device)
+
+    return [r(C, scale=0.1, offset=1.0), r(C, scale=0.1), r(H, C, scale=C ** -0.5), r(H, scale=0.1),
+            r(C, H, scale=H ** -0.5), r(C, scale=0.1)]
+
+
+def transition_addmm(z, tw):
+    """A yardstick only: torch's two addmm calls of the transition's products
+    (no LayerNorm, ReLU or mask), on z's rows."""
+    import torch
+
+    x = z.reshape(-1, z.shape[-1])
+    return lambda: torch.addmm(tw[5], torch.addmm(tw[3], x, tw[2].t()), tw[4].t())
+
+
 def random_ipa_inputs(B, N, z, res_mask, gen):
     """The IPA core's arguments at full width (ops/ipa.py), in z's dtype, as
     nn/structure.py hands them over: k and v the halves of one projection,
@@ -456,6 +488,9 @@ def kernel_bytes_ops(name, B, N, C, H, esize, pairs=None):
     if name == "trimul_epilogue_finish":  # the reduced partial sums, z -> out
         part = 4 * (pair * (C + 2) + 2 * C)
         return part + 2 * pair * C * esize + 4 * (C * C + 5 * C), 2 * pair * C * C
+    if name == "pair_transition":  # H: the hidden width; z and the pair mask in, out out, the weights
+        w = 4 * (2 * C * H + H + 3 * C)
+        return 2 * pair * C * esize + 4 * pair + w, 2 * 2 * pair * C * H
     if name == "tri_attention":
         h, c = TRI_ATT["H"], TRI_ATT["c"]
         # q, k, v read and o written, the triangle bias, the float32 mask;
@@ -499,7 +534,7 @@ KERNEL_SHAPES = ((256, 2), (224, 2), (TDS_LENGTH, TDS_PARTICLES))
 def phase_kernels(state):
     import torch
 
-    from genie2_tpu_torch.ops import ipa, tri_att, triangle, trimul
+    from genie2_tpu_torch.ops import ipa, transition, tri_att, triangle, trimul
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -572,6 +607,13 @@ def phase_kernels(state):
             ta_args = random_tri_att_inputs(B, N, dtype, gen, dev)
             cases.append(("tri_attention", None, lambda: tri_att.tri_attention(*ta_args),
                           lambda: tri_att.tri_attention_plain(*ta_args), sdpa_tri_attention(*ta_args)))
+            # The pair transition (float32 only) on the pair mask of the padded tail.
+            tr_args = None
+            if dtype == torch.float32:
+                tw = random_transition_weights(C_P, TRANSITION_N * C_P, gen, dev)
+                tr_args = (z, res_mask[:, :, None] * res_mask[:, None, :], *tw)
+                cases.append(("pair_transition", None, lambda: transition.pair_transition(*tr_args),
+                              lambda: transition.pair_transition_plain(*tr_args), transition_addmm(z, tw)))
             for name, outgoing, kern, plain, library in cases:
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
@@ -586,7 +628,8 @@ def phase_kernels(state):
                 finite = all(torch.isfinite(g.float()).all().item() for g in got)
                 ok = finite and rel <= TOL[dname]
                 # The partial stage holds one rank's half of the hidden channels.
-                H = H_MUL // 2 if name == "trimul_epilogue_partial" else H_MUL
+                H = H_MUL // 2 if name == "trimul_epilogue_partial" else \
+                    TRANSITION_N * C_P if name == "pair_transition" else H_MUL
                 bytes_, ops = kernel_bytes_ops(name, B, N, C_P, H, z.element_size())
                 bound_bytes, bound_ops = bytes_ / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
                 rec = {
@@ -609,7 +652,8 @@ def phase_kernels(state):
                 failed += row_failed
                 if dtype == torch.float32:
                     state["kernel_rows"] = row_results
-            grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p)
+            grad_cases = gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p,
+                                        tr_args)
             for rec in check_gradients(grad_cases, dname, N, B):
                 emit({"phase": "kernels", "gradient": True, **rec})
                 if not rec["ok"]:
@@ -622,6 +666,11 @@ def phase_kernels(state):
     state["project_backward"] = time_project_backward(gen, dev)
     for rec in state["project_backward"]:
         emit({"phase": "kernels", "project_backward": True, **rec})
+    state["transition"] = time_pair_transition(gen, dev)
+    for rec in state["transition"]:
+        emit({"phase": "kernels", "transition": True, **rec})
+        if not rec["ok"]:
+            failed.append(f"pair_transition B={rec['B']}: rel {rec['rel_err']:.3g}")
     state["epilogue_backward"] = time_epilogue_backward(gen, dev)
     for rec in state["epilogue_backward"]:
         emit({"phase": "kernels", "epilogue_backward": True, **rec})
@@ -635,6 +684,40 @@ def phase_kernels(state):
             failed.append(f"split epilogue N={rec['N']} {rec['dtype']}: rel {rec['rel_err']:.3g}")
     if failed:
         raise PhaseFailed("kernel mismatch: " + "; ".join(failed))
+
+
+def time_pair_transition(gen, dev) -> list:
+    """The pair transition a call at N=256, C=128, H=512, float32, B=2 and 4
+    (the sampling cells' batch; B=16 at N=128 is the same rows): against
+    the plain version within TOL, its bound (two products, 3xTF32, against
+    z and the mask in and out out), the plain version and torch's two addmm
+    calls (a yardstick: the port never calls them)."""
+    import torch
+
+    from genie2_tpu_torch.ops import transition
+
+    N, H = 256, TRANSITION_N * C_P
+    recs = []
+    for B in (2, 4):
+        tw = random_transition_weights(C_P, H, gen, dev)
+        z = torch.randn(B, N, N, C_P, generator=gen, device=dev)
+        mask = torch.ones(B, N, N, device=dev)
+        with torch.no_grad():
+            got, want = transition.pair_transition(z, mask, *tw), transition.pair_transition_plain(z, mask, *tw)
+            rel = (got - want).abs().max().item() / want.abs().max().item()
+            ms = cuda_time_ms(lambda: transition.pair_transition(z, mask, *tw))
+            plain_ms = cuda_time_ms(lambda: transition.pair_transition_plain(z, mask, *tw))
+            addmm_ms = cuda_time_ms(transition_addmm(z, tw))
+        bytes_, ops = kernel_bytes_ops("pair_transition", B, N, C_P, H, 4)
+        bound_ops, bound_bytes = ops / PEAK_OPS_PER_S["float32"] * 1e3, bytes_ / PEAK_BYTES_PER_S * 1e3
+        recs.append({"B": B, "N": N, "C": C_P, "H": H, "dtype": "float32", "ms": ms,
+                     "bound_ms": max(bound_ops, bound_bytes),
+                     "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+                     "plain_ms": plain_ms, "addmm_ms": addmm_ms, "rel_err": rel, "tol": TOL["float32"],
+                     "ok": bool(torch.isfinite(got).all().item()) and rel <= TOL["float32"]})
+        del z, mask, got, want
+        torch.cuda.empty_cache()
+    return recs
 
 
 def time_project_backward(gen, dev) -> list:
@@ -860,15 +943,16 @@ def _leaf(t):
     return t.detach().clone().requires_grad_(True)
 
 
-def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p):
-    """Each autograd Function of ops/ at the kernels phase's shapes, as
+def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves, part_p, tr_args=None):
+    """Each autograd Function of ops/ at the kernels phase's shapes (the pair
+    transition's where `tr_args` are given, float32), as
     (kernel, outgoing, kernel forward, plain forward, inputs, activations,
     cotangents): both forwards are functions of `inputs`, leaves that
     require grad (every floating input); `activations` are those that
     depend on x_t in the TDS gradient, on which the backward is timed."""
     import torch
 
-    from genie2_tpu_torch.ops import ipa, tri_att, trimul
+    from genie2_tpu_torch.ops import ipa, transition, tri_att, trimul
 
     def cot(t):
         return torch.randn(t.shape, generator=gen, device=t.device).to(t.dtype)
@@ -905,6 +989,10 @@ def gradient_cases(z, res_mask, w, a_p, b_p, x_p, ipa_args, ta_args, gen, halves
     cases.append(("tri_attention", None, lambda: tri_att.tri_attention(tq, tk, tv, ttb, tmask),
                   lambda: tri_att.tri_attention_plain(tq, tk, tv, ttb, tmask), [tq, tk, tv, ttb],
                   [tq, tk, tv, ttb], (cot(tq),)))
+    if tr_args is not None:
+        pair_mask, trw = tr_args[1], [_leaf(t) for t in tr_args[2:]]
+        cases.append(("pair_transition", None, lambda: transition.pair_transition(zg, pair_mask, *trw),
+                      lambda: transition.pair_transition_plain(zg, pair_mask, *trw), [zg, *trw], [zg], (cot(z),)))
     return cases
 
 
@@ -1093,22 +1181,24 @@ def check_gradients(cases, dname, N, B):
 @contextlib.contextmanager
 def plain_kernels():
     """Swap the plain versions in for the kernel wrappers that the denoiser
-    calls, TriMul, IPA and triangle attention (comparison only)."""
+    calls, TriMul, IPA, triangle attention and the pair transition
+    (comparison only)."""
     from genie2_tpu_torch.nn import primitives, structure
-    from genie2_tpu_torch.ops import ipa, tri_att, trimul
+    from genie2_tpu_torch.ops import ipa, transition, tri_att, trimul
 
     saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention,
-             primitives.tri_attention)
+             primitives.tri_attention, transition.pair_transition)
     trimul.project_gated_cm = trimul.project_gated_cm_plain
     trimul.contract_cm = trimul.contract_cm_plain
     trimul.epilogue_cm = trimul.epilogue_cm_plain
     structure.ipa_attention = ipa.ipa_attention_plain
     primitives.tri_attention = tri_att.tri_attention_plain
+    transition.pair_transition = transition.pair_transition_plain
     try:
         yield
     finally:
         (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention,
-         primitives.tri_attention) = saved
+         primitives.tri_attention, transition.pair_transition) = saved
 
 
 def example_config(tri_att: bool = False, max_n_res: int = None):
@@ -1143,16 +1233,19 @@ def expected_launches(config, denoiser_calls: int):
     """Launch counts after `denoiser_calls` calls of the denoiser: each pair
     layer runs an outgoing and an incoming TriMul (project, contract,
     epilogue each) and, where the configuration has triangle attention, a
-    starting and an ending one; each structure layer of each block one IPA
-    core; the standalone contractions are on no path."""
-    from genie2_tpu_torch.ops import trimul
+    starting and an ending one, and one pair transition where the kernel
+    takes its widths (float32 runs); each structure layer of each block one
+    IPA core; the standalone contractions are on no path."""
+    from genie2_tpu_torch.ops import transition, trimul
 
-    pair = config.model["n_pair_transform_layer"] * denoiser_calls
-    structure = config.model["n_structure_layer"] * config.model["n_structure_block"] * denoiser_calls
+    m = config.model
+    pair = m["n_pair_transform_layer"] * denoiser_calls
+    structure = m["n_structure_layer"] * m["n_structure_block"] * denoiser_calls
     want = dict.fromkeys(trimul.LAUNCHES, 0)
     want.update(trimul_project=2 * pair, trimul_contract_out=pair, trimul_contract_in=pair,
                 trimul_epilogue=2 * pair, ipa_attention=structure,
-                tri_attention=2 * pair if config.model["include_tri_att"] else 0)
+                tri_attention=2 * pair if m["include_tri_att"] else 0,
+                pair_transition=pair if transition.takes(m["c_p"], m["pair_transition_n"] * m["c_p"]) else 0)
     return want
 
 
@@ -2775,10 +2868,11 @@ def split_epilogue(table):
     """A launch table with the TriMul epilogue's launches moved to its two
     stages, as a model split over a model axis launches them; their
     backward is the plain versions' gradient, recomputed, which launches
-    no backward kernel."""
+    no backward kernel. The pair transition splits its hidden channels
+    there and runs torch's products: no launch."""
     out = dict(table)
     out["trimul_epilogue_partial"] = out["trimul_epilogue_finish"] = out["trimul_epilogue"]
-    out["trimul_epilogue"] = out["trimul_epilogue_backward"] = 0
+    out["trimul_epilogue"] = out["trimul_epilogue_backward"] = out["pair_transition"] = 0
     return out
 
 
@@ -3458,6 +3552,8 @@ def kernels_line(state):
             entry["backward_kernel"] = state.get("project_backward")
         if name == "trimul_epilogue":
             entry["backward_kernel"] = state.get("epilogue_backward")
+        if name == "pair_transition":
+            entry["per_call"] = state.get("transition")
         if name in state.get("kernels_per_call", {}):  # the epilogue and its stages
             entry["kernels_per_call_bf16_weights"] = state["kernels_per_call"][name]
         rows = state.get("kernel_rows", {}).get(name)

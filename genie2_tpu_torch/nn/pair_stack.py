@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 import torch.nn.functional as F
 
 from genie2_tpu_torch.nn.primitives import Attention, Linear, dropout, layer_generator, layer_norm
-from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.ops import transition, trimul
 from genie2_tpu_torch.parallel.sequence_parallel import gather_seq_rows, reduce_seq_rows, row_slice
 from genie2_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 from genie2_tpu_torch.utils.profiling import spanned
@@ -190,9 +190,13 @@ class TriangleAttention(nn.Module):
 
 
 class PairTransition(nn.Module):
-    """AF2 Algorithm 15. Under tensor parallelism (`tp`) this rank's hidden
-    channels: `linear_1` by columns, `linear_2` by rows, its bias after the
-    reduction."""
+    """AF2 Algorithm 15. Float32 activations of the widths the kernel takes
+    (`transition.takes`: C = 128, a hidden width a multiple of 64) go
+    through ops/transition.py, one kernel launch a call on the card (the
+    plain version, these same operations, on the CPU); bf16 and other
+    widths run torch's products. Under tensor parallelism (`tp`) this
+    rank's hidden channels: `linear_1` by columns, `linear_2` by rows, its
+    bias after the reduction."""
 
     tp = None
 
@@ -210,6 +214,12 @@ class PairTransition(nn.Module):
 
     @spanned("pair_transition")
     def forward(self, z, mask):
+        """z [B,I,N,C], mask [B,I,N] (the pair mask of the rows) -> the
+        update before the residual."""
+        if self.tp is None and z.dtype == torch.float32 and transition.takes(z.shape[-1], self.tp_units()):
+            return transition.pair_transition(z, mask, self.layer_norm.weight, self.layer_norm.bias,
+                                              self.linear_1.weight, self.linear_1.bias, self.linear_2.weight,
+                                              self.linear_2.bias, self.layer_norm.eps)
         z = self.layer_norm(z)
         if self.tp is None:
             z = self.linear_2(torch.relu(self.linear_1(z)))

@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 
 SOURCES = ("trimul_project", "trimul_contract", "trimul_epilogue", "ipa_attention", "triangle_contract",
-           "tri_att_flash")
+           "tri_att_flash", "pair_transition")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

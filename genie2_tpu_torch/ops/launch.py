@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "triangle_multiply_nlayout": 0,
     "contract_cm_km": 0,
     "tri_attention": 0,
+    "pair_transition": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -741,3 +741,103 @@ def test_two_rank_training_step_matches_one_process(device):
             w = torch.cat([want_grads[n].flatten() for n in grads])
             assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
+
+
+# The pair transition (ops/transition.py): its products are 3xTF32 and its
+# sums run in another order than cuBLAS's float32 ones, so float32 results
+# agree to a few ulps of each sum (about 5e-6 of max |plain| measured), well
+# inside TOL's 1e-4.
+
+
+def _transition_inputs(device, gen, b, i, n_res, n):
+    """z [b, i, n_res, 128], a ragged pair mask of the rows (lengths n_res,
+    n_res - 7, ...) and the six weights in torch layout, hidden 128 n."""
+    c, h = 128, 128 * n
+
+    def r(*shape, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn(*shape, generator=gen, device=device)
+
+    z = r(b, i, n_res, c)
+    res = torch.stack([(torch.arange(n_res, device=device) < max(1, n_res - 7 * k)).float() for k in range(b)])
+    mask = res[:, :i, None] * res[:, None, :]
+    return z, mask, [r(c, scale=0.1, offset=1.0), r(c, scale=0.1), r(h, c, scale=c ** -0.5), r(h, scale=0.1),
+                     r(c, h, scale=h ** -0.5), r(c, scale=0.1)]
+
+
+@pytest.mark.parametrize("n", [4, 2])
+@pytest.mark.parametrize("b,i,n_res", [
+    (4, 256, 256), (16, 128, 128),  # the benchmark's cells: 262,144 rows, whole tiles of 128
+    (4, 75, 75),  # TDS's particles: 22,500 rows, the last tile ragged
+    (2, 48, 96),  # a row block of sequence parallelism
+])
+def test_pair_transition_matches_plain(device, b, i, n_res, n):
+    from genie2_tpu_torch.ops import transition
+
+    z, mask, w = _transition_inputs(device, torch.Generator(device=device).manual_seed(n_res + n), b, i, n_res, n)
+    trimul.reset_launch_counts()
+    with torch.no_grad():
+        got = transition.pair_transition(z, mask, *w)
+        torch.cuda.synchronize()
+        want = transition.pair_transition_plain(z, mask, *w)
+    assert trimul.LAUNCHES["pair_transition"] == 1
+    assert torch.isfinite(got).all()
+    _close(got, want, torch.float32)
+    assert not got[mask == 0].any()  # masked pairs are exactly zero
+
+
+def test_pair_transition_gradients_and_refusals(device):
+    """Under autograd the kernel's Function gives the plain version's
+    gradients of z and every weight (the plain gradient, recomputed, under
+    genie2:recompute.pair_transition); the wrapper refuses bf16, widths off
+    the kernel's and tensors of mismatched shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie2_tpu_torch.ops import transition
+
+    z, mask, w = _transition_inputs(device, torch.Generator(device=device).manual_seed(5), 2, 40, 40, 4)
+    leaves = [z.requires_grad_(True), *(t.requires_grad_(True) for t in w)]
+    cot = torch.randn(z.shape, generator=torch.Generator(device=device).manual_seed(6), device=device)
+    out = transition.pair_transition(z, mask, *w)
+    assert type(out.grad_fn).__name__ == "RecomputedBackward"
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = torch.autograd.grad(out, leaves, cot)
+    assert "genie2:recompute.pair_transition" in [e.name for e in prof.events()]
+    _grad_close(got, _grads_of(lambda: transition.pair_transition_plain(z, mask, *w), leaves, cot), torch.float32)
+    z, w = z.detach(), [t.detach() for t in w]
+    with pytest.raises(TypeError, match="float32"):
+        transition.pair_transition(z.bfloat16(), mask, *w)
+    with pytest.raises(ValueError, match="C = 64"):
+        transition.pair_transition(z[..., :64].contiguous(), mask, w[0][:64], w[1][:64], w[2][:, :64].contiguous(),
+                                   w[3], w[4][:64].contiguous(), w[5][:64])
+    with pytest.raises(ValueError, match="mask"):
+        transition.pair_transition(z, mask[:, :-1], *w)
+
+
+def test_pair_transition_launches_per_denoiser_call(device):
+    """A float32 denoiser at c_p 128 launches the transition once a pair
+    layer and call (5); a bf16 transition launches none."""
+    import numpy as np
+
+    from genie2_tpu_torch.config import Config
+    from genie2_tpu_torch.features import batchify, create_empty_features, to_device
+    from genie2_tpu_torch.geometry import Rigid, frenet_frames
+    from genie2_tpu_torch.nn import Denoiser
+
+    config = Config(overrides={"singleFeatureDimension": 64, "numStructureLayers": 1, "maximumNumResidues": 32})
+    model = Denoiser.from_config(config).to(device).eval()
+    feats = to_device(batchify([create_empty_features([32]) for _ in range(2)]), device)
+    trans = torch.as_tensor(np.random.default_rng(0).normal(size=(2, 32, 3)).astype(np.float32) * 8.0, device=device)
+    frames = Rigid(frenet_frames(trans, feats["chain_index"], feats["residue_mask"]), trans)
+    t = torch.tensor([500, 20], dtype=torch.int32, device=device)
+    assert config.model["n_pair_transform_layer"] == 5 and config.model["c_p"] == 128
+    with torch.no_grad():
+        for calls in (1, 2):
+            trimul.reset_launch_counts()
+            for _ in range(calls):
+                model(frames, t, feats)
+            assert trimul.LAUNCHES["pair_transition"] == 5 * calls
+        trimul.reset_launch_counts()
+        layer = model.pair_transform_net.net[0].pair_transition
+        p = torch.randn(2, 32, 32, 128, device=device)
+        layer.bfloat16()(p.bfloat16(), torch.ones(2, 32, 32, device=device, dtype=torch.bfloat16))
+    assert trimul.LAUNCHES["pair_transition"] == 0

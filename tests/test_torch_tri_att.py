@@ -343,4 +343,4 @@ def test_smoke_script_counts_triangle_attention():
     assert chip_smoke.expected_launches(on, 1000)["tri_attention"] == 10000
     assert chip_smoke.expected_launches(off, 1000)["tri_attention"] == 0
     assert chip_smoke.expected_launches(on, 1000)["trimul_project"] == chip_smoke.expected_launches(off, 1000)["trimul_project"]
-    assert [k["name"] for k in chip_smoke.KERNELS][-1] == "tri_attention" and len(chip_smoke.KERNELS) == 10
+    assert [k["name"] for k in chip_smoke.KERNELS][-1] == "tri_attention" and len(chip_smoke.KERNELS) == 11

@@ -421,7 +421,8 @@ def test_smoke_script_bounds_use_tensor_core_rates():
     # HGMMA in its library, or the device phase fails.
     assert set(chip_smoke.TENSOR_CORE) == {"trimul_project", "trimul_contract", "trimul_epilogue", "tri_attention",
                                            "triangle_multiply_cm", "triangle_multiply_nlayout", "contract_cm_km",
-                                           "ipa_attention", "trimul_epilogue_partial", "trimul_epilogue_finish"}
+                                           "ipa_attention", "trimul_epilogue_partial", "trimul_epilogue_finish",
+                                           "pair_transition"}
     assert set(chip_smoke.TENSOR_CORE) <= {k["name"] for k in chip_smoke.KERNELS}
     for name in ("trimul_contract", "trimul_epilogue"):
         for dtype, esize, want_ms in (("float32", 4, 0.060), ("bfloat16", 2, 0.030)):

@@ -75,6 +75,8 @@ FAMILIES = (
     ("trimul_epilogue", ("epilogue_kernel",)),
     ("ipa_attention", ("ipa_kernel",)),
     ("tri_attention", ("tri_att_kernel",)),
+    # The pair transition's kernel and the one that splits its weights.
+    ("pair_transition", ("transition_kernel", "prep_kernel")),
     ("eigh", ("syev", "cusolver", "jacobi", "eig")),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "dot")),
     ("softmax", ("softmax",)),
@@ -93,6 +95,7 @@ BACKWARD_SPANS = {
     "genie2:recompute.epilogue_cm": "bwd_recompute_epilogue",
     "genie2:recompute.ipa_attention": "bwd_recompute_ipa",
     "genie2:recompute.tri_attention": "bwd_recompute_tri_attention",
+    "genie2:recompute.pair_transition": "bwd_recompute_transition",
 }
 TRAIN_SPANS = dict(BACKWARD_SPANS, **{"genie2:grad_allreduce": "grad_allreduce"})
 
