@@ -80,9 +80,7 @@ Phases, in order; any failure exits non-zero:
   8. train     training through cli/train.py at the full width of
                configs/example.configuration (batch 4, fp32, remat and
                dropout on) on a corpus of 32 seeded random-walk PDB files
-               of length 192-256 written here, parsed by the C++ parser
-               (every file counted; each held against the numpy parser,
-               both parsers' host ms a file): 2 epochs (epoch checkpoints
+               of length 192-256 written here: 2 epochs (epoch checkpoints
                loaded back, resume_state, finite losses, exact launch
                counts of the forward, remat's second forward and the
                backward), then --resume to a third epoch; one training
@@ -282,6 +280,32 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    """Every counter of the program back to 0 (utils/profiling.py)."""
+    from genie2_tpu_torch.utils import profiling
+
+    profiling.reset()
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} since the last reset_counts(): the program's
+    `launch.<kernel>` counters, every kernel wrapper's module imported."""
+    from genie2_tpu_torch.ops import ipa, transition, tri_att, triangle, trimul  # noqa: F401, their counters
+    from genie2_tpu_torch.utils.profiling import counters
+
+    return {k[len("launch."):]: v for k, v in counters().items() if k.startswith("launch.")}
+
+
+def allreduce_bytes(axis: str) -> dict:
+    """{direction: bytes} all-reduced over the `axis` ("tp" or "seq")
+    group since the last reset_counts()."""
+    from genie2_tpu_torch.parallel import sequence_parallel, tensor_parallel  # noqa: F401, their counters
+    from genie2_tpu_torch.utils.profiling import counters
+
+    snap = counters()
+    return {d: snap[f"allreduce_bytes.{axis}.{d}"] for d in ("forward", "backward")}
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -540,7 +564,7 @@ def phase_kernels(state):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {k["name"]: {} for k in KERNELS}
     failed, split_records = [], []
-    trimul.reset_launch_counts()
+    reset_counts()
     for N, B in KERNEL_SHAPES:
         w32 = random_trimul_weights(C_P, H_MUL, gen, dev)
         # A padded tail, as the sampler's buckets have; TDS particles are
@@ -677,7 +701,7 @@ def phase_kernels(state):
         if not rec["ok"]:
             failed.append(f"trimul_epilogue_backward B={rec['B']} against its closed form: rel {rec['rel_err']:.3g}")
     state["kernel_main"] = results
-    state["kernel_phase_launches"] = dict(trimul.LAUNCHES)
+    state["kernel_phase_launches"] = launch_counts()
     for rec in split_records:
         emit({"phase": "kernels", **rec})
         if not rec["ok"]:
@@ -1236,12 +1260,12 @@ def expected_launches(config, denoiser_calls: int):
     starting and an ending one, and one pair transition where the kernel
     takes its widths (float32 runs); each structure layer of each block one
     IPA core; the standalone contractions are on no path."""
-    from genie2_tpu_torch.ops import transition, trimul
+    from genie2_tpu_torch.ops import transition
 
     m = config.model
     pair = m["n_pair_transform_layer"] * denoiser_calls
     structure = m["n_structure_layer"] * m["n_structure_block"] * denoiser_calls
-    want = dict.fromkeys(trimul.LAUNCHES, 0)
+    want = dict.fromkeys(launch_counts(), 0)
     want.update(trimul_project=2 * pair, trimul_contract_out=pair, trimul_contract_in=pair,
                 trimul_epilogue=2 * pair, ipa_attention=structure,
                 tri_attention=2 * pair if m["include_tri_att"] else 0,
@@ -1302,7 +1326,6 @@ def compare_denoiser_gradient(config, model, tri_att):
 
     from genie2_tpu_torch.features import batchify, create_empty_features, to_device
     from genie2_tpu_torch.geometry import Rigid, frenet_frames
-    from genie2_tpu_torch.ops import trimul
 
     dev = torch.device("cuda")
     L, B = 256, 2
@@ -1316,12 +1339,12 @@ def compare_denoiser_gradient(config, model, tri_att):
         z = model(Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x), t, feats)["z"]
         return torch.autograd.grad((z * r).sum(), x)[0]
 
-    trimul.reset_launch_counts()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     g_k = grad()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(trimul.LAUNCHES)
+    launches = launch_counts()
     ms_k = cuda_time_ms(grad, iters=3, warmup=1)
     with plain_kernels():
         g_p = grad()
@@ -1394,7 +1417,6 @@ def compare_denoiser(config, model, tri_att):
     plain version swapped in: z compared, launches counted, both timed."""
     import torch
 
-    from genie2_tpu_torch.ops import trimul
 
     L = 256
     frames, t, feats = denoiser_inputs(L)
@@ -1403,10 +1425,10 @@ def compare_denoiser(config, model, tri_att):
         return model(frames, t, feats)["z"]
 
     with torch.inference_mode():
-        trimul.reset_launch_counts()
+        reset_counts()
         z_k = run()
         torch.cuda.synchronize()
-        launches = dict(trimul.LAUNCHES)
+        launches = launch_counts()
         ms_k = cuda_time_ms(run, iters=5, warmup=1)
         with plain_kernels():
             z_p = run()
@@ -1460,14 +1482,13 @@ def drive(cli_main, argv):
     just after. Returns (the CLI's result, wall seconds, launch counts)."""
     import torch
 
-    from genie2_tpu_torch.ops import trimul
 
-    trimul.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = cli_main(argv)
     torch.cuda.synchronize()
-    return result, time.perf_counter() - t0, dict(trimul.LAUNCHES)
+    return result, time.perf_counter() - t0, launch_counts()
 
 
 def check_ca_file(path, length=None):
@@ -1882,7 +1903,6 @@ def compare_tds_steps(config, model, motif_dir):
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import batchify, create_empty_features, to_device
     from genie2_tpu_torch.nn.policy import apply_denoiser
-    from genie2_tpu_torch.ops import trimul
     from genie2_tpu_torch.sampling import (
         enumerate_motif_placements,
         load_motif_target,
@@ -1922,10 +1942,10 @@ def compare_tds_steps(config, model, motif_dir):
                                                      **kw)
             return trans, trace
 
-        trimul.reset_launch_counts()
+        reset_counts()
         twisted_k, trace_k = run(True)
         torch.cuda.synchronize()
-        launches = dict(trimul.LAUNCHES)
+        launches = launch_counts()
         twist_k = twisted_k - run(False)[0]
         ms_k = cuda_time_ms(lambda: run(True), iters=3, warmup=1)
         with plain_kernels():
@@ -2109,60 +2129,6 @@ def train_metrics(workdir):
     return train, val
 
 
-@contextlib.contextmanager
-def counting_native_parses():
-    """Count the files features/pdb_native.py parses inside the block."""
-    from genie2_tpu_torch.features import pdb_native
-
-    parse, calls = pdb_native.parse_pdb_fast, []
-
-    def counted(path):
-        calls.append(path)
-        return parse(path)
-
-    pdb_native.parse_pdb_fast = counted
-    try:
-        yield calls
-    finally:
-        pdb_native.parse_pdb_fast = parse
-
-
-def check_native_parser(state, datadir, native_parses):
-    """The training CLI's corpus went through the C++ parser, its default;
-    on each written structure the native and numpy parses agree (sequences
-    equal, coordinates within float32 rounding), and each parser's host ms
-    a file (the best of three passes over the corpus)."""
-    import numpy as np
-
-    from genie2_tpu_torch.features import parse_pdb
-    from genie2_tpu_torch.features.pdb_native import parse_pdb_fast
-
-    paths = sorted(os.path.join(datadir, f) for f in os.listdir(datadir))
-    agree, worst = True, 0.0
-    for path in paths:
-        (seqs, coords), (np_seqs, np_coords) = parse_pdb_fast(path), parse_pdb(path)
-        got, want = np.concatenate(coords), np.concatenate(np_coords)
-        worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
-        agree = agree and seqs == np_seqs and np.allclose(got, want, rtol=2 ** -23, atol=0)
-
-    def ms_per_file(parse):
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for path in paths:
-                parse(path)
-            best = min(best, time.perf_counter() - t0)
-        return best / len(paths) * 1e3
-
-    rec = {"phase": "train", "run": "pdb_parsers", "files": len(paths),
-           "cli_native_parses": len(native_parses), "agree": agree, "coord_max_rel_diff": worst,
-           "native_ms_per_file": ms_per_file(parse_pdb_fast), "numpy_ms_per_file": ms_per_file(parse_pdb),
-           "note": "host time on the card machine", "smi": state["smi"]}
-    emit(rec)
-    if not agree or sorted(native_parses) != paths:
-        raise PhaseFailed(f"train: native PDB parser: {rec}")
-
-
 def phase_train(state):
     """Training at full width through cli/train.py, then one step held
     kernels against plain, a bf16 step, and the step's times and memory."""
@@ -2185,10 +2151,8 @@ def phase_train(state):
     per_epoch = n_train // config.training["batch_size"]
 
     torch.cuda.reset_peak_memory_stats()
-    with counting_native_parses() as native_parses:
-        trainer, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda"])
+    trainer, seconds, launches = drive(train.main, ["-c", cfg, "--device", "cuda"])
     peak = torch.cuda.max_memory_allocated()
-    check_native_parser(state, datadir, native_parses)
     records, val = train_metrics(trainer.workdir)
     steps = trainer.state.step
     losses = [records[s]["weighted_loss"] for s in sorted(records)]
@@ -2294,7 +2258,6 @@ def compare_train_step(state, config, trainer):
 
     import torch
 
-    from genie2_tpu_torch.ops import trimul
     from genie2_tpu_torch.train import make_train_step
 
     train_state, feats, inject = _train_setup(config, trainer_dataset(trainer, config))
@@ -2302,12 +2265,12 @@ def compare_train_step(state, config, trainer):
     bf16_state = copy.deepcopy(train_state)
     step = make_train_step(trainer.schedule, config.training["condition_loss_weight"])
 
-    trimul.reset_launch_counts()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     m_k = step(train_state, feats, **inject)
     torch.cuda.synchronize()
     peak_remat = torch.cuda.max_memory_allocated()
-    launches = dict(trimul.LAUNCHES)
+    launches = launch_counts()
     g_k = torch.cat([p.grad.flatten() for p in train_state.model.parameters()])
     with plain_kernels():
         m_p = step(plain_state, feats, **inject)
@@ -2451,7 +2414,6 @@ def parallel_rank(rank, plan):
     from genie2_tpu_torch.config import Config
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import to_device
-    from genie2_tpu_torch.ops import trimul
     from genie2_tpu_torch.parallel import create_mesh, shard_batch
     from genie2_tpu_torch.parallel.mesh import average_gradients
     from genie2_tpu_torch.sampling import base
@@ -2473,7 +2435,7 @@ def parallel_rank(rank, plan):
     step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=dev),
                            config.training["condition_loss_weight"], mesh=mesh)
     feats = to_device(shard_batch(plan["batch"], mesh), dev)
-    trimul.reset_launch_counts()
+    reset_counts()
     metrics, times, grads = [], [], []
     for i in range(PARALLEL_TRAIN_STEPS):
         rng, dropout_seed = step_randomness(SEED, 0, i, dev)
@@ -2485,7 +2447,7 @@ def parallel_rank(rank, plan):
         metrics.append({k: float(v) for k, v in m.items()})
         if rank == 0:
             grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]).cpu())
-    launches = dict(trimul.LAUNCHES)
+    launches = launch_counts()
     params = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
     # The step's gradient all-reduce (the span genie2:grad_allreduce) again, timed
     # alone on the last step's gradients (the same on every rank, so their
@@ -2526,12 +2488,12 @@ def parallel_rank(rank, plan):
     try:
         for run, argv in plan["clis"].items():
             samples.clear()
-            trimul.reset_launch_counts()
+            reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             result = mains[run.split("_")[0]](argv + flags)
             torch.cuda.synchronize()
-            out[run] = {"seconds": time.perf_counter() - t0, "launches": dict(trimul.LAUNCHES),
+            out[run] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
                         "coords": np.concatenate(samples)}
             if run == "tds":
                 out[run].update(placement=result["placement"], ess_trace=result["ess_trace"],
@@ -2614,14 +2576,13 @@ def torchrun_train(argv):
     import torch.distributed as dist
 
     from genie2_tpu_torch.cli import train
-    from genie2_tpu_torch.ops import trimul
 
     runs = []
     for cfg, extra in ((argv[1], []), (argv[2], ["--resume"])):
-        trimul.reset_launch_counts()
+        reset_counts()
         trainer = train.main(["-c", cfg, "--device", "cuda", "--distributed", *extra])
         torch.cuda.synchronize()
-        runs.append({"flags": extra, "launches": dict(trimul.LAUNCHES), "steps": trainer.state.step,
+        runs.append({"flags": extra, "launches": launch_counts(), "steps": trainer.state.step,
                      "version": trainer.version, "world": dist.get_world_size(), "backend": str(dist.get_backend()),
                      "device": str(trainer.device), "mesh": trainer.mesh is not None})
     with open(argv[0], "w") as fh:
@@ -2882,21 +2843,16 @@ def tp_forward(model, inputs, n=3, keep_p=False):
     of p kept), then the wall ms of each of `n` more, synchronised."""
     import torch
 
-    from genie2_tpu_torch.ops import trimul
-    from genie2_tpu_torch.parallel import sequence_parallel as sp
-    from genie2_tpu_torch.parallel import tensor_parallel as tp
 
     with torch.inference_mode():
-        trimul.reset_launch_counts()
-        tp.reset_volume()
-        sp.reset_volume()
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         out = model(*inputs)
         torch.cuda.synchronize()
-        rec = {"z": out["z"].cpu(), "launches": dict(trimul.LAUNCHES), "volume": dict(tp.VOLUME),
-               "seq_volume": dict(sp.VOLUME), "peak_bytes": torch.cuda.max_memory_allocated(),
+        rec = {"z": out["z"].cpu(), "launches": launch_counts(), "volume": allreduce_bytes("tp"),
+               "seq_volume": allreduce_bytes("seq"), "peak_bytes": torch.cuda.max_memory_allocated(),
                "peak_bytes_over_start": torch.cuda.max_memory_allocated() - base, "ms": []}
         if keep_p:
             rec["p"] = out["p"].cpu()
@@ -2925,9 +2881,7 @@ def tp_rank(rank, plan):
     from genie2_tpu_torch.config import Config
     from genie2_tpu_torch.diffusion import Schedule
     from genie2_tpu_torch.features import to_device
-    from genie2_tpu_torch.ops import trimul
     from genie2_tpu_torch.parallel import create_mesh, shard_batch
-    from genie2_tpu_torch.parallel import sequence_parallel as sp
     from genie2_tpu_torch.parallel import tensor_parallel as tp
     from genie2_tpu_torch.sampling import base
     from genie2_tpu_torch.train import create_train_state, make_train_step, step_randomness
@@ -2960,9 +2914,7 @@ def tp_rank(rank, plan):
     step = make_train_step(Schedule.create(config.diffusion["n_timestep"], device=dev),
                            config.training["condition_loss_weight"], mesh=mesh)
     feats = to_device(shard_batch(plan["batch"], mesh), dev)
-    trimul.reset_launch_counts()
-    tp.reset_volume()
-    sp.reset_volume()
+    reset_counts()
     metrics, times, grads, before = [], [], [], []
     for i in range(plan["train_steps"]):
         full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
@@ -2978,7 +2930,7 @@ def tp_rank(rank, plan):
         full = tp.gather_state_dict({n: p.grad for n, p in model.named_parameters()}, model_plan)
         if rank == 0:
             grads.append(torch.cat([full[n].flatten() for n in names]).cpu())
-    launches, volume, seq_volume = dict(trimul.LAUNCHES), dict(tp.VOLUME), dict(sp.VOLUME)
+    launches, volume, seq_volume = launch_counts(), allreduce_bytes("tp"), allreduce_bytes("seq")
     full = tp.gather_state_dict({n: p.detach() for n, p in model.named_parameters()}, model_plan)
     params = torch.cat([full[n].flatten() for n in names]).double()
     local = torch.cat([p.detach().flatten() for p in model.parameters()]).double()
@@ -2992,9 +2944,9 @@ def tp_rank(rank, plan):
 
     if "tds_plan" in plan:
         t0 = time.perf_counter()
-        trimul.reset_launch_counts()
+        reset_counts()
         out["tds"] = tds_segment(mesh, plan["tds_plan"], 1)
-        out["tds"].update(seconds=time.perf_counter() - t0, launches=dict(trimul.LAUNCHES))
+        out["tds"].update(seconds=time.perf_counter() - t0, launches=launch_counts())
 
     if "sample_argv" in plan:
         samples = []
@@ -3007,27 +2959,25 @@ def tp_rank(rank, plan):
 
         base.BaseSampler.sample = capture
         try:
-            trimul.reset_launch_counts()
-            tp.reset_volume()
-            sp.reset_volume()
+            reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sample_unconditional.main(plan["sample_argv"] + ["--num_devices", str(mesh.world_size), "--mesh_model",
                                                              str(mesh.n_model), "--mesh_seq", str(n_seq)])
             torch.cuda.synchronize()
-            out["sample"] = {"seconds": time.perf_counter() - t0, "launches": dict(trimul.LAUNCHES),
-                             "volume": dict(tp.VOLUME), "seq_volume": dict(sp.VOLUME),
+            out["sample"] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                             "volume": allreduce_bytes("tp"), "seq_volume": allreduce_bytes("seq"),
                              "coords": np.concatenate(samples)}
         finally:
             base.BaseSampler.sample = sample
 
     if "train_cli_config" in plan:
-        trimul.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         trainer = train.main(["-c", plan["train_cli_config"], "--device", "cuda"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(trimul.LAUNCHES)
+        launches = launch_counts()
         rec = tp_forward(trainer.model.eval(), denoiser_inputs(), n=0)
         out["train_cli"] = {"seconds": seconds, "steps": trainer.state.step, "version": trainer.version,
                             "launches": launches, "z": rec["z"],

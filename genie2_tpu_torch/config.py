@@ -4,8 +4,9 @@ A whitespace-separated `key value` text file with camelCase keys, parsed
 into five groups (io / diffusion / model / training / optimization) with the
 reference's defaults, plus a `tpu` group of precision / kernel knobs. Same
 keys and defaults as `genie2_tpu.config` so one configuration file drives
-both packages; `usePallas` and the mesh keys are accepted and ignored here
-(the port always routes CUDA tensors through its kernels).
+both packages. A key the port does not read, such as `usePallas` (the port
+always routes CUDA tensors through its kernels) or `scanSteps`, is
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -115,7 +116,6 @@ class Config:
             "save_state_every_n_step": int(c.get("saveStateEverySteps", 0)),
             "async_checkpoint": bool(c.get("asyncCheckpoint", False)),
             "prefetch_depth": int(c.get("prefetchDepth", 2)),
-            "scan_steps": int(c.get("scanSteps", 1)),
         }
         self.optimization = {
             "lr": float(c.get("learningRate", 1e-4)),
@@ -126,7 +126,6 @@ class Config:
             # rot_to_quat extraction in the pair featurizer: "closed" or
             # "eigh"; raw torch checkpoints select "eigh" (utils/model_io.py).
             "rot_to_quat_method": c.get("rotToQuatMethod", "closed"),
-            "use_pallas": bool(c.get("usePallas", False)),
             "tri_att_chunk": int(c.get("triangleAttentionChunk", 0)),
             "mesh_data": int(c.get("meshData", -1)),
             "mesh_seq": int(c.get("meshSeq", 1)),

@@ -41,19 +41,17 @@ def summarize_pdb(filepath: str):
     return {"num_residues": int(np.sum([len(s) for s in seqs])), "num_chains": len(seqs)}
 
 
-def features_from_pdb(filepath: str, use_native: bool = True) -> Features:
+def features_from_pdb(filepath: str) -> Features:
     """PDB file -> feature dict with one-hot aatype and mean-centred CA
     coordinates (float64), as genie2_tpu's `features_from_pdb` builds it:
-    through the C++ parser (`features/pdb_native.py`, coordinates read as
-    float32) by default, through the numpy parser with `use_native=False`."""
-    if use_native:
-        from genie2_tpu_torch.features.pdb_native import parse_pdb_fast
-
-        seqs, coords = parse_pdb_fast(filepath)
-    else:
-        seqs, coords = parse_pdb(filepath)
+    the coordinates are rounded to float32 before they are centred, as
+    genie2_tpu's default reader reads them. An 8-column field with three
+    decimals rounds to the float32 that C's `strtof` gives it: such a value
+    is never near enough a float32 midpoint for its float64 rounding to
+    move it onto one."""
+    seqs, coords = parse_pdb(filepath)
     features = create_empty_features([len(s) for s in seqs])
-    positions = np.concatenate(coords)
+    positions = np.concatenate(coords).astype(np.float32).astype(np.float64)
     features["aatype"] = np.eye(NUM_RESTYPES)[np.concatenate(seqs)].astype(int)
     features["atom_positions"] = (positions - positions.mean(axis=0, keepdims=True)).astype(float)
     return features

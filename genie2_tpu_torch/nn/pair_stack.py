@@ -190,13 +190,11 @@ class TriangleAttention(nn.Module):
 
 
 class PairTransition(nn.Module):
-    """AF2 Algorithm 15. Float32 activations of the widths the kernel takes
-    (`transition.takes`: C = 128, a hidden width a multiple of 64) go
-    through ops/transition.py, one kernel launch a call on the card (the
-    plain version, these same operations, on the CPU); bf16 and other
-    widths run torch's products. Under tensor parallelism (`tp`) this
-    rank's hidden channels: `linear_1` by columns, `linear_2` by rows, its
-    bias after the reduction."""
+    """AF2 Algorithm 15, through ops/transition.py: one kernel launch a
+    call for float32 activations on the card at the widths the kernel
+    takes, the plain version of these same operations anywhere else. Under
+    tensor parallelism (`tp`) this rank's hidden channels: `linear_1` by
+    columns, `linear_2` by rows, its bias after the reduction."""
 
     tp = None
 
@@ -216,16 +214,12 @@ class PairTransition(nn.Module):
     def forward(self, z, mask):
         """z [B,I,N,C], mask [B,I,N] (the pair mask of the rows) -> the
         update before the residual."""
-        if self.tp is None and z.dtype == torch.float32 and transition.takes(z.shape[-1], self.tp_units()):
+        if self.tp is None:
             return transition.pair_transition(z, mask, self.layer_norm.weight, self.layer_norm.bias,
                                               self.linear_1.weight, self.linear_1.bias, self.linear_2.weight,
                                               self.linear_2.bias, self.layer_norm.eps)
-        z = self.layer_norm(z)
-        if self.tp is None:
-            z = self.linear_2(torch.relu(self.linear_1(z)))
-        else:
-            h = torch.relu(self.linear_1(copy_to_model(z, self.tp)))
-            z = reduce_from_model(F.linear(h, self.linear_2.weight), self.tp) + self.linear_2.bias
+        h = torch.relu(self.linear_1(copy_to_model(self.layer_norm(z), self.tp)))
+        z = reduce_from_model(F.linear(h, self.linear_2.weight), self.tp) + self.linear_2.bias
         return z * mask[..., None].to(z.dtype)
 
 

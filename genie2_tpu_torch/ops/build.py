@@ -5,9 +5,7 @@ for `sm_90a` into its own `build/kernels/<name>-<hash>.so` next to the
 package; the hash covers the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. All sources compile in
 parallel, one `nvcc` each. There is no fallback: a missing `nvcc` or a
-failed build raises. The host C++ parser (`features/pdb_native.py`)
-is keyed and compiled by the same `keyed_library`, `start_compile` and
-`finish_compile`, with g++.
+failed build raises. Every `csrc/*.cu` is a kernel source (`SOURCES`).
 """
 
 from __future__ import annotations
@@ -25,8 +23,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 
-SOURCES = ("trimul_project", "trimul_contract", "trimul_epilogue", "ipa_attention", "triangle_contract",
-           "tri_att_flash", "pair_transition")
+SOURCES = tuple(sorted(f[:-len(".cu")] for f in os.listdir(CSRC_DIR) if f.endswith(".cu")))
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,40 +46,16 @@ def find_nvcc() -> str:
     return found
 
 
-def keyed_library(build_dir: str, name: str, flags, files) -> str:
-    """`build_dir/<name>-<hash>.so`, the hash over the flags and the bytes of
-    `files`: an edited source or flag gets a library of its own."""
-    h = hashlib.sha1(" ".join(flags).encode())
-    for path in files:
-        with open(path, "rb") as f:
-            h.update(f.read())
-    return os.path.join(build_dir, f"{name}-{h.hexdigest()[:12]}.so")
-
-
-def start_compile(cmd, source: str, target: str):
-    """Start `cmd -o <tmp> source` for the library `target`, into a file of
-    this process and thread that `finish_compile` moves into place, so that
-    a reader never sees half a library. Returns (process, tmp)."""
-    os.makedirs(os.path.dirname(target), exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.Popen([*cmd, "-o", tmp, source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, tmp
-
-
-def finish_compile(proc, tmp: str, target: str):
-    """Wait for a `start_compile`; on success move its library to `target`.
-    Returns (exit code, the compiler's output)."""
-    out, _ = proc.communicate()
-    if proc.returncode == 0:
-        os.replace(tmp, target)
-    return proc.returncode, out.decode(errors="replace")
-
-
 def library_path(name: str) -> str:
-    """The path of csrc/<name>.cu's library, keyed by the source, the
-    shared headers and the flags."""
+    """`build/kernels/<name>-<hash>.so`, the hash over the flags and the
+    bytes of csrc/<name>.cu and the shared headers: an edited source or
+    flag gets a library of its own."""
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    return keyed_library(BUILD_DIR, name, NVCC_FLAGS, [os.path.join(CSRC_DIR, f) for f in [f"{name}.cu", *headers]])
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(verbose: bool = False) -> Dict[str, float]:
@@ -92,16 +65,25 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
     if not pending:
         return {}
     nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
     start = time.perf_counter()
-    procs = {name: start_compile([nvcc, *NVCC_FLAGS], os.path.join(CSRC_DIR, f"{name}.cu"), target)
-             for name, target in pending.items()}
+    # Each library is written to a file of this process and thread and
+    # moved into place once whole, so that a reader never sees half of one.
+    procs = {}
+    for name, target in pending.items():
+        tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+        procs[name] = (subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
     seconds, failures = {}, []
     for name, (proc, tmp) in procs.items():
-        code, text = finish_compile(proc, tmp, pending[name])
+        out, _ = proc.communicate()
+        text = out.decode(errors="replace")
         seconds[name] = time.perf_counter() - start
-        if code != 0:
-            failures.append(f"{name}.cu (exit {code}):\n{text}")
-        elif verbose:
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, pending[name])
+        if verbose:
             print(f"[build] {name}.cu in {seconds[name]:.1f} s\n{text}", flush=True)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

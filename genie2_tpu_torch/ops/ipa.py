@@ -44,7 +44,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, Recomputed, launch, on_cpu, records_grad
+from genie2_tpu_torch.ops.launch import DTYPE_CODES, Recomputed, launch, on_cpu, records_grad
+from genie2_tpu_torch.utils.profiling import count
 
 # Limits and tiles of csrc/ipa_attention.cu: CONSUMERS * ITEMS o / o_pt
 # items a block, CONSUMER_WARPS * UNITS o_pair tiles of 8 channels, TJ keys a
@@ -166,6 +167,9 @@ def kernel_arguments(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask):
     return inputs, strides, (B, N, H, C, PQ, PV, CZ)
 
 
+count("launch.ipa_attention", 0)
+
+
 def ipa_attention(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, mask, inf: float = 1e5) -> Outputs:
     """The kernel for tensors on the card, the plain version for tensors
     on the CPU; arguments and results as `ipa_attention_plain`. The kernel
@@ -227,6 +231,6 @@ def _ipa_attention_forward(q, k, v, q_pts, k_pts, v_pts, bias, z, head_weights, 
         ptrs, c_strides, c_dims, float(inf), point_scale(PQ), DTYPE_CODES[z.dtype], MASK_DTYPES[mask.dtype],
         DTYPE_CODES[head_weights.dtype], tensors=tensors,
     )
-    LAUNCHES["ipa_attention"] += 1
+    count("launch.ipa_attention")
     return o, o_pt, o_pair
 

@@ -1,10 +1,10 @@
-"""What the kernel wrappers of `ops/` share: the launch counters, the
-device rule, the activation checks, the gradient rules and the ctypes launch
-itself.
+"""What the kernel wrappers of `ops/` share: the device rule, the
+activation checks, the gradient rules and the ctypes launch itself.
 
 A wrapper takes its plain version for a tensor on the CPU and launches its
-kernel for a tensor on the card; anything else raises. It adds one to its
-entry of `LAUNCHES` where it launches, and nowhere else. Where autograd
+kernel for a tensor on the card; anything else raises. It counts
+`launch.<kernel>` (utils/profiling.py:count) where it launches, and nowhere
+else; its module names that counter at 0 when it is imported. Where autograd
 records (grad mode on and an input that requires grad), a wrapper on the
 card goes through its `torch.autograd.Function`: the forward is the same
 launch, the backward either kernels (the TriMul contraction; the TriMul
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -28,30 +28,7 @@ from torch.autograd.function import once_differentiable
 from genie2_tpu_torch.ops import build
 from genie2_tpu_torch.utils.profiling import span
 
-# Kernel launches on the card, counted by the wrappers.
-LAUNCHES: Dict[str, int] = {
-    "trimul_project": 0,
-    "trimul_project_backward": 0,
-    "trimul_contract_out": 0,
-    "trimul_contract_in": 0,
-    "trimul_epilogue": 0,
-    "trimul_epilogue_backward": 0,
-    "trimul_epilogue_partial": 0,
-    "trimul_epilogue_finish": 0,
-    "ipa_attention": 0,
-    "triangle_multiply_cm": 0,
-    "triangle_multiply_nlayout": 0,
-    "contract_cm_km": 0,
-    "tri_attention": 0,
-    "pair_transition": 0,
-}
-
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def on_cpu(t: torch.Tensor) -> bool:

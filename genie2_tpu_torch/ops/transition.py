@@ -7,16 +7,17 @@ over the pair representation z [..., C] and its pair mask [...] (rows of
 any leading shape: [B, N, N], or a row block [B, I, N] under sequence
 parallelism). csrc/pair_transition.cu computes it with the hidden width H
 kept on the SM; `pair_transition_plain` is the same function in plain
-torch, the module's own operations, so on the CPU the module is unchanged.
+torch, the module's own operations.
 
 No TPU kernel is replaced: genie2_tpu leaves the transition to XLA. The
 kernel exists because cuBLAS runs float32 products without tensor cores;
-it takes float32 with C = 128 and H a multiple of 64 (`takes`), and the
-module keeps torch's products for anything else (nn/pair_stack.py). Its
-products are 3xTF32 (csrc/tensor_core.cuh): within a few float32 ulps a
-sum of the plain version's cuBLAS products.
+it takes float32 with C = 128 and H a multiple of 64 (`takes`).
+`pair_transition` launches it for such z on the card and returns the plain
+version for anything else (the CPU, bf16, other widths), which autograd
+differentiates as it is. Its products are 3xTF32 (csrc/tensor_core.cuh):
+within a few float32 ulps a sum of the plain version's cuBLAS products.
 
-Under autograd the wrapper goes through `Recomputed` (ops/launch.py): the
+Under autograd the kernel goes through `Recomputed` (ops/launch.py): the
 kernel forward and the gradient of `pair_transition_plain`, recomputed
 inside the span `recompute.pair_transition`.
 """
@@ -30,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from genie2_tpu_torch.nn.primitives import LN_EPS
-from genie2_tpu_torch.ops.launch import LAUNCHES, Recomputed, launch, on_cpu, records_grad
+from genie2_tpu_torch.ops.launch import Recomputed, launch, on_cpu, records_grad
+from genie2_tpu_torch.utils.profiling import count
 
 CHANNELS = 128  # csrc/pair_transition.cu's C
 HIDDEN_CHUNK = 64  # its hidden chunk: H a positive multiple of it
@@ -51,28 +53,27 @@ def pair_transition_plain(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps: float = LN_E
     return F.linear(h, w2, b2) * mask[..., None].to(z.dtype)
 
 
+count("launch.pair_transition", 0)
+
+
 def pair_transition(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps: float = LN_EPS) -> torch.Tensor:
-    """The kernel for tensors on the card, the plain version for tensors on
-    the CPU; arguments and result as `pair_transition_plain`."""
+    """The kernel for float32 z on the card of widths it takes, the plain
+    version for anything else; arguments and result as
+    `pair_transition_plain`."""
     args = (z, mask, ln_w, ln_b, w1, b1, w2, b2)
-    if records_grad(args) and not on_cpu(z):
-        return Recomputed.apply(functools.partial(_pair_transition_forward, eps=eps),
+    if on_cpu(z) or z.dtype != torch.float32 or not takes(z.shape[-1], w1.shape[0]):
+        return pair_transition_plain(*args, eps=eps)
+    if records_grad(args):
+        return Recomputed.apply(functools.partial(_pair_transition_kernel, eps=eps),
                                 functools.partial(pair_transition_plain, eps=eps), *args)
-    return _pair_transition_forward(*args, eps=eps)
+    return _pair_transition_kernel(*args, eps=eps)
 
 
-def _pair_transition_forward(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
-    """The kernel for tensors on the card (no graph), the plain version for
-    tensors on the CPU."""
-    if on_cpu(z):
-        return pair_transition_plain(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps)
-    if z.dtype != torch.float32:
-        raise TypeError(f"pair_transition: the kernel takes float32, not {z.dtype}")
+def _pair_transition_kernel(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps: float) -> torch.Tensor:
+    """One launch of the kernel (no graph) for float32 z on the card, of
+    widths it takes."""
     z = z.contiguous()
     C, H = z.shape[-1], w1.shape[0]
-    if not takes(C, H):
-        raise ValueError(f"pair_transition: C = {C} and H = {H}; the kernel takes C = {CHANNELS} and H a positive "
-                         f"multiple of {HIDDEN_CHUNK}")
     shapes = {"mask": (mask, z.shape[:-1]), "ln_w": (ln_w, (C,)), "ln_b": (ln_b, (C,)), "w1": (w1, (H, C)),
               "b1": (b1, (H,)), "w2": (w2, (C, H)), "b2": (b2, (C,))}
     for name, (t, shape) in shapes.items():
@@ -88,5 +89,5 @@ def _pair_transition_forward(z, mask, ln_w, ln_b, w1, b1, w2, b2, eps: float) ->
         raise ValueError("pair_transition: the kernel needs z and out 16-byte and b1, b2 8-byte aligned")
     launch("pair_transition", "pair_transition", _ARGTYPES, z.device,
            z, mask, ln_w, ln_b, w1, b1, w2, b2, images, out, z.numel() // C, H, float(eps))
-    LAUNCHES["pair_transition"] += 1
+    count("launch.pair_transition")
     return out

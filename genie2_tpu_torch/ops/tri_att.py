@@ -39,7 +39,8 @@ import math
 
 import torch
 
-from genie2_tpu_torch.ops.launch import DTYPE_CODES, LAUNCHES, Recomputed, check_activation, launch, on_cpu, records_grad
+from genie2_tpu_torch.ops.launch import DTYPE_CODES, Recomputed, check_activation, launch, on_cpu, records_grad
+from genie2_tpu_torch.utils.profiling import count
 
 MAX_HEAD_WIDTH = 64  # csrc/tri_att_flash.cu keeps a query's c accumulators in registers
 
@@ -66,6 +67,9 @@ def tri_attention_plain(q, k, v, tb, mask, inf: float = 1e9, row_chunk: int = 0)
     else:
         o = rows(0, n_row)
     return o.to(q.dtype)
+
+
+count("launch.tri_attention", 0)
 
 
 def tri_attention(q, k, v, tb, mask, inf: float = 1e9, row_chunk: int = 0) -> torch.Tensor:
@@ -109,6 +113,6 @@ def _tri_attention_forward(q, k, v, tb, mask, inf: float, row_chunk: int) -> tor
         q, k, v, tb, mask, out,
         B, I, JQ, JK, H, c, 1.0 / math.sqrt(c), float(inf), DTYPE_CODES[q.dtype],
     )
-    LAUNCHES["tri_attention"] += 1
+    count("launch.tri_attention")
     return out
 

@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from genie2_tpu_torch.ops.launch import LAUNCHES, check_activation, on_cpu
+from genie2_tpu_torch.ops.launch import check_activation, on_cpu
+from genie2_tpu_torch.utils.profiling import count
 from genie2_tpu_torch.ops.trimul import launch_triangle_contract
 
 LAYOUTS = ("cm", "nlayout")
@@ -32,6 +33,10 @@ def triangle_multiply_reference(a: torch.Tensor, b: torch.Tensor, outgoing: bool
     af, bf = a.float(), b.float()
     eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
     return torch.einsum(eq, af, bf).to(a.dtype).contiguous()
+
+
+count("launch.triangle_multiply_cm", 0)
+count("launch.triangle_multiply_nlayout", 0)
 
 
 def triangle_multiply(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True, layout: str = "cm") -> torch.Tensor:
@@ -52,7 +57,7 @@ def triangle_multiply(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True, l
         # (batch, channel, row, k) of a[b,i,k,c] (outgoing) or a[b,k,i,c].
         operand = (s0, s3, s1, s2) if outgoing else (s0, s3, s2, s1)
         launch_triangle_contract(a, b, out, (B, C, N), operand, operand, (s0, s3, s1, s2), variant=2)
-        LAUNCHES["triangle_multiply_nlayout"] += 1
+        count("launch.triangle_multiply_nlayout")
         return out
 
     perm = (0, 3, 1, 2) if outgoing else (0, 3, 2, 1)  # -> [b, c, row, k]
@@ -62,5 +67,5 @@ def triangle_multiply(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True, l
     # would store 4 bytes to every 32-byte sector it touches.
     out_cm = torch.empty_like(a_cm)
     launch_triangle_contract(a_cm, b_cm, out_cm, (B, C, N), a_cm.stride(), b_cm.stride(), out_cm.stride(), variant=0)
-    LAUNCHES["triangle_multiply_cm"] += 1
+    count("launch.triangle_multiply_cm")
     return out_cm.permute(0, 2, 3, 1).contiguous()

@@ -83,19 +83,15 @@ from typing import Dict, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-# LAUNCHES and reset_launch_counts are re-exported: callers read and reset
-# every kernel's counter through this module.
 from genie2_tpu_torch.ops.launch import (
     DTYPE_CODES as _DTYPE_CODES,
-    LAUNCHES,
     check_activation as _check_activation,
     launch,
     on_cpu as _on_cpu,
     Recomputed,
     records_grad,
-    reset_launch_counts,
 )
-from genie2_tpu_torch.utils.profiling import spanned
+from genie2_tpu_torch.utils.profiling import count, spanned
 
 LN_EPS = 1e-6
 
@@ -394,6 +390,9 @@ _BACKWARD_MAX_HIDDEN = 256
 _BACKWARD_MAX_OUT = 256
 
 
+count("launch.trimul_project", 0)
+
+
 def project_gated_cm(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, col_mask: torch.Tensor = None):
     """z [B,I,N,C], res_mask [B,I] (the rows' mask) and col_mask [B,N]
     (the columns'; default res_mask, I = N) -> (a, b) each [B,H,I,N]
@@ -432,8 +431,11 @@ def _project_gated_cm_forward(z: torch.Tensor, res_mask: torch.Tensor, w: Weight
     params, pcode = _params([w[k] for k in PROJECT_PARAMS], w["w_ap"], dev)
     _launch("trimul_project", dev, z, _f32(res_mask, dev), _f32(col_mask, dev), *params, a, b, B, I, N, C, H,
             _DTYPE_CODES[z.dtype], pcode)
-    LAUNCHES["trimul_project"] += 1
+    count("launch.trimul_project")
     return a, b
+
+
+count("launch.trimul_project_backward", 0)
 
 
 def project_gated_cm_backward(z: torch.Tensor, res_mask: torch.Tensor, w: Weights, da: torch.Tensor,
@@ -465,7 +467,7 @@ def project_gated_cm_backward(z: torch.Tensor, res_mask: torch.Tensor, w: Weight
         sums = torch.empty(4 * H * C + 4 * H + 2 * C, dtype=torch.float32, device=dev)
     _launch("trimul_project_backward", dev, z, _f32(res_mask, dev), _f32(col_mask, dev), *params, da, db, dz, part,
             sums, B, I, N, C, H, _DTYPE_CODES[z.dtype], pcode, source="trimul_project")
-    LAUNCHES["trimul_project_backward"] += 1
+    count("launch.trimul_project_backward")
     if not weight_grads:
         return dz, None
     dw, dbias, dln = sums.split([4 * H * C, 4 * H, 2 * C])
@@ -473,6 +475,10 @@ def project_gated_cm_backward(z: torch.Tensor, res_mask: torch.Tensor, w: Weight
     grads.update(zip(("b_ap", "b_ag", "b_bp", "b_bg"), dbias.view(4, H)))
     grads.update(ln_in_scale=dln[:C], ln_in_bias=dln[C:])
     return dz, {k: grads[k].to(w[k].dtype) for k in PROJECT_PARAMS}
+
+
+count("launch.trimul_contract_out", 0)
+count("launch.trimul_contract_in", 0)
 
 
 def contract_cm(a: torch.Tensor, b: torch.Tensor, outgoing: bool = True) -> torch.Tensor:
@@ -494,8 +500,11 @@ def _contract_cm_forward(a: torch.Tensor, b: torch.Tensor, outgoing: bool) -> to
         raise ValueError(f"contract: a {tuple(a.shape)} {a.dtype}, b {tuple(b.shape)} {b.dtype}")
     out = torch.empty((B, H, I, J), dtype=a.dtype, device=a.device)
     _launch("trimul_contract", a.device, a, b, out, B * H, I, J, K, int(outgoing), _DTYPE_CODES[a.dtype])
-    LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] += 1
+    count("launch.trimul_contract_out" if outgoing else "launch.trimul_contract_in")
     return out
+
+
+count("launch.contract_cm_km", 0)
 
 
 def contract_cm_km(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
@@ -512,8 +521,11 @@ def contract_cm_km(a: torch.Tensor, b_km: torch.Tensor) -> torch.Tensor:
     sb, sh, s2, s3 = b_km.stride()
     dims = (B, H, I) if I == J == K else (B, H, I, J, K)
     launch_triangle_contract(a, b_km, out, dims, a.stride(), (sb, sh, s3, s2), out.stride(), variant=1)
-    LAUNCHES["contract_cm_km"] += 1
+    count("launch.contract_cm_km")
     return out
+
+
+count("launch.trimul_epilogue", 0)
 
 
 def epilogue_cm(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.Tensor:
@@ -547,8 +559,11 @@ def _epilogue_cm_forward(x: torch.Tensor, z: torch.Tensor, w: Weights) -> torch.
     # reads the parameters in float32 or bfloat16, all in W_z's dtype.
     params, pcode = _params([w[k] for k in EPILOGUE_PARAMS], w["w_z"], dev)
     _launch("trimul_epilogue", dev, x, z, *params, out, B, I, N, C, H, D, _DTYPE_CODES[x.dtype], pcode)
-    LAUNCHES["trimul_epilogue"] += 1
+    count("launch.trimul_epilogue")
     return out
+
+
+count("launch.trimul_epilogue_backward", 0)
 
 
 def epilogue_cm_backward(x: torch.Tensor, z: torch.Tensor, w: Weights, dout: torch.Tensor,
@@ -582,7 +597,7 @@ def epilogue_cm_backward(x: torch.Tensor, z: torch.Tensor, w: Weights, dout: tor
         sums = torch.empty(D * H + D * C + 2 * D + 2 * C, dtype=torch.float32, device=dev)
     _launch("trimul_epilogue_backward", dev, x, z, *params, dout, dx, dz, part, sums, B, I, N, C, H, D,
             _DTYPE_CODES[x.dtype], pcode, source="trimul_epilogue")
-    LAUNCHES["trimul_epilogue_backward"] += 1
+    count("launch.trimul_epilogue_backward")
     if not weight_grads:
         return dx, dz, None
     # The kernel sums the gradients of the folded weights (fold_ln_out).
@@ -590,6 +605,9 @@ def epilogue_cm_backward(x: torch.Tensor, z: torch.Tensor, w: Weights, dout: tor
     grads = unfold_ln_out_grads(w, dws.view(D, H), dvb)
     grads.update(w_g=dwg.view(D, C), b_g=dbg, ln_in_scale=dls, ln_in_bias=dlb)
     return dx, dz, {k: grads[k].to(w[k].dtype) for k in EPILOGUE_PARAMS}
+
+
+count("launch.trimul_epilogue_partial", 0)
 
 
 def epilogue_partial(x: torch.Tensor, w_z: torch.Tensor, ln_out_scale: torch.Tensor,
@@ -615,8 +633,11 @@ def _epilogue_partial_forward(x, w_z, ln_out_scale, ln_out_bias) -> torch.Tensor
     part = torch.empty(part_size(B, N, D, I), dtype=torch.float32, device=dev)
     _launch("trimul_epilogue_partial", dev, x, *params, part, B, I, N, H, D, _DTYPE_CODES[x.dtype], pcode,
             source="trimul_epilogue")
-    LAUNCHES["trimul_epilogue_partial"] += 1
+    count("launch.trimul_epilogue_partial")
     return part
+
+
+count("launch.trimul_epilogue_finish", 0)
 
 
 def epilogue_finish(part: torch.Tensor, z: torch.Tensor, w: Weights, H: int) -> torch.Tensor:
@@ -644,7 +665,7 @@ def _epilogue_finish_forward(part, z, ln_in_scale, ln_in_bias, b_z, w_g, b_g, H:
     out = torch.empty((B, I, N, D), dtype=z.dtype, device=dev)
     _launch("trimul_epilogue_finish", dev, part, z, ln_s, ln_b, u, vb, b_z, w_g, b_g, out, B, I, N, C, H, D,
             _DTYPE_CODES[z.dtype], pcode, source="trimul_epilogue")
-    LAUNCHES["trimul_epilogue_finish"] += 1
+    count("launch.trimul_epilogue_finish")
     return out
 
 

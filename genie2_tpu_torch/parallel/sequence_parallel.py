@@ -45,29 +45,25 @@ reruns a layer's gathers in the backward; the backward runs the same
 graph in the same order on every rank, so the ranks meet in the same
 collectives.
 
-`VOLUME` counts the bytes all-reduced over the seq group (forward: both
+The counters `allreduce_bytes.seq.<forward|backward>` (utils/profiling.py)
+count the bytes all-reduced over the seq group (forward: both
 collectives; backward: their backward and `mean_grad_over_seq`'s), each
-inside the span `seq_allreduce` (utils/profiling.py).
+inside the span `seq_allreduce`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List
+from typing import Any, List
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from genie2_tpu_torch.utils.profiling import span
+from genie2_tpu_torch.utils.profiling import count, span
 
-# Bytes all-reduced over the seq group, by direction.
-VOLUME: Dict[str, int] = {"forward": 0, "backward": 0}
-
-
-def reset_volume():
-    for k in VOLUME:
-        VOLUME[k] = 0
+count("allreduce_bytes.seq.forward", 0)
+count("allreduce_bytes.seq.backward", 0)
 
 
 @dataclass(frozen=True)
@@ -99,7 +95,7 @@ def row_slice(n: int, seq: SeqGroup) -> slice:
 def _all_reduce(buf: torch.Tensor, seq: SeqGroup, direction: str) -> torch.Tensor:
     with span("seq_allreduce"):
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=seq.group)
-    VOLUME[direction] += buf.numel() * buf.element_size()
+    count(f"allreduce_bytes.seq.{direction}", buf.numel() * buf.element_size())
     return buf
 
 

@@ -43,9 +43,10 @@ dicts and this rank's shards, and `place_train_state` /
 Adam's moments, the EMA). Every collective is an all-reduce: a full tensor
 is gathered as the sum of zero-padded buffers, as mesh.py:gather_rows.
 
-`VOLUME` counts the bytes all-reduced over the model group (forward:
+The counters `allreduce_bytes.tp.<forward|backward>` (utils/profiling.py)
+count the bytes all-reduced over the model group (forward:
 reduce_from_model; backward: copy_to_model), each inside the span
-`tp_allreduce` (utils/profiling.py).
+`tp_allreduce`.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ import torch.distributed as dist
 from torch import nn
 
 from genie2_tpu_torch.parallel.sequence_parallel import shard_sequence
-from genie2_tpu_torch.utils.profiling import span
+from genie2_tpu_torch.utils.profiling import count, span
 
 # (state_dict name pattern, dimension split, layout). Linear weights are
 # [out, in]: dimension 0 splits the output features (column parallel), 1
@@ -86,13 +87,8 @@ _RULES = (
 )
 _COMPILED = tuple((re.compile(pattern), dim, layout) for pattern, dim, layout in _RULES)
 
-# Bytes all-reduced over the model group, by direction.
-VOLUME: Dict[str, int] = {"forward": 0, "backward": 0}
-
-
-def reset_volume():
-    for k in VOLUME:
-        VOLUME[k] = 0
+count("allreduce_bytes.tp.forward", 0)
+count("allreduce_bytes.tp.backward", 0)
 
 
 @dataclass(frozen=True)
@@ -113,7 +109,7 @@ def _all_reduce(x: torch.Tensor, tp: ModelGroup, direction: str) -> torch.Tensor
     buf = x.to(torch.float32, copy=True)
     with span("tp_allreduce"):
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=tp.group)
-    VOLUME[direction] += buf.numel() * buf.element_size()
+    count(f"allreduce_bytes.tp.{direction}", buf.numel() * buf.element_size())
     return buf.to(x.dtype)
 
 

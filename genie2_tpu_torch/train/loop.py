@@ -14,8 +14,10 @@
     (train/state.py:step_randomness), so a run killed anywhere and resumed
     reproduces the uninterrupted run exactly.
 
-`scanSteps` K runs K single steps: the numerics are those of K steps
-whatever K is, and preemption and mid-epoch saves act at every step.
+`scanSteps` (genie2_tpu's optimizer steps a dispatch) is accepted and not
+read: the loop runs single steps, whose numerics are those of genie2_tpu's
+K steps whatever K is, and preemption and mid-epoch saves act at every
+step.
 
 Data, sequence and tensor parallel: in a process group (torchrun,
 `cli/train.py --distributed`), the ranks form a grid of `meshData` x

@@ -13,16 +13,17 @@ the autograd Functions (ops/launch.py:Recomputed, ops/trimul.py:ContractCM)
 and inside the rematerialised pair layers (nn/pair_stack.py), not around
 `loss.backward()`.
 
-Counters are always on, each an integer add: `count(name, n)` and
-`host_sync(site, value, n)`, which counts `host_sync.<site>` where the
-host waits on the card to read `value` (a `.item()`, `.cpu()`, `float()`
-of a card tensor, or a library call that reads a status back). `counters()`
-is one flat snapshot of every counter the program keeps: these, the kernel
-launches of ops/launch.py:LAUNCHES as `launch.<kernel>`, and the bytes
-all-reduced over the model and seq groups (`VOLUME` of
-parallel/tensor_parallel.py and parallel/sequence_parallel.py) as
-`allreduce_bytes.<tp|seq>.<direction>`. Differences of two snapshots count
-what ran between them.
+Counters are always on, each an integer add in the one store `COUNTERS`:
+`count(name, n)` and `host_sync(site, value, n)`, which counts
+`host_sync.<site>` where the host waits on the card to read `value` (a
+`.item()`, `.cpu()`, `float()` of a card tensor, or a library call that
+reads a status back). The kernel wrappers of ops/ count their launches as
+`launch.<kernel>`, and parallel/ the bytes all-reduced over the model and
+seq groups as `allreduce_bytes.<tp|seq>.<forward|backward>`; each module
+names its counters at 0 when it is imported (`count(name, 0)`), so that a
+snapshot names them before their first count. `counters()` is one flat
+snapshot of them all, `reset()` sets them to 0. Differences of two
+snapshots count what ran between them.
 """
 
 from __future__ import annotations
@@ -94,11 +95,10 @@ def host_sync(site: str, value, n: int = 1):
 
 def counters() -> Dict[str, int]:
     """One flat snapshot of every counter of the program."""
-    from genie2_tpu_torch.ops.launch import LAUNCHES
-    from genie2_tpu_torch.parallel import sequence_parallel, tensor_parallel
+    return dict(COUNTERS)
 
-    out = dict(COUNTERS)
-    out.update((f"launch.{k}", v) for k, v in LAUNCHES.items())
-    for axis, volume in (("tp", tensor_parallel.VOLUME), ("seq", sequence_parallel.VOLUME)):
-        out.update((f"allreduce_bytes.{axis}.{k}", v) for k, v in volume.items())
-    return out
+
+def reset():
+    """Every counter back to 0; each keeps its name."""
+    for name in COUNTERS:
+        COUNTERS[name] = 0

@@ -9,7 +9,8 @@ with a card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 import pytest
 import torch
 
-from genie2_tpu_torch.ops import ipa, tri_att, triangle, trimul
+from genie2_tpu_torch.ops import ipa, transition, tri_att, triangle, trimul  # noqa: F401, their counters
+from genie2_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +41,11 @@ def _weights(C, H, gen, device, D=None):
     return w
 
 
+def _launches():
+    """{kernel: launches} since the last profiling.reset()."""
+    return {k[len("launch."):]: v for k, v in profiling.counters().items() if k.startswith("launch.")}
+
+
 def _close(got, want, dtype):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype] * want.float().abs().max().item(), err
@@ -65,7 +71,7 @@ def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
     w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device, d).items()}
     z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
     res_mask = (torch.arange(n, device=device) < n - 5).float().expand(2, n).contiguous()
-    trimul.reset_launch_counts()
+    profiling.reset()
     a, b = trimul.project_gated_cm(z, res_mask, w)
     a_p, b_p = trimul.project_gated_cm_plain(z, res_mask, w)
     _close(a, a_p, dtype)
@@ -74,8 +80,8 @@ def test_kernels_match_plain(device, dtype, weight_dtype, n, c, h, d, outgoing):
     x_p = trimul.contract_cm_plain(a_p, b_p, outgoing)
     _close(trimul.epilogue_cm(x_p, z, w), trimul.epilogue_cm_plain(x_p, z, w), dtype)
     torch.cuda.synchronize()
-    assert trimul.LAUNCHES["trimul_project"] == 1 and trimul.LAUNCHES["trimul_epilogue"] == 1
-    assert trimul.LAUNCHES["trimul_contract_out" if outgoing else "trimul_contract_in"] == 1
+    assert _launches()["trimul_project"] == 1 and _launches()["trimul_epilogue"] == 1
+    assert _launches()["trimul_contract_out" if outgoing else "trimul_contract_in"] == 1
 
 
 def _at_offset(part: torch.Tensor, offset: int) -> torch.Tensor:
@@ -111,7 +117,7 @@ def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d, o
     w = {k: v.to(weight_dtype) for k, v in _weights(c, h, gen, device, d).items()}
     z = torch.randn(2, n, n, c, generator=gen, device=device).to(dtype)
     x = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype)
-    trimul.reset_launch_counts()
+    profiling.reset()
     part = 0
     for sl in (slice(0, h // 2), slice(h // 2, h)):
         args = (x[:, sl].contiguous(), w["w_z"][:, sl], w["ln_out_scale"][sl], w["ln_out_bias"][sl])
@@ -123,7 +129,7 @@ def test_split_epilogue_matches_plain(device, dtype, weight_dtype, n, c, h, d, o
         part, z, *(w[k] for k in trimul.FINISH_PARAMS), h), dtype)
     _close(trimul.epilogue_finish(part, z, w, h), trimul.epilogue_cm(x, z, w), dtype)
     torch.cuda.synchronize()
-    assert trimul.LAUNCHES["trimul_epilogue_partial"] == 2 and trimul.LAUNCHES["trimul_epilogue_finish"] == 2
+    assert _launches()["trimul_epilogue_partial"] == 2 and _launches()["trimul_epilogue_finish"] == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -193,10 +199,10 @@ def test_ipa_attention_matches_plain(device, dtype, n, tail, h, c, pq, pv, cz, s
     if strided:
         args = _strided(args)
         assert not args[1].is_contiguous() and not args[5].is_contiguous()
-    trimul.reset_launch_counts()
+    profiling.reset()
     got = ipa.ipa_attention(*args)
     torch.cuda.synchronize()
-    assert trimul.LAUNCHES["ipa_attention"] == 1
+    assert _launches()["ipa_attention"] == 1
     for g, w in zip(got, ipa.ipa_attention_plain(*args)):
         assert torch.isfinite(g.float()).all()
         _close(g, w, dtype)
@@ -224,7 +230,7 @@ def test_triangle_contractions_match_plain(device, dtype, n, c):
     gen = torch.Generator(device=device).manual_seed(n)
     a = (torch.randn(2, n, n, c, generator=gen, device=device) * 0.3).to(dtype)
     b = (torch.randn(2, n, n, c, generator=gen, device=device) * 0.3).to(dtype)
-    trimul.reset_launch_counts()
+    profiling.reset()
     for outgoing in (True, False):
         want = triangle.triangle_multiply_reference(a, b, outgoing)
         for layout in triangle.LAYOUTS:
@@ -234,7 +240,7 @@ def test_triangle_contractions_match_plain(device, dtype, n, c):
     a_cm, b_km = a.permute(0, 3, 1, 2).contiguous(), b.permute(0, 3, 1, 2).contiguous()
     _close(trimul.contract_cm_km(a_cm, b_km), trimul.contract_cm_km_plain(a_cm, b_km), dtype)
     torch.cuda.synchronize()
-    counts = trimul.LAUNCHES
+    counts = _launches()
     assert (counts["triangle_multiply_cm"], counts["triangle_multiply_nlayout"], counts["contract_cm_km"]) == (2, 2, 1)
     if n > 1:  # a transposed view (at N = 1 it is contiguous)
         with pytest.raises(ValueError):
@@ -263,10 +269,10 @@ def test_tri_attention_matches_plain(device, dtype, i, j, h, c):
     element), fully padded rows (uniform attention): all rows are
     compared."""
     args = _tri_att_inputs(device, dtype, 2, i, j, h, c)
-    trimul.reset_launch_counts()
+    profiling.reset()
     got = tri_att.tri_attention(*args, row_chunk=7)
     torch.cuda.synchronize()
-    assert trimul.LAUNCHES["tri_attention"] == 1
+    assert _launches()["tri_attention"] == 1
     want = tri_att.tri_attention_plain(*args)
     assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got.float()).all()
     _close(got, want, dtype)
@@ -351,10 +357,10 @@ def test_trimul_gradients_match_plain(device, dtype, n, outgoing):
 
     a, b = (torch.randn(2, h, n, n, generator=gen, device=device).to(dtype).requires_grad_(True) for _ in range(2))
     dx = torch.randn(2, h, n, n, generator=gen, device=device).to(dtype)
-    trimul.reset_launch_counts()
+    profiling.reset()
     got = _grads_of(lambda: trimul.contract_cm(a, b, outgoing), (a, b), dx)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+    counts = {k: v for k, v in _launches().items() if v}
     assert counts == ({"trimul_contract_out": 1, "trimul_contract_in": 1, "contract_cm_km": 1}), counts
     _grad_close(got, _grads_of(lambda: trimul.contract_cm_plain(a, b, outgoing), (a, b), dx), dtype)
 
@@ -412,7 +418,7 @@ def test_project_backward_kernel_matches_plain(device, b, n, i, c, h, masked):
 
 def test_project_backward_launches(device):
     """Under autograd a float32 projection's backward is one launch of its
-    kernel (LAUNCHES["trimul_project_backward"], under the span
+    kernel (counter launch.trimul_project_backward, under the span
     genie2:backward.trimul_project) and, where a weight needs a gradient,
     one of the kernel that sums the weights' partial sums; with no weight
     needing one (TDS's twist) that second kernel does not run. bfloat16
@@ -431,11 +437,11 @@ def test_project_backward_launches(device):
         leaves = [z] + ([w[k] for k in trimul.PROJECT_PARAMS] if weights_need_grad else [])
         out = trimul.project_gated_cm(z, mask, w)
         assert type(out[0].grad_fn).__name__ == "ProjectGatedCMBackward"
-        trimul.reset_launch_counts()
+        profiling.reset()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.autograd.grad(out, leaves, cot)
             torch.cuda.synchronize()
-        counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+        counts = {k: v for k, v in _launches().items() if v}
         assert counts == {"trimul_project_backward": 1}, counts
         names = [e.name for e in prof.events()]
         kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -493,7 +499,7 @@ def test_epilogue_backward_kernel_matches_plain(device, b, n, i, h, c, d, length
 
 def test_epilogue_backward_launches(device):
     """Under autograd a float32 epilogue's backward is one launch of its
-    kernel (LAUNCHES["trimul_epilogue_backward"], under the span
+    kernel (counter launch.trimul_epilogue_backward, under the span
     genie2:backward.trimul_epilogue) and, where a weight needs a gradient,
     one of the kernel that sums the weights' partial sums; with no weight
     needing one (TDS's twist) that second kernel does not run. bfloat16
@@ -513,11 +519,11 @@ def test_epilogue_backward_launches(device):
         leaves = [x, z] + ([w[k] for k in trimul.EPILOGUE_PARAMS] if weights_need_grad else [])
         out = trimul.epilogue_cm(x, z, w)
         assert type(out.grad_fn).__name__ == "EpilogueCMBackward"
-        trimul.reset_launch_counts()
+        profiling.reset()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.autograd.grad(out, leaves, cot)
             torch.cuda.synchronize()
-        counts = {k: v for k, v in trimul.LAUNCHES.items() if v}
+        counts = {k: v for k, v in _launches().items() if v}
         assert counts == {"trimul_epilogue_backward": 1}, counts
         names = [e.name for e in prof.events()]
         kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -681,10 +687,10 @@ def test_training_step_kernels_match_plain(device):
     inject = dict(t=torch.tensor([7, 60], device=device), noise=torch.randn(2, 70, 3, generator=gen, device=device),
                   dropout_seed=3)
     step = make_train_step(Schedule.create(100, device=device), 1.0)
-    trimul.reset_launch_counts()
+    profiling.reset()
     m_k = step(state, batch, **inject)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in trimul.LAUNCHES.items() if v}
+    launches = {k: v for k, v in _launches().items() if v}
     saved = (trimul.project_gated_cm, trimul.contract_cm, trimul.epilogue_cm, structure.ipa_attention)
     trimul.project_gated_cm, trimul.contract_cm = trimul.project_gated_cm_plain, trimul.contract_cm_plain
     trimul.epilogue_cm, structure.ipa_attention = trimul.epilogue_cm_plain, ipa.ipa_attention_plain
@@ -774,12 +780,12 @@ def test_pair_transition_matches_plain(device, b, i, n_res, n):
     from genie2_tpu_torch.ops import transition
 
     z, mask, w = _transition_inputs(device, torch.Generator(device=device).manual_seed(n_res + n), b, i, n_res, n)
-    trimul.reset_launch_counts()
+    profiling.reset()
     with torch.no_grad():
         got = transition.pair_transition(z, mask, *w)
         torch.cuda.synchronize()
         want = transition.pair_transition_plain(z, mask, *w)
-    assert trimul.LAUNCHES["pair_transition"] == 1
+    assert _launches()["pair_transition"] == 1
     assert torch.isfinite(got).all()
     _close(got, want, torch.float32)
     assert not got[mask == 0].any()  # masked pairs are exactly zero
@@ -788,8 +794,9 @@ def test_pair_transition_matches_plain(device, b, i, n_res, n):
 def test_pair_transition_gradients_and_refusals(device):
     """Under autograd the kernel's Function gives the plain version's
     gradients of z and every weight (the plain gradient, recomputed, under
-    genie2:recompute.pair_transition); the wrapper refuses bf16, widths off
-    the kernel's and tensors of mismatched shapes."""
+    genie2:recompute.pair_transition); bf16 and widths off the kernel's get
+    the plain version, with no launch; the wrapper refuses tensors of
+    mismatched shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     from genie2_tpu_torch.ops import transition
@@ -804,11 +811,12 @@ def test_pair_transition_gradients_and_refusals(device):
     assert "genie2:recompute.pair_transition" in [e.name for e in prof.events()]
     _grad_close(got, _grads_of(lambda: transition.pair_transition_plain(z, mask, *w), leaves, cot), torch.float32)
     z, w = z.detach(), [t.detach() for t in w]
-    with pytest.raises(TypeError, match="float32"):
-        transition.pair_transition(z.bfloat16(), mask, *w)
-    with pytest.raises(ValueError, match="C = 64"):
-        transition.pair_transition(z[..., :64].contiguous(), mask, w[0][:64], w[1][:64], w[2][:, :64].contiguous(),
-                                   w[3], w[4][:64].contiguous(), w[5][:64])
+    narrow = (z[..., :64].contiguous(), mask, w[0][:64], w[1][:64], w[2][:, :64].contiguous(), w[3],
+              w[4][:64].contiguous(), w[5][:64])
+    profiling.reset()
+    for args in ((z.bfloat16(), mask, *(t.bfloat16() for t in w)), narrow):
+        assert torch.equal(transition.pair_transition(*args), transition.pair_transition_plain(*args))
+    assert _launches()["pair_transition"] == 0
     with pytest.raises(ValueError, match="mask"):
         transition.pair_transition(z, mask[:, :-1], *w)
 
@@ -832,12 +840,12 @@ def test_pair_transition_launches_per_denoiser_call(device):
     assert config.model["n_pair_transform_layer"] == 5 and config.model["c_p"] == 128
     with torch.no_grad():
         for calls in (1, 2):
-            trimul.reset_launch_counts()
+            profiling.reset()
             for _ in range(calls):
                 model(frames, t, feats)
-            assert trimul.LAUNCHES["pair_transition"] == 5 * calls
-        trimul.reset_launch_counts()
+            assert _launches()["pair_transition"] == 5 * calls
+        profiling.reset()
         layer = model.pair_transform_net.net[0].pair_transition
         p = torch.randn(2, 32, 32, 128, device=device)
         layer.bfloat16()(p.bfloat16(), torch.ones(2, 32, 32, device=device, dtype=torch.bfloat16))
-    assert trimul.LAUNCHES["pair_transition"] == 0
+    assert _launches()["pair_transition"] == 0

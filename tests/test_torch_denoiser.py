@@ -93,7 +93,7 @@ def randomized_variables(model, batch, dims=DIMS, jit=False):
 
 @pytest.fixture(scope="module")
 def models():
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **DIMS)
+    flax_model = FlaxDenoiser(remat=False, **DIMS)
     variables = randomized_variables(flax_model, make_batch(False, False))
     port = Denoiser(**DIMS)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
@@ -137,7 +137,7 @@ TRI_ATT_DIMS = dict(DIMS, include_tri_att=True)
 @pytest.fixture(scope="module")
 def tri_att_models():
     """The small denoiser with triangle attention in both pair layers."""
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **TRI_ATT_DIMS)
+    flax_model = FlaxDenoiser(remat=False, **TRI_ATT_DIMS)
     variables = randomized_variables(flax_model, make_batch(False, False))
     port = Denoiser(**TRI_ATT_DIMS)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
@@ -150,7 +150,7 @@ def test_denoiser_with_triangle_attention_z_matches(tri_att_models, padded, tri_
     """Start and end triangle attention in every pair layer; the row chunk
     (5 does not divide 24) changes no number on either side."""
     flax_model, variables, port = tri_att_models
-    flax_chunked = FlaxDenoiser(use_pallas=False, remat=False, tri_att_chunk=tri_att_chunk, **TRI_ATT_DIMS)
+    flax_chunked = FlaxDenoiser(remat=False, tri_att_chunk=tri_att_chunk, **TRI_ATT_DIMS)
     port_chunked = Denoiser(**TRI_ATT_DIMS, tri_att_chunk=tri_att_chunk)
     port_chunked.load_state_dict(port.state_dict())
     assert port_chunked.pair_transform_net.net[1].tri_att_end.mha.row_chunk == tri_att_chunk
@@ -181,9 +181,14 @@ def test_from_config_builds_triangle_attention(tmp_path):
     from genie2_tpu_torch.config import Config
 
     path = tmp_path / "configuration"
-    path.write_text(CONFIG_LINES + "includeTriangularAttention True\ntriangularAttentionHiddenDimension 4\n"
-                    "triangularAttentionNumHeads 2\ntriangleAttentionChunk 6\n")
-    model = Denoiser.from_config(Config(str(path)))
+    lines = (CONFIG_LINES + "includeTriangularAttention True\ntriangularAttentionHiddenDimension 4\n"
+             "triangularAttentionNumHeads 2\ntriangleAttentionChunk 6\n")
+    path.write_text(lines)
+    config = Config(str(path))
+    # usePallas and scanSteps are genie2_tpu's keys: accepted, and not read.
+    (tmp_path / "with_jax_keys").write_text(lines + "usePallas True\nscanSteps 4\n")
+    assert Config(str(tmp_path / "with_jax_keys")).as_dict() == config.as_dict()
+    model = Denoiser.from_config(config)
     state = model.state_dict()
     for name in ("layer_norm.weight", "linear.weight", "mha.linear_q.weight", "mha.linear_g.bias", "mha.linear_o.weight"):
         assert f"pair_transform_net.net.1.tri_att_end.{name}" in state

@@ -27,7 +27,8 @@ from genie2_tpu_torch.features import to_device
 from genie2_tpu_torch.geometry import Rigid, frenet_frames
 from genie2_tpu_torch.nn import Denoiser
 from genie2_tpu_torch.ops import ipa, tri_att, trimul
-from genie2_tpu_torch.ops.launch import LAUNCHES, Recomputed, recompute_backward, records_grad, reset_launch_counts
+from genie2_tpu_torch.ops.launch import Recomputed, recompute_backward, records_grad
+from genie2_tpu_torch.utils import profiling
 from genie2_tpu_torch.utils.weights import params_from_flax
 from tests.test_torch_denoiser import DIMS, make_batch, randomized_variables
 
@@ -373,14 +374,14 @@ def test_recompute_backward_skips_inputs_that_need_no_grad():
 def test_wrappers_on_the_cpu_stay_plain_and_count_nothing():
     """On the CPU the wrappers are the plain versions, differentiable by
     autograd directly; the Functions are taken on the card only."""
-    reset_launch_counts()
+    profiling.reset()
     a = torch.randn(1, 2, 6, 6, requires_grad=True)
     x = trimul.contract_cm(a, a.detach())
     assert x.grad_fn is not None and "ContractCM" not in type(x.grad_fn).__name__
     assert records_grad([a]) and not records_grad([a.detach()])
     with torch.no_grad():
         assert not records_grad([a])
-    assert all(v == 0 for v in LAUNCHES.values())
+    assert all(v == 0 for k, v in profiling.counters().items() if k.startswith("launch."))
 
 
 # ------------------------------------------------------------------ #
@@ -440,7 +441,7 @@ def test_denoiser_gradient_wrt_translations_matches_jax(padded):
     """d/dx sum(z . r) over the real residues, through the Frenet frames
     and the denoiser, `closed` quaternions, the port against jax.grad of
     genie2_tpu's apply."""
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **DIMS)
+    flax_model = FlaxDenoiser(remat=False, **DIMS)
     batch = make_batch(padded, with_motif=True)
     variables = randomized_variables(flax_model, make_batch(False, False), jit=True)
     port = Denoiser(**DIMS)

@@ -53,7 +53,7 @@ def test_port_has_modules():
                      "genie2_tpu_torch/train/prefetch.py", "genie2_tpu_torch/train/loop.py",
                      "genie2_tpu_torch/cli/train.py", "genie2_tpu_torch/parallel/mesh.py",
                      "genie2_tpu_torch/parallel/spawn.py", "genie2_tpu_torch/cli/convert_checkpoint.py",
-                     "genie2_tpu_torch/cli/fetch_afdb.py", "genie2_tpu_torch/features/pdb_native.py",
+                     "genie2_tpu_torch/cli/fetch_afdb.py",
                      "tools/torch_multinode_dryrun.py"):
         assert expected in rel
 

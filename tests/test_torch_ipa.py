@@ -23,7 +23,7 @@ from genie2_tpu.ops.ipa_fused import _reference_attention, fused_ipa_attention
 from genie2_tpu_torch.geometry import Rigid
 from genie2_tpu_torch.nn.structure import InvariantPointAttention
 from genie2_tpu_torch.ops import ipa
-from genie2_tpu_torch.ops.launch import LAUNCHES, reset_launch_counts
+from genie2_tpu_torch.utils import profiling
 from genie2_tpu_torch.utils.weights import params_from_flax
 
 H, C, PQ, PV, CZ = 4, 8, 4, 8, 16
@@ -139,9 +139,9 @@ def test_module_matches_flax(masked_tail):
 
 def test_wrapper_counts_nothing_on_cpu_and_refuses_other_devices():
     args = make_inputs(n=16)
-    reset_launch_counts()
+    profiling.reset()
     run_plain(args)
-    assert LAUNCHES["ipa_attention"] == 0
+    assert profiling.counters()["launch.ipa_attention"] == 0
     meta = lambda *s: torch.zeros(*s, device="meta")
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         ipa.ipa_attention(meta(1, 4, H, C), meta(1, 4, H, C), meta(1, 4, H, C), meta(1, 4, H, PQ, 3),

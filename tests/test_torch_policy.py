@@ -60,7 +60,7 @@ def _frames(batch, trans_np):
 
 
 def _bridged(dims):
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **dims)
+    flax_model = FlaxDenoiser(remat=False, **dims)
     variables = randomized_variables(flax_model, make_batch(False, False), dims)
     port = Denoiser(**dims)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))

@@ -20,6 +20,8 @@ forward hooks on those modules. On a machine with a card:
 import functools
 import json
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -31,8 +33,8 @@ from genie2_tpu_torch.diffusion import Schedule
 from genie2_tpu_torch.features import batchify, create_empty_features, to_device
 from genie2_tpu_torch.nn import Denoiser
 from genie2_tpu_torch.nn.policy import apply_denoiser
-from genie2_tpu_torch.ops import ipa, launch, tri_att, trimul
-from genie2_tpu_torch.parallel import sequence_parallel, tensor_parallel
+from genie2_tpu_torch.ops import ipa, launch, transition, tri_att, triangle, trimul  # noqa: F401, their counters
+from genie2_tpu_torch.parallel import sequence_parallel, tensor_parallel  # noqa: F401, their counters
 from genie2_tpu_torch.sampling.ddpm import reverse_step
 from genie2_tpu_torch.train import MotifAugmentConfig, create_train_state, make_train_step, synthetic_dataset
 from genie2_tpu_torch.train.prefetch import prefetch
@@ -185,18 +187,47 @@ def test_training_step_spans_nest():
                                     + [["backward", "train_step"]] * n)
 
 
+# Every kernel wrapper's launch counter, each named by its module (all
+# imported above).
+LAUNCH_COUNTERS = {
+    "trimul_project", "trimul_project_backward", "trimul_contract_out", "trimul_contract_in", "trimul_epilogue",
+    "trimul_epilogue_backward", "trimul_epilogue_partial", "trimul_epilogue_finish", "contract_cm_km",
+    "ipa_attention", "triangle_multiply_cm", "triangle_multiply_nlayout", "tri_attention", "pair_transition",
+}
+
+
 def test_counters_snapshot_names_every_counter(monkeypatch):
+    monkeypatch.setattr(profiling, "COUNTERS", dict(profiling.COUNTERS))
     snap = profiling.counters()
-    assert {f"launch.{k}" for k in launch.LAUNCHES} <= set(snap)
+    assert {f"launch.{k}" for k in LAUNCH_COUNTERS} == {k for k in snap if k.startswith("launch.")}
     assert {f"allreduce_bytes.{a}.{d}" for a in ("tp", "seq") for d in ("forward", "backward")} <= set(snap)
     assert "host_sync.eigh_status" in snap and all(isinstance(v, int) for v in snap.values())
-    monkeypatch.setitem(launch.LAUNCHES, "trimul_project", 7)
-    monkeypatch.setitem(tensor_parallel.VOLUME, "backward", 12)
-    monkeypatch.setitem(sequence_parallel.VOLUME, "forward", 5)
-    monkeypatch.setitem(profiling.COUNTERS, "host_sync.eigh_status", 3)
-    snap = profiling.counters()
-    assert snap["launch.trimul_project"] == 7 and snap["allreduce_bytes.tp.backward"] == 12
-    assert snap["allreduce_bytes.seq.forward"] == 5 and snap["host_sync.eigh_status"] == 3
+    profiling.count("launch.trimul_project", 7)
+    profiling.count("allreduce_bytes.tp.backward", 12)
+    profiling.count("allreduce_bytes.seq.forward", 5)
+    profiling.count("host_sync.eigh_status", 3)
+    now = profiling.counters()
+    assert now["launch.trimul_project"] - snap["launch.trimul_project"] == 7
+    assert now["allreduce_bytes.tp.backward"] - snap["allreduce_bytes.tp.backward"] == 12
+    assert now["allreduce_bytes.seq.forward"] - snap["allreduce_bytes.seq.forward"] == 5
+    assert now["host_sync.eigh_status"] - snap["host_sync.eigh_status"] == 3
+    profiling.reset()
+    assert profiling.counters() == dict.fromkeys(now, 0)
+
+
+def test_counters_import_no_layer_above():
+    """utils/profiling.py is the bottom layer: importing it and taking a
+    snapshot in a fresh interpreter loads no module of ops/ or parallel/
+    (they import it, to count)."""
+    code = ("import sys\n"
+            "from genie2_tpu_torch.utils import profiling\n"
+            "snap = profiling.counters()\n"
+            "assert 'host_sync.eigh_status' in snap, snap\n"
+            "print(sorted(m for m in sys.modules if m.startswith(('genie2_tpu_torch.ops', "
+            "'genie2_tpu_torch.parallel'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_host_sync_counts_card_tensors_only(monkeypatch):

@@ -55,7 +55,7 @@ T = 8
 def models():
     dims = dict(DIMS, n_timestep=T)
     batch = batchify([create_empty_features([24]), create_empty_features([19])])
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **dims)
+    flax_model = FlaxDenoiser(remat=False, **dims)
     variables = randomized_variables(flax_model, batch)
     port = Denoiser(**dims)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
@@ -90,7 +90,7 @@ def test_injected_trajectory_with_triangle_attention_matches():
     steps = 10
     dims = dict(DIMS, n_timestep=steps, include_tri_att=True)
     batch = batchify([create_empty_features([24]), create_empty_features([19])])
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **dims)
+    flax_model = FlaxDenoiser(remat=False, **dims)
     variables = randomized_variables(flax_model, batch)
     port = Denoiser(**dims)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))

@@ -91,7 +91,7 @@ def tiny_release(tmp_path_factory):
     """The tiny model with randomised weights in the release layout."""
     dims = dict(DIMS, n_timestep=T)
     batch = batchify([create_empty_features([24]), create_empty_features([19])])
-    variables = randomized_variables(FlaxDenoiser(use_pallas=False, remat=False, **dims), batch)
+    variables = randomized_variables(FlaxDenoiser(remat=False, **dims), batch)
     port = Denoiser(**dims)
     port.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
     root = tmp_path_factory.mktemp("results")

@@ -208,7 +208,7 @@ def test_motif_target_and_manifests_equal_jax(tmp_path):
 
 @pytest.fixture(scope="module")
 def models():
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **DIMS_TDS)
+    flax_model = FlaxDenoiser(remat=False, **DIMS_TDS)
     two = batchify([create_empty_features([L]) for _ in range(2)])
     variables = randomized_variables(flax_model, two, jit=True)
     port = Denoiser(**DIMS_TDS)

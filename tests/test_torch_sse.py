@@ -150,7 +150,7 @@ def test_secstruct_equals_jax_package(trace):
 def models():
     dims = dict(DIMS, n_timestep=T)
     batch = batchify([create_empty_features([N_RES]) for _ in range(P)])
-    flax_model = FlaxDenoiser(use_pallas=False, remat=False, **dims)
+    flax_model = FlaxDenoiser(remat=False, **dims)
     two = batchify([create_empty_features([N_RES]) for _ in range(2)])
     variables = randomized_variables(flax_model, two)
     port = Denoiser(**dims)

@@ -8,13 +8,11 @@ import os
 import numpy as np
 import pytest
 
-import genie2_tpu.features.pdb_native as jpdb_native
 from genie2_tpu.train import MotifAugmentConfig as JMotif
 from genie2_tpu.train import StructureDataset as JDataset
 from genie2_tpu.train import setup_split as jsetup_split
 from genie2_tpu.train import synthetic_dataset as jsynthetic
-import genie2_tpu_torch.features.pdb_native as pdb_native
-from genie2_tpu_torch.features import create_empty_features, features_from_pdb, parse_pdb, save_features_to_pdb
+from genie2_tpu_torch.features import create_empty_features, features_from_pdb, save_features_to_pdb
 from genie2_tpu_torch.train import MotifAugmentConfig, StructureDataset, setup_split, synthetic_dataset
 from genie2_tpu_torch.train.prefetch import prefetch
 
@@ -56,25 +54,12 @@ def _write_pdbs(path, n=10):
     return path
 
 
-@pytest.fixture(params=["numpy", "native"])
-def parser(request, monkeypatch):
-    """Each package's PDB reader: "numpy", both through their numpy parsers
-    (genie2_tpu's as where its C++ parser is not built: pdb_native.py falls
-    back to it); "native", both packages on their defaults, the C++
-    parsers (coordinates read as float32)."""
-    if request.param == "numpy":
-        monkeypatch.setattr(jpdb_native, "_get_lib", lambda: None)
-        monkeypatch.setattr(pdb_native, "parse_pdb_fast", parse_pdb)
-    else:
-        assert jpdb_native.native_available()
-    return request.param
-
-
-def test_pdb_directory_through_packed_cache_byte_identical(tmp_path, parser):
-    """setup_split's name lists, features_from_pdb, the packed cache (built
-    by each package, read back by the other) and the epochs with motif
-    augmentation, whole and from batch 1, through the numpy parsers and
-    through the C++ ones."""
+def test_pdb_directory_through_packed_cache_byte_identical(tmp_path):
+    """setup_split's name lists, features_from_pdb (genie2_tpu's default
+    reader, its C++ parser, against the port's one reader: coordinates
+    rounded to float32), the packed cache (built by each package, read back
+    by the other) and the epochs with motif augmentation, whole and from
+    batch 1."""
     from genie2_tpu.features import features_from_pdb as jfeatures_from_pdb
 
     data = _write_pdbs(str(tmp_path / "data"))

@@ -170,9 +170,10 @@ def test_init_from_fine_tunes_with_a_fresh_optimizer(tmp_path, uninterrupted):
     assert any(not torch.equal(p, q) for p, q in zip(trainer.model.parameters(), uninterrupted.model.parameters()))
 
 
-def test_scan_steps_equal_single_steps(tmp_path):
-    """scanSteps 4 (K single steps) on 9 structures of batch 1 over two
-    epochs with the EMA on: the same losses and parameters as scanSteps 1."""
+def test_scanSteps_key_trains_single_steps(tmp_path):
+    """scanSteps 4 (genie2_tpu's steps a dispatch; the port reads no such
+    key and runs single steps) on 9 structures of batch 1 over two epochs
+    with the EMA on: the same losses and parameters as scanSteps 1."""
     runs = {}
     for k in (1, 4):
         config = make_config(tmp_path / f"s{k}", batchSize=1, logEverySteps=3, emaDecay=0.999, scanSteps=k)

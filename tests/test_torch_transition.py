@@ -4,9 +4,11 @@ The plain version is the module's own arithmetic (LayerNorm, linear_1,
 ReLU, linear_2, times the pair mask), so on the CPU the module's output is
 bit for bit what it was before the wrapper; under autograd the kernel's
 Function (`Recomputed`, with the plain version standing in for the kernel)
-gives the module's gradients. bf16 activations, widths the kernel does not
-take and the tensor-parallel split keep the module's own products. The
-kernel itself runs on the card only (tests/test_torch_cuda.py).
+gives the module's gradients. The wrapper routes: only float32 on the card
+at the kernel's widths reaches the kernel; bf16 activations and widths the
+kernel does not take get the plain version, and the tensor-parallel split
+never reaches the wrapper. The kernel itself runs on the card only
+(tests/test_torch_cuda.py).
 """
 
 import functools
@@ -18,8 +20,9 @@ from genie2_tpu_torch.nn import pair_stack
 from genie2_tpu_torch.nn.pair_stack import PairTransition
 from genie2_tpu_torch.nn.primitives import LN_EPS
 from genie2_tpu_torch.ops import launch, transition
-from genie2_tpu_torch.ops.launch import LAUNCHES, Recomputed, recomputed_name, reset_launch_counts
+from genie2_tpu_torch.ops.launch import Recomputed, recomputed_name
 from genie2_tpu_torch.ops.transition import pair_transition, pair_transition_plain
+from genie2_tpu_torch.utils import profiling
 
 PARAMS = ("layer_norm.weight", "layer_norm.bias", "linear_1.weight", "linear_1.bias", "linear_2.weight",
           "linear_2.bias")
@@ -76,12 +79,12 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     launches nothing, with grad mode on and off."""
     module = seeded_transition(128, 4)
     z, mask = inputs(2, 6, 6, 128)
-    reset_launch_counts()
+    profiling.reset()
     with torch.no_grad():
         assert torch.equal(pair_transition(z, mask, *weights(module)), module_math(module, z, mask))
     out = pair_transition(z.requires_grad_(True), mask, *weights(module))
     assert out.grad_fn is not None and "Recomputed" not in type(out.grad_fn).__name__
-    assert LAUNCHES["pair_transition"] == 0
+    assert profiling.counters()["launch.pair_transition"] == 0
 
 
 def test_recomputed_gives_the_modules_gradients():
@@ -103,17 +106,13 @@ def test_recomputed_gives_the_modules_gradients():
 
 
 def _refuse(*args, **kwargs):
-    raise AssertionError("the module took the kernel's wrapper")
+    raise AssertionError("reached the kernel")
 
 
-@pytest.mark.parametrize("case", ["bf16", "width", "hidden", "tp"])
-def test_other_cases_keep_the_modules_products(monkeypatch, case):
-    """bf16 activations, C other than 128, a hidden width off the kernel's
-    chunk and the tensor-parallel split never reach the wrapper, and give
-    the module's arithmetic."""
-    monkeypatch.setattr(transition, "pair_transition", _refuse)
+def _case_module(monkeypatch, case):
     c, n, dtype = {"bf16": (128, 4, torch.bfloat16), "width": (64, 4, torch.float32),
-                   "hidden": (128, 4, torch.float32), "tp": (128, 4, torch.float32)}[case]
+                   "hidden": (128, 4, torch.float32), "tp": (128, 4, torch.float32),
+                   "kernel": (128, 4, torch.float32)}[case]
     module = seeded_transition(c, n, dtype=dtype)
     if case == "hidden":  # 520 hidden channels, not a multiple of the 64-wide chunk
         module.linear_1 = torch.nn.Linear(c, 520).to(dtype)
@@ -122,8 +121,46 @@ def test_other_cases_keep_the_modules_products(monkeypatch, case):
         monkeypatch.setattr(pair_stack, "copy_to_model", lambda x, tp: x)
         monkeypatch.setattr(pair_stack, "reduce_from_model", lambda x, tp: x)
         module.shard_(object())
-    z, mask = inputs(2, 5, 5, c, dtype=dtype)
-    torch.testing.assert_close(module(z, mask), module_math(module, z, mask), rtol=1e-5, atol=1e-5)
+    return module, *inputs(2, 5, 5, c, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["bf16", "width", "hidden", "tp"])
+def test_other_cases_keep_the_modules_products(monkeypatch, case):
+    """bf16 activations, C other than 128 and a hidden width off the
+    kernel's chunk get the plain version from the wrapper, as if their
+    tensors were on the card, and the tensor-parallel split never reaches
+    the wrapper: each gives the module's arithmetic, bit for bit, and is
+    differentiated by autograd directly."""
+    monkeypatch.setattr(transition, "on_cpu", lambda t: False)
+    monkeypatch.setattr(transition, "_pair_transition_kernel", _refuse)
+    monkeypatch.setattr(transition, "Recomputed", None)
+    if case == "tp":
+        monkeypatch.setattr(transition, "pair_transition", _refuse)
+    module, z, mask = _case_module(monkeypatch, case)
+    got, want = module(z.requires_grad_(True), mask), module_math(module, z, mask)
+    if case == "tp":  # the split adds linear_2's bias after the reduction
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+    assert got.grad_fn is not None
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_float32_at_the_kernels_widths_reaches_the_kernel(monkeypatch, grad):
+    """float32 at C = 128 and a hidden width of 512, as if on the card: the
+    module takes the wrapper, which launches the kernel, through the
+    kernel's Function where autograd records."""
+    seen = []
+    monkeypatch.setattr(transition, "on_cpu", lambda t: False)
+    monkeypatch.setattr(transition, "_pair_transition_kernel", lambda *args, eps: seen.append(eps) or args[0])
+    module, z, mask = _case_module(monkeypatch, "kernel")
+    with torch.set_grad_enabled(grad):
+        out = module(z, mask)
+    assert seen == [LN_EPS]
+    if grad:
+        assert type(out.grad_fn).__name__ == "RecomputedBackward"
+    else:
+        assert out is z
 
 
 @pytest.mark.parametrize("c,hidden,takes", [(128, 512, True), (128, 256, True), (128, 64, True), (128, 0, False),
@@ -133,11 +170,11 @@ def test_takes(c, hidden, takes):
 
 
 def test_launch_counter():
-    """LAUNCHES has the kernel's entry, which reset_launch_counts clears."""
-    assert "pair_transition" in launch.LAUNCHES
-    launch.LAUNCHES["pair_transition"] = 5
-    reset_launch_counts()
-    assert launch.LAUNCHES["pair_transition"] == 0
+    """The snapshot names the kernel's counter, which profiling.reset() clears."""
+    assert "launch.pair_transition" in profiling.counters()
+    profiling.count("launch.pair_transition", 5)
+    profiling.reset()
+    assert profiling.counters()["launch.pair_transition"] == 0
 
 
 def test_smoke_script_counts_the_transition():

@@ -16,6 +16,7 @@ import genie2_tpu.ops.trimul_fused as jfused
 from genie2_tpu.nn.pair_stack import TriangleMultiplicativeUpdate as FlaxTriMul
 from genie2_tpu_torch.nn.pair_stack import TriangleMultiplicativeUpdate
 from genie2_tpu_torch.ops import trimul
+from genie2_tpu_torch.utils import profiling
 from genie2_tpu_torch.utils.weights import params_from_flax
 
 B, N, C = 2, 128, 32
@@ -104,9 +105,9 @@ def test_module_matches_flax(n, outgoing):
 
 def test_wrappers_count_nothing_on_cpu(setup):
     z, res_mask, _, tw, _ = setup
-    trimul.reset_launch_counts()
+    profiling.reset()
     trimul.trimul(torch.tensor(z[:, :32, :32]), torch.tensor(res_mask[:, :32]), tw, True)
-    assert all(v == 0 for v in trimul.LAUNCHES.values())
+    assert all(v == 0 for k, v in profiling.counters().items() if k.startswith("launch."))
 
 
 def test_wrappers_refuse_other_devices(setup):

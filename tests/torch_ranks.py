@@ -16,6 +16,15 @@ import signal
 import numpy as np
 import torch
 
+from genie2_tpu_torch.utils import profiling
+
+
+def _volume(axis: str) -> dict:
+    """The bytes all-reduced over the `axis` ("tp" or "seq") group since
+    the last `profiling.reset()`, by direction."""
+    snap = profiling.counters()
+    return {d: snap[f"allreduce_bytes.{axis}.{d}"] for d in ("forward", "backward")}
+
 
 def _mesh(distributed: bool, device="cpu", n_model: int = 1, n_seq: int = 1):
     from genie2_tpu_torch.parallel import create_mesh
@@ -343,12 +352,12 @@ def tp_forward(rank: int, cases, n_model: int, distributed: bool = True):
         feats = to_device(shard_batch(batch, mesh), "cpu")
         rows = local_rows(len(trans), mesh)
         x = torch.as_tensor(trans)[rows]
-        tp.reset_volume()
+        profiling.reset()
         with torch.no_grad():
             z = apply_denoiser(run, Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x),
                                torch.as_tensor(t)[rows], feats, dtype=dtype)
         copy_keeps = all(q.dtype == dtype and q.shape == p.shape for p, q in zip(model.parameters(), run.parameters()))
-        out.append({"z": z, "split": sorted(plan.params) if plan else [], "volume": dict(tp.VOLUME),
+        out.append({"z": z, "split": sorted(plan.params) if plan else [], "volume": _volume("tp"),
                     "gathered": tp.gather_state_dict(model.state_dict(), plan),
                     "copy_keeps_shards": copy_keeps and tp.tp_plan(run) == plan
                     and all(p.dtype == torch.float32 for p in model.parameters())})
@@ -440,10 +449,10 @@ def seq_forward(rank: int, cases, n_seq: int, n_model: int = 1, distributed: boo
         feats = to_device(batch, "cpu")
         x = torch.as_tensor(trans)
         frames = Rigid(frenet_frames(x, feats["chain_index"], feats["residue_mask"]), x)
-        sp.reset_volume()
+        profiling.reset()
         with torch.no_grad():
             res = model(frames, torch.as_tensor(t), feats)
-            volume = dict(sp.VOLUME)
+            volume = _volume("seq")
             z_static = model(frames, torch.as_tensor(t), feats, static_pair_bias=model.static_bias(feats))["z"]
         rows = sp.row_slice(res["p"].shape[2], model.seq) if model.seq else slice(0, res["p"].shape[1])
         out.append({"z": res["z"], "p": res["p"], "rows": (rows.start, rows.stop), "volume": volume,
@@ -463,7 +472,7 @@ def seq_collectives(rank: int, distributed: bool = True):
     seq = sp.SeqGroup(mesh.seq_rank, mesh.n_seq, mesh.seq_group) if mesh else None
     full = torch.arange(24, dtype=torch.float32).reshape(2, 6, 2) / 7.0
     rows = slice(3 * rank, 3 * rank + 3) if seq else slice(None)
-    sp.reset_volume()
+    profiling.reset()
     x = full[:, rows].clone().requires_grad_(True)
     gathered = sp.gather_seq_rows(seq, 1, x)[0] if seq else x
     (gathered.sin() * full).sum().backward()  # every rank the same loss of the whole tensor
@@ -475,4 +484,4 @@ def seq_collectives(rank: int, distributed: bool = True):
     part = ym[:, rows]
     (part.square().sum() * (2.0 if seq else 1.0)).backward()  # each rank its rows, counted n_seq times
     return {"gathered": gathered.detach(), "reduced": reduced.detach(), "grad_gather": x.grad,
-            "grad_reduce": partial.grad, "grad_mean": y.grad, "volume": dict(sp.VOLUME)}
+            "grad_reduce": partial.grad, "grad_mean": y.grad, "volume": _volume("seq")}
